@@ -1,7 +1,9 @@
 """Carry gen_tpu state, given as numpy arrays, into the port.
 
 No counterpart in gen_tpu. The caller converts JAX arrays with
-``np.asarray``; this module never imports jax.
+``np.asarray``; this module never imports jax. Tensors go to the card
+unless ``device`` names another (:func:`gen_tpu_torch.utils.
+default_device`).
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ import torch
 
 from .choice_map import ChoiceMap
 from .dynamic.fn import init_param
+from .utils import default_device
 
 
 def _tensor(a, device=None) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        default_device() if device is None else device)
 
 
 def choicemap_from_numpy(leaf_items: Iterable[Tuple[tuple, np.ndarray]],

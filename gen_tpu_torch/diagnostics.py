@@ -8,6 +8,10 @@ pooled draws. Where PyTorch forced a difference: ``torch.median`` returns
 the lower middle value, so the median is taken as the mean of the two
 middle order statistics, as ``jnp.median`` does; the running minimum of the
 Geyer pair sums is ``torch.cummin``.
+
+Also here: :func:`autocorr_ess`, the per-chain autocorrelation ESS that
+``bench.py`` reports (a benchmark helper in gen_tpu), computed with
+``torch.fft`` so that a long history is reduced where it lies, on the card.
 """
 
 from __future__ import annotations
@@ -151,3 +155,28 @@ def summarize(samples: dict):
         out[name] = {k: v.reshape(ev_shape) if ev_shape else v[0]
                      for k, v in stats.items()}
     return out
+
+
+def autocorr_ess(x, block: int = 65536) -> float:
+    """ESS summed over chains of a ``(steps, chains)`` history: per-chain
+    FFT autocovariance, Geyer's initial positive sequence of pair sums,
+    ``n / (1 + 2 sum)``, and 1 for a chain with no variance. ``bench.py``'s
+    ``autocorr_ess``, in float64, blocked over chains."""
+    x = torch.as_tensor(x)
+    if x.shape[1] > block:
+        return float(sum(autocorr_ess(x[:, i:i + block])
+                         for i in range(0, x.shape[1], block)))
+    x = x.to(torch.float64)
+    n, m = x.shape
+    x = x - x.mean(dim=0, keepdim=True)
+    f = torch.fft.rfft(x, n=2 * n, dim=0)
+    acov = torch.fft.irfft(f * torch.conj(f), n=2 * n, dim=0)[:n] / n
+    var0 = acov[0]
+    ok = torch.isfinite(var0) & (var0 > 0)
+    rho = acov / torch.where(ok, var0, 1.0)[None, :]
+    n_pairs = (n - 1) // 2
+    pairs = rho[1:1 + 2 * n_pairs].reshape(n_pairs, 2, m).sum(dim=1)
+    stopped = torch.cumsum((pairs < 0).to(torch.int64), dim=0) > 0
+    s = torch.where(stopped, 0.0, pairs).sum(dim=0)
+    ess = torch.where(ok, n / (1.0 + 2.0 * s), 1.0)
+    return float(ess.sum())

@@ -18,10 +18,10 @@ Where PyTorch and Hopper forced differences:
   the VMEM envelope estimator, ``auto_tile_hmc``'s v5e table and the
   chunked driver that existed for VMEM) is not ported. The layout is
   ``(d, n)`` with chains contiguous; the public API stays ``(n, d)``.
-- The kernel is built on first use with ``nvcc`` for ``sm_90a`` into
-  ``_build/`` next to this file, keyed by a hash of the generated source,
-  and bound through a plain C entry point with ``ctypes`` (a build that
-  includes PyTorch's headers takes minutes; this one takes seconds).
+- The kernel is built on first use with ``nvcc`` for ``sm_90a``
+  (:mod:`._cuda_build`, shared with the fused NUTS kernel), keyed by a
+  hash of the generated source, and bound through a plain C entry point
+  with ``ctypes``.
 - The kernel's PRNG is Philox seeded from the key's two words, so its
   draws differ from the twin's (which uses :mod:`gen_tpu_torch.random`);
   with ``injected_rng`` both consume the same numbers and agree.
@@ -30,11 +30,7 @@ Where PyTorch and Hopper forced differences:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import time
 import weakref
 from pathlib import Path
 from typing import Callable, Optional
@@ -43,19 +39,14 @@ import torch
 
 from .. import random
 from ..utils import sqrt_mass_safe
+from . import _cuda_build
 from .scalarize import StagedLogp, stage_scalarized
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
 _CSRC = Path(__file__).resolve().parent / "csrc" / "hmc_fused.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _TINY = 1.1754944e-38
 
 _STAGED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_LIBS = {}
-BUILD_LOG = []                 # (source hash, seconds, ptxas report)
 
 
 def stage(logp: Callable, d: int, device) -> StagedLogp:
@@ -75,46 +66,22 @@ def kernel_source(staged: StagedLogp) -> str:
             .replace("// @@STAGED_VAG@@", staged.cuda_source()))
 
 
-def _nvcc() -> str:
-    """The CUDA toolkit's nvcc, located as torch.utils.cpp_extension
-    locates it (``CUDA_HOME``, then nvcc on the PATH, then the default
-    install prefix)."""
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
-    if not CUDA_HOME or not os.path.exists(nvcc):
-        raise RuntimeError(f"hmc_fused: no CUDA toolkit found "
-                           f"(CUDA_HOME={CUDA_HOME!r})")
-    return nvcc
+_SIGNATURES = {"hmc_fused_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def build_job(staged: StagedLogp):
+    """``(name, source, signatures)`` for :func:`_cuda_build.build_all`."""
+    return ("hmc_fused", kernel_source(staged), _SIGNATURES)
 
 
 def build(staged: StagedLogp) -> ctypes.CDLL:
     """Compile (once per generated source) and load the kernel library."""
-    src = kernel_source(staged)
-    h = hashlib.sha256((src + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
-    if h in _LIBS:
-        return _LIBS[h]
-    so = _BUILD_DIR / f"hmc_fused_{h}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = _BUILD_DIR / f"hmc_fused_{h}.cu"
-        cu.write_text(src)
-        tmp = _BUILD_DIR / f"hmc_fused_{h}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(cu)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"hmc_fused: nvcc failed for {cu}:\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG.append((h, time.perf_counter() - t0, proc.stderr))
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    u = ctypes.c_uint
-    lib.hmc_fused_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, f, i, u,
-                                     u, p, p, p, p]
-    lib.hmc_fused_launch.restype = ctypes.c_int
-    _LIBS[h] = lib
-    return lib
+    return _cuda_build.build(*build_job(staged))
 
 
 def _prepare(logp, values0, inv_mass_diag, injected_rng, n_steps,
@@ -196,9 +163,7 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
             float(eps_jitter), -1 if collect_idx is None else collect_idx,
             seed0, seed1, *([t.data_ptr() for t in inj] if inj is not None
                             else [None, None, None]), stream)
-    if rc != 0:
-        raise RuntimeError(f"hmc_fused: kernel launch failed with CUDA "
-                           f"error {rc}")
+    _cuda_build.check_launch(rc, "hmc_fused")
     hmc_chains_fused.launches += 1
     return _outputs(vout, hist, acc, collect_idx)
 

@@ -1,0 +1,333 @@
+"""Fused many-chain FSM-NUTS: the whole sampling run as one CUDA kernel launch.
+
+Counterpart: ``gen_tpu/ops/nuts_fused.py``. Ported: the pair-scheduled
+kernel K3 (``_kernel_pair``, ``nuts_chains_fused(paired=True)``) as
+``csrc/nuts_pair.cu``, its plain version :func:`nuts_chains_fused_plain`,
+and the drivers :func:`nuts_chains_fused_chunked`, :func:`nuts_collect_draws`
+and :func:`extract_completed_draws`. The one-leapfrog-per-tick kernel K6
+(``paired=False``) is not ported yet and raises.
+
+Where PyTorch and Hopper forced differences:
+
+- Dispatch is by the device of ``values0``: a CUDA tensor launches the
+  kernel (a failed build or launch raises; nothing falls back), a CPU
+  tensor runs :func:`nuts_chains_fused_plain`. There is no ``use_pallas``,
+  ``interpret`` or ``tile``, and no stream-vs-batched dispatch (streamed
+  likelihoods are not staged yet).
+- The plain version is :func:`gen_tpu_torch.inference.nuts_fsm.run_pairs`,
+  the port's ``nuts_fsm_paired`` loop, driven by the torch rendering of the
+  staged program: one function is both the algorithm's twin and the
+  kernel's plain version.
+- The chunked drivers bound the per-pair history by a byte budget in device
+  memory (``HIST_BUDGET_BYTES``), not by the TPU's VMEM envelope; the
+  kernel's state does not live in the history's memory.
+- The kernel draws with Philox seeded from the key's two words, so its
+  draws differ from the plain version's (:mod:`gen_tpu_torch.random`);
+  with ``injected_rng`` both consume the same numbers and agree.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+
+from .. import random
+from ..inference.nuts_fsm import (injected_draws, key_draws, run_pairs,
+                                  summary_stats)
+from ..utils import sqrt_mass_safe
+from . import _cuda_build
+from .hmc_fused import stage
+from .scalarize import StagedLogp
+
+BLOCK = 128                    # threads (chains) per block; tuning is later
+HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
+_CSRC = Path(__file__).resolve().parent / "csrc" / "nuts_pair.cu"
+_SIGNATURES = {"nuts_pair_launch": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def extract_completed_draws(hist, hist_cnt, m: int):
+    """``(ticks, n[, d])`` tick series + completed-count streams ->
+    ``(m, n[, d])`` completed draws: draw i of chain j is the series value
+    at the first tick where the count reaches i+1 (a per-chain
+    searchsorted; ``hist_cnt`` is nondecreasing per chain). Each completed
+    trajectory's endpoint counts once, so use these for moments; the raw
+    tick series is length-biased. A draw not reached takes the last tick,
+    as gen_tpu's clamped gather does."""
+    t = hist_cnt.shape[0]
+    targets = torch.arange(1, m + 1, dtype=hist_cnt.dtype,
+                           device=hist_cnt.device)
+    idx = torch.searchsorted(hist_cnt.T.contiguous(),
+                             targets.expand(hist_cnt.shape[1], m)
+                             .contiguous())                  # (n, m)
+    idx = torch.clamp(idx, max=t - 1)
+    if hist.dim() == 2:
+        return torch.gather(hist.T, 1, idx).T
+    d = hist.shape[2]
+    out = torch.gather(hist.permute(1, 0, 2), 1,
+                       idx[:, :, None].expand(-1, -1, d))    # (n, m, d)
+    return out.permute(1, 0, 2)
+
+
+def kernel_source(staged: StagedLogp, max_depth: int) -> str:
+    """The kernel's CUDA source with the staged program spliced in."""
+    defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {staged.n_res}\n"
+               f"#define NUTS_MD {int(max_depth)}\n"
+               f"#define NUTS_BLOCK {BLOCK}")
+    return (_CSRC.read_text().replace("// @@DEFINES@@", defines)
+            .replace("// @@STAGED_VAG@@", staged.cuda_source()))
+
+
+def build_job(staged: StagedLogp, max_depth: int):
+    """``(name, source, signatures)`` for :func:`_cuda_build.build_all`."""
+    return ("nuts_pair", kernel_source(staged, max_depth), _SIGNATURES)
+
+
+def build(staged: StagedLogp, max_depth: int) -> ctypes.CDLL:
+    """Compile (once per generated source) and load the kernel library."""
+    return _cuda_build.build(*build_job(staged, max_depth))
+
+
+def _prepare(logp, values0, inv_mass_diag, collect_idx, paired):
+    if not paired:
+        raise NotImplementedError(
+            "nuts_chains_fused(paired=False) runs the one-leapfrog-per-tick "
+            "kernel K6 (gen_tpu/ops/nuts_fused.py:230), which is not ported "
+            "yet; use paired=True")
+    if not isinstance(values0, torch.Tensor) or values0.ndim != 2 \
+            or 0 in values0.shape:
+        raise ValueError("values0 must be a non-empty (n_chains, d) tensor")
+    device = values0.device
+    n, d = values0.shape
+    if collect_idx is not None and not 0 <= collect_idx < d:
+        raise ValueError(f"collect_idx {collect_idx} out of range for d={d}")
+    staged = stage(logp, d, device)
+    vt = values0.to(torch.float32).T.contiguous()
+    inv = (torch.ones(d, dtype=torch.float32, device=device)
+           if inv_mass_diag is None else
+           torch.as_tensor(inv_mass_diag, dtype=torch.float32,
+                           device=device).reshape(d).contiguous())
+    return staged, vt, inv
+
+
+def _outputs(vout, hist, hist_cnt, counts, stats5, collect_idx):
+    hist = hist if collect_idx is not None else hist.permute(0, 2, 1)
+    stats = summary_stats(counts, *stats5)
+    return vout.T, hist, hist_cnt, counts, stats
+
+
+def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
+                      num_ticks: int, eps: float, max_depth: int = 8,
+                      inv_mass_diag=None, collect_idx: Optional[int] = 0,
+                      divergence_threshold: float = 1000.0,
+                      injected_rng=None, paired: bool = False):
+    """Run ``num_ticks`` FSM-NUTS leapfrog slots on the ``(n, d)`` chains
+    ``values0``, as ``ceil(num_ticks / 2)`` pairs (``paired=True``, the
+    pair-scheduled kernel K3; ``paired=False`` needs K6 and raises).
+
+    Returns ``(values (n, d), hist (pairs, n), hist_counts (pairs, n)
+    int32, counts (n,) int32, stats)``: ``hist[p, j]`` is coordinate
+    ``collect_idx`` of chain j's current sample after pair p (the whole
+    ``(pairs, n, d)`` state, a strided view, for ``collect_idx=None``);
+    ``hist_counts`` the completed-trajectory count after pair p (feed both
+    to :func:`extract_completed_draws`); ``stats`` the dict
+    ``mean_accept``/``mean_depth``/``num_divergent`` per chain.
+    ``injected_rng=(z (pairs, n, d), u_dir0, u_take1, u_bias1, u_dir1,
+    u_take2, u_bias2, u_dir2 each (pairs, n))`` replaces the kernel's
+    Philox draws, which makes the kernel and its plain version agree pair
+    for pair. A CUDA ``values0`` launches the kernel; a CPU ``values0``
+    runs :func:`nuts_chains_fused_plain`."""
+    if values0.device.type == "cpu":
+        return nuts_chains_fused_plain(
+            key, logp, values0, num_ticks, eps, max_depth, inv_mass_diag,
+            collect_idx, divergence_threshold, injected_rng, paired)
+    if values0.device.type != "cuda":
+        raise ValueError(f"nuts_chains_fused: unsupported device "
+                         f"{values0.device}")
+    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx,
+                               paired)
+    d, n = vt.shape
+    pairs = (num_ticks + 1) // 2
+    lib = build(staged, max_depth)
+    dev = vt.device
+    with torch.cuda.device(dev):
+        msc = sqrt_mass_safe(inv).contiguous()
+        inj = [None, None]
+        if injected_rng is not None:
+            if len(injected_rng) != 8:
+                raise ValueError("injected_rng needs 8 streams (z and 7 "
+                                 "uniforms) for paired=True")
+            z, *us = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                      for x in injected_rng)
+            inj = [z.reshape(pairs, n, d).permute(0, 2, 1).contiguous(),
+                   torch.stack([u.reshape(pairs, n) for u in us], dim=1)
+                   .contiguous()]
+        vout = torch.empty_like(vt)
+        hist = torch.empty((pairs, n) if collect_idx is not None
+                           else (pairs, d, n), dtype=torch.float32,
+                           device=dev)
+        hist_cnt = torch.empty((pairs, n), dtype=torch.int32, device=dev)
+        counts = torch.empty((n,), dtype=torch.int32, device=dev)
+        stats = torch.empty((5, n), dtype=torch.float32, device=dev)
+        seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
+        res = staged.res_consts.contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nuts_pair_launch(
+            vt.data_ptr(), vout.data_ptr(), hist.data_ptr(),
+            hist_cnt.data_ptr(), counts.data_ptr(), stats.data_ptr(),
+            res.data_ptr(), inv.data_ptr(), msc.data_ptr(), n, pairs,
+            float(eps), float(divergence_threshold),
+            -1 if collect_idx is None else collect_idx, seed0, seed1,
+            *[None if t is None else t.data_ptr() for t in inj], stream)
+    _cuda_build.check_launch(rc, "nuts_pair")
+    nuts_chains_fused.launches += 1
+    # accept sum, depth sum, divergences, in-flight alpha sum and leapfrogs
+    five = (stats[0], stats[1], stats[2].to(torch.int32), stats[3],
+            stats[4].to(torch.int32))
+    return _outputs(vout, hist, hist_cnt, counts, five, collect_idx)
+
+
+nuts_chains_fused.launches = 0
+
+
+def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
+                            num_ticks: int, eps: float, max_depth: int = 8,
+                            inv_mass_diag=None,
+                            collect_idx: Optional[int] = 0,
+                            divergence_threshold: float = 1000.0,
+                            injected_rng=None, paired: bool = False):
+    """The kernel's plain PyTorch version, on any device: the port's
+    ``nuts_fsm_paired`` loop (:func:`run_pairs`) through the torch rendering
+    of the staged program, in float32 with the kernel's roundings and
+    summation order. Without ``injected_rng`` each chain draws from its own
+    key, ``random.split(key, n)``, as gen_tpu's XLA path does."""
+    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx,
+                               paired)
+    d, n = vt.shape
+    dev = vt.device
+    pairs = (num_ticks + 1) // 2
+    draw = (key_draws(random.split(key.to(dev), n), d, torch.float32)
+            if injected_rng is None
+            else injected_draws(injected_rng, n, d, torch.float32, dev))
+    s, hist, hist_cnt = run_pairs(
+        staged.vag, vt, float(eps), pairs, max_depth, inv,
+        divergence_threshold, draw, collect_idx, ckpt_bf16=True)
+    five = (s["acc_sum"], s["depth_sum"], s["div"], s["asum"], s["nlf"])
+    return _outputs(s["theta"], hist, hist_cnt, s["count"], five,
+                    collect_idx)
+
+
+def _chunk_ticks(n, d, collect_idx, num_ticks):
+    """Ticks per chunk so that one chunk's history (values and counts, one
+    row per pair) stays within ``HIST_BUDGET_BYTES``."""
+    per_pair = ((d if collect_idx is None else 1) + 1) * 4 * n
+    return max(2, min(num_ticks, 2 * (HIST_BUDGET_BYTES // per_pair)))
+
+
+def nuts_chains_fused_chunked(key, logp, values0, num_ticks: int,
+                              eps: float, chunk_ticks: Optional[int] = None,
+                              **kw):
+    """Drive :func:`nuts_chains_fused` in tick chunks and stitch the
+    streams. A chunk boundary restarts the in-flight trajectory from the
+    current sample, a valid transition boundary. ``hist_counts`` comes back
+    cumulative across chunks, so :func:`extract_completed_draws` works on
+    the stitched streams; stats are count-weighted across chunks. Chunks
+    are sized by device memory for the history (``HIST_BUDGET_BYTES``)."""
+    n, d = values0.shape
+    if chunk_ticks is None:
+        chunk_ticks = _chunk_ticks(n, d, kw.get("collect_idx", 0),
+                                   num_ticks)
+    dev = values0.device
+    hists, hcnts = [], []
+    cnt_total = torch.zeros((n,), dtype=torch.int32, device=dev)
+    acc_w = torch.zeros((n,), dtype=torch.float32, device=dev)
+    depth_w = torch.zeros((n,), dtype=torch.float32, device=dev)
+    div_total = torch.zeros((n,), dtype=torch.int32, device=dev)
+    values = values0
+    key = key.to(dev)
+    done = 0
+    last_stats = None
+    while done < num_ticks:
+        t = min(chunk_ticks, num_ticks - done)
+        key, k_use = random.split(key)
+        values, hist, hcnt, cnt, stats = nuts_chains_fused(
+            k_use, logp, values, num_ticks=t, eps=eps, **kw)
+        hists.append(hist)
+        hcnts.append(hcnt + cnt_total[None, :])
+        cntf = cnt.to(torch.float32)
+        acc_w = acc_w + stats["mean_accept"] * cntf
+        depth_w = depth_w + stats["mean_depth"] * cntf
+        div_total = div_total + stats["num_divergent"]
+        cnt_total = cnt_total + cnt
+        last_stats = stats
+        done += t
+    denom = torch.clamp(cnt_total.to(torch.float32), min=1.0)
+    # a chain with no completed trajectory reports the last chunk's
+    # in-flight accept statistic, as nuts_chains_fused does
+    mean_accept = torch.where(cnt_total > 0, acc_w / denom,
+                              last_stats["mean_accept"])
+    stats = dict(mean_accept=mean_accept, mean_depth=depth_w / denom,
+                 num_divergent=div_total)
+    return (values, torch.cat(hists, dim=0), torch.cat(hcnts, dim=0),
+            cnt_total, stats)
+
+
+def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
+                       max_ticks: Optional[int] = None,
+                       chunk_ticks: Optional[int] = None, **kw):
+    """Bounded-memory draw collection: drive :func:`nuts_chains_fused` in
+    chunks, fold each chunk's COMPLETED draws into a fixed ``(num_draws,
+    n[, d])`` buffer and drop the streams, so memory is O(num_draws x n)
+    whatever the slowest chain needs. Returns ``(draws, values, counts,
+    ticks_used)``; ``draws[j, i]`` is chain i's (j+1)-th completed endpoint,
+    NaN where a chain completed fewer than ``num_draws`` within
+    ``max_ticks`` (default ``64 * num_draws``)."""
+    n, d = values0.shape
+    ci = kw.get("collect_idx", 0)
+    if chunk_ticks is None:
+        chunk_ticks = _chunk_ticks(n, d, ci, 4096)
+    if max_ticks is None:
+        max_ticks = 64 * num_draws
+    dev = values0.device
+    targets = torch.arange(1, num_draws + 1, dtype=torch.int32, device=dev)
+    draws = torch.full((num_draws, n) if ci is not None
+                       else (num_draws, n, d), math.nan,
+                       dtype=torch.float32, device=dev)
+    base = torch.zeros((n,), dtype=torch.int32, device=dev)
+    values = values0
+    key = key.to(dev)
+    done = 0
+    while done < max_ticks:
+        t = int(min(chunk_ticks, max_ticks - done))
+        key, k_use = random.split(key)
+        values, hist, hcnt, _, _ = nuts_chains_fused(
+            k_use, logp, values, num_ticks=t, eps=eps, **kw)
+        hcnt_abs = hcnt + base[None, :]                     # (pairs, n)
+        pos = torch.searchsorted(hcnt_abs.T.contiguous(),
+                                 targets.expand(n, num_draws).contiguous())
+        pos = torch.clamp(pos, max=hcnt.shape[0] - 1)     # (n, num_draws)
+        new_base = base + hcnt[-1]
+        mask = (targets[None, :] > base[:, None]) \
+            & (targets[None, :] <= new_base[:, None])
+        if hist.dim() == 2:
+            vals = torch.gather(hist.T, 1, pos)             # (n, num_draws)
+            draws = torch.where(mask.T, vals.T, draws)
+        else:
+            vals = torch.gather(hist.permute(1, 0, 2), 1,
+                                pos[:, :, None].expand(-1, -1, d))
+            draws = torch.where(mask.T[:, :, None], vals.permute(1, 0, 2),
+                                draws)
+        base = new_base
+        del hist, hcnt
+        done += t
+        if int(base.min()) >= num_draws:
+            break
+    return draws, values, base, done

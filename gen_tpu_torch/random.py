@@ -26,6 +26,8 @@ from typing import Sequence, Union
 
 import torch
 
+from .utils import default_device
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -57,10 +59,14 @@ def threefry2x32(k0, k1, x0, x1):
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
     """Key from an integer seed: words ``(seed >> 32, seed & 0xFFFFFFFF)``,
-    as ``jax.random.PRNGKey`` builds them from a 64-bit seed."""
+    as ``jax.random.PRNGKey`` builds them from a 64-bit seed. On the card
+    unless ``device`` names another (:func:`gen_tpu_torch.utils.
+    default_device`); everything drawn from a key follows its device."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & _M32, seed & _M32],
-                        dtype=torch.int64, device=device)
+                        dtype=torch.int64,
+                        device=default_device() if device is None
+                        else device)
 
 
 def _hash_iota(key, shape):
@@ -158,6 +164,15 @@ def normal(key: torch.Tensor, shape: Shape = (),
     if dtype == torch.float32:
         return sqrt2 * erfinv_f32(u)
     return sqrt2 * torch.special.erfinv(u)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = (),
+              dtype=None) -> torch.Tensor:
+    """``uniform(key, shape, dtype) < p``, as ``jax.random.bernoulli``
+    (its default mode). ``dtype`` is that of ``p``: JAX's default float,
+    here ``torch.get_default_dtype()``."""
+    dtype = torch.get_default_dtype() if dtype is None else dtype
+    return uniform(key, shape, dtype) < p
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,

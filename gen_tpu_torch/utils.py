@@ -2,15 +2,30 @@
 
 Counterpart: ``gen_tpu/utils.py``. Pytrees go through
 ``torch.utils._pytree``; ``sqrt_mass_safe`` keeps gen_tpu's frozen-coordinate
-convention. Left out until a slice needs them: ``partition_inexact``/
-``combine``/``tree_vdot`` (gradient methods) and the bf16 packing helpers
-(the fused NUTS kernel).
+convention; the bf16 helpers use gen_tpu's integer bit arithmetic, so the
+fused NUTS kernel (``ops/csrc/nuts_pair.cu``) and its twin round alike.
+Left out until a slice needs them: ``partition_inexact``/``combine``/
+``tree_vdot`` (gradient methods).
+
+Not in gen_tpu: :func:`default_device`. The port's entry points put new
+tensors on the card unless the caller names another device.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.utils._pytree as pytree
+
+_M32 = 0xFFFFFFFF
+_HI16 = 0xFFFF0000
+
+
+def default_device() -> torch.device:
+    """Where the port's entry points create tensors when the caller names
+    no device: the CUDA card. There is no CPU fallback; without CUDA a
+    call that allocates there raises, as torch does. Pass ``device="cpu"``
+    to run on the CPU (the tests do)."""
+    return torch.device("cuda")
 
 
 def is_static_scalar(x) -> bool:
@@ -58,3 +73,50 @@ def sqrt_mass_safe(inv_mass: torch.Tensor) -> torch.Tensor:
     return torch.where(inv_mass > 0,
                        1.0 / torch.sqrt(torch.clamp(inv_mass, min=1e-30)),
                        torch.zeros_like(inv_mass))
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """The bits of a float32 (or int32) tensor as uint32 values in int64
+    (torch's uint32 lacks shifts on the CPU)."""
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return x.to(torch.int64) & _M32
+
+
+def _as_i32(u: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 with the same bits."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+def _bf16_bits(u: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest-even to bf16, as uint32 bits with the low half
+    cleared. The carry of an all-ones-mantissa NaN wraps exactly as in
+    uint32 arithmetic."""
+    return (u + 0x7FFF + ((u >> 16) & 1)) & _HI16
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest bf16 value (ties to even), returned as
+    float32, with gen_tpu's bit arithmetic ``(u + 0x7FFF + ((u >> 16) & 1))
+    & 0xFFFF0000``. Equal to a cast through ``torch.bfloat16`` for every
+    finite value; an all-ones-mantissa NaN can carry into the sign bit, the
+    same artifact as in gen_tpu and in the CUDA kernel."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return _as_i32(_bf16_bits(_u32(x))).view(torch.float32)
+
+
+def bf16_pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pack two float32 tensors as bf16x2 into one int32 tensor, ``a`` in
+    the high half and ``b`` in the low half. Round trip = :func:`bf16_round`
+    exactly."""
+    hi = _bf16_bits(_u32(torch.as_tensor(a, dtype=torch.float32)))
+    lo = _bf16_bits(_u32(torch.as_tensor(b, dtype=torch.float32))) >> 16
+    return _as_i32(hi | lo)
+
+
+def bf16_unpack2(p: torch.Tensor):
+    """Inverse of :func:`bf16_pack2`: int32 -> (a, b) float32 tensors."""
+    u = _u32(p)
+    a = _as_i32(u & _HI16).view(torch.float32)
+    b = _as_i32((u << 16) & _M32).view(torch.float32)
+    return a, b

@@ -120,7 +120,7 @@ def test_regression_trace_layout_matches_gen_tpu():
     sel_j = gt.select("slope", "intercept", "log_noise")
     jchm = tr.get_choices()
     tchm = choicemap_from_numpy(
-        [(p, np.asarray(v)) for p, v in jchm.leaf_items()])
+        [(p, np.asarray(v)) for p, v in jchm.leaf_items()], device="cpu")
     sel_t = tt.select("slope", "intercept", "log_noise")
     assert [p for p, _ in tchm.filter(sel_t).leaf_items()] == [
         p for p, _ in jchm.filter(sel_j).leaf_items()]

@@ -64,9 +64,9 @@ def test_generate_and_simulate_same_key(seed):
     jsim = jax_regression.simulate(jax.random.PRNGKey(seed), args_j)
     with float64_default():
         args_t, obs_t = torch_args(torch.float64)
-        ttr, tw = torch_regression.generate(tt.random.PRNGKey(seed), args_t,
+        ttr, tw = torch_regression.generate(tt.random.PRNGKey(seed, "cpu"), args_t,
                                             obs_t)
-        tsim = torch_regression.simulate(tt.random.PRNGKey(seed), args_t)
+        tsim = torch_regression.simulate(tt.random.PRNGKey(seed, "cpu"), args_t)
     assert tw.dtype == torch.float64
     np.testing.assert_allclose(_choices(ttr.get_choices()),
                                _choices(jtr.get_choices()), rtol=1e-10)
@@ -94,7 +94,7 @@ def test_vmapped_generate_over_64_keys():
     with float64_default():
         args_t, obs_t = torch_args(torch.float64)
         traces, tw = vmap(lambda k: torch_regression.generate(
-            k, args_t, obs_t))(tt.random.split(tt.random.PRNGKey(4), 64))
+            k, args_t, obs_t))(tt.random.split(tt.random.PRNGKey(4, "cpu"), 64))
         tv = vmap(lambda tr: tr.get_choices().filter(sel_t).to_array())(
             traces)
     assert tv.shape == (64, 3) and tw.shape == (64,)
@@ -170,8 +170,9 @@ def test_nested_call_inline_and_param_float64():
                                gt.choicemap(y=jnp.asarray(y)))
     with float64_default():
         t_outer = _nested_models(tt, torch)
-        params_from_numpy(t_outer, {"shift": np.float64(0.25)})
-        ttr, tw = t_outer.generate(tt.random.PRNGKey(6), (0.5,),
+        params_from_numpy(t_outer, {"shift": np.float64(0.25)},
+                          device="cpu")
+        ttr, tw = t_outer.generate(tt.random.PRNGKey(6, "cpu"), (0.5,),
                                    tt.choicemap(y=torch.tensor(y)))
         wt, _ = t_outer.assess((0.5,), ttr.get_choices())
     assert list(ttr.get_choices().addresses()) == list(

@@ -35,7 +35,7 @@ def _targets(dtype_j=jnp.float32, dtype_t=torch.float32):
     args_j, obs_j = jax_args(dtype_j)
     jtr, _ = jax_regression.generate(jax.random.PRNGKey(0), args_j, obs_j)
     args_t, obs_t = torch_args(dtype_t)
-    ttr, _ = torch_regression.generate(tt.random.PRNGKey(0), args_t, obs_t)
+    ttr, _ = torch_regression.generate(tt.random.PRNGKey(0, "cpu"), args_t, obs_t)
     return (JFlatTarget(jtr, gt.select(*ADDRS)),
             FlatTarget(ttr, tt.select(*ADDRS)))
 
@@ -87,8 +87,8 @@ def test_hmc_chains_step_for_step(inv_mass):
             teleport_after=5, inv_mass_diag=None if inv_mass is None
             else jnp.asarray(inv_mass, jnp.float32)))(v0)
         v0, vj, cj, aj = map(np.asarray, (v0, vj, cj, aj))
-    vt, ct, at = hmc_chains(tt.random.PRNGKey(3), t,
-                            flat_values_from_numpy(v0), n_steps=n_steps,
+    vt, ct, at = hmc_chains(tt.random.PRNGKey(3, "cpu"), t,
+                            flat_values_from_numpy(v0, "cpu"), n_steps=n_steps,
                             L=10, eps=0.035, teleport_after=5,
                             inv_mass_diag=inv_mass)
     assert ct.shape == (n_steps, n, 3) and at.shape == (n_steps, n)

@@ -48,7 +48,7 @@ def _regression_targets():
     args_j, obs_j = jax_args()
     jtr, _ = jax_regression.generate(jax.random.PRNGKey(0), args_j, obs_j)
     args_t, obs_t = torch_args()
-    ttr, _ = torch_regression.generate(tt.random.PRNGKey(0), args_t, obs_t)
+    ttr, _ = torch_regression.generate(tt.random.PRNGKey(0, "cpu"), args_t, obs_t)
     return (JFlatTarget(jtr, gt.select(*ADDRS)),
             FlatTarget(ttr, tt.select(*ADDRS)))
 
@@ -145,7 +145,7 @@ def test_twin_matches_interpret_kernel_regression():
                              interpret=True)
         vj, cj, aj = map(np.asarray, (vj, cj, aj))
     before = hmc_chains_fused.launches
-    vt, ct, at = hmc_chains_fused(tt.random.PRNGKey(1), t.logp,
+    vt, ct, at = hmc_chains_fused(tt.random.PRNGKey(1, "cpu"), t.logp,
                                   torch.from_numpy(vals0), n_steps, L=L,
                                   eps=0.035, collect_idx=None,
                                   injected_rng=inj)
@@ -172,7 +172,7 @@ def test_twin_matches_interpret_kernel_frozen_coordinate():
                              interpret=True)
         vj, cj, aj = map(np.asarray, (vj, cj, aj))
     vt, ct, at = hmc_chains_fused_plain(
-        tt.random.PRNGKey(1), logp_t, torch.from_numpy(vals0), n_steps, L=L,
+        tt.random.PRNGKey(1, "cpu"), logp_t, torch.from_numpy(vals0), n_steps, L=L,
         eps=0.4, collect_idx=1, inv_mass_diag=INV_MASS_FROZEN,
         injected_rng=inj)
     np.testing.assert_array_equal(at.numpy(), aj)
@@ -188,7 +188,7 @@ def test_twin_own_randomness_samples_the_gaussian():
     vals0 = torch.from_numpy(
         (np.random.default_rng(9).standard_normal((512, 3)) * SDS)
         .astype(np.float32))
-    vt, ct, at = hmc_chains_fused(tt.random.PRNGKey(2), logp_t, vals0, 150,
+    vt, ct, at = hmc_chains_fused(tt.random.PRNGKey(2, "cpu"), logp_t, vals0, 150,
                                   L=5, eps=0.4, collect_idx=None,
                                   inv_mass_diag=INV_MASS_FROZEN)
     draws = ct[50:].reshape(-1, 3)

@@ -22,7 +22,7 @@ def _words(a):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_split_fold_in_bits_exact(seed):
-    kj, kt = jax.random.PRNGKey(seed), tr.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), tr.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(_words(kj), kt.numpy())
     for num in [2, 5, (3, 4)]:
         np.testing.assert_array_equal(_words(jax.random.split(kj, num)),
@@ -42,7 +42,7 @@ def test_key_split_fold_in_bits_exact(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_uniform_and_randint_exact(seed):
-    kj, kt = jax.random.PRNGKey(seed), tr.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), tr.PRNGKey(seed, "cpu")
     for shape in SHAPES:
         np.testing.assert_array_equal(
             np.asarray(jax.random.uniform(kj, shape, jnp.float32)),
@@ -69,7 +69,7 @@ def test_uniform_and_randint_exact(seed):
 def test_normal_float32_within_4_ulp(seed):
     a = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (200000,),
                                      jnp.float32))
-    b = tr.normal(tr.PRNGKey(seed), (200000,)).numpy()
+    b = tr.normal(tr.PRNGKey(seed, "cpu"), (200000,)).numpy()
     assert b.dtype == np.float32
     ulp = np.abs(a.view(np.int32).astype(np.int64)
                  - b.view(np.int32).astype(np.int64))
@@ -78,8 +78,34 @@ def test_normal_float32_within_4_ulp(seed):
 
 def test_vmap_over_keys_matches_jax_vmap():
     keys_j = jax.random.split(jax.random.PRNGKey(5), 16)
-    keys_t = tr.split(tr.PRNGKey(5), 16)
+    keys_t = tr.split(tr.PRNGKey(5, "cpu"), 16)
     ref = jax.vmap(lambda k: jax.random.uniform(
         jax.random.split(k)[1], (3,), jnp.float32))(keys_j)
     out = torch.func.vmap(lambda k: tr.uniform(tr.split(k)[1], (3,)))(keys_t)
     np.testing.assert_array_equal(np.asarray(ref), out.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_bernoulli_matches_jax(seed):
+    kj, kt = jax.random.PRNGKey(seed), tr.PRNGKey(seed, "cpu")
+    for dtype_j, dtype_t in ((jnp.float32, torch.float32),
+                             (jnp.float64, torch.float64)):
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.bernoulli(kj, jnp.asarray(0.3, dtype_j),
+                                            (500,))),
+            tr.bernoulli(kt, 0.3, (500,), dtype_t).numpy())
+
+
+def test_entry_points_default_to_the_card():
+    """No device named means the card (the helper is checked, not an
+    allocation: this machine may have none); ``device="cpu"`` still gives
+    CPU tensors."""
+    from gen_tpu_torch.convert import flat_values_from_numpy
+    from gen_tpu_torch.utils import default_device
+    assert default_device() == torch.device("cuda")
+    assert tr.PRNGKey(3, "cpu").device.type == "cpu"
+    assert flat_values_from_numpy(np.zeros((2, 3)), "cpu").device.type == \
+        "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tr.PRNGKey(3)

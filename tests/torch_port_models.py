@@ -1,6 +1,8 @@
-"""The headline regression model (bench.py) written twice, for gen_tpu and
-for gen_tpu_torch, with its data made by numpy: shared by the
-tests/test_torch_*.py files that hold the port to gen_tpu."""
+"""The main path's models written twice, for gen_tpu and for gen_tpu_torch,
+with their data made by numpy: the headline regression model (bench.py)
+and eight_schools (benchmarks/bench_hard_targets.py, the general-model
+engine's workload). Shared by the tests/test_torch_*.py files that hold
+the port to gen_tpu."""
 
 import contextlib
 
@@ -38,6 +40,40 @@ def torch_regression(X):
     tt.normal_linear(X, torch.stack([slope, intercept]),
                      torch.exp(log_noise)) @ "ys"
     return slope
+
+
+YS_8 = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
+SIGMAS_8 = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+SCHOOL_ADDRS = ("mu", "log_tau", "theta_std")
+
+
+def make_schools(K=100, seed=0, mu_true=4.0, tau_true=6.0):
+    """K synthetic schools from the model's prior-predictive structure."""
+    rng = np.random.default_rng(seed)
+    sigmas = rng.uniform(9.0, 18.0, K)
+    theta = mu_true + tau_true * rng.standard_normal(K)
+    ys = theta + sigmas * rng.standard_normal(K)
+    return ys, sigmas
+
+
+@gt.gen
+def jax_eight_schools(sigmas):
+    mu = gt.normal(0.0, 10.0) @ "mu"
+    log_tau = gt.normal(0.0, 1.5) @ "log_tau"
+    theta_std = gt.normal(jnp.zeros(sigmas.shape[0]), 1.0) @ "theta_std"
+    gt.normal(mu + jnp.exp(log_tau) * theta_std, sigmas) @ "ys"
+    return mu
+
+
+@tt.gen
+def torch_eight_schools(sigmas):
+    mu = tt.normal(0.0, 10.0) @ "mu"
+    log_tau = tt.normal(0.0, 1.5) @ "log_tau"
+    theta_std = tt.normal(torch.zeros(sigmas.shape[0], dtype=sigmas.dtype,
+                                      device=sigmas.device), 1.0) \
+        @ "theta_std"
+    tt.normal(mu + torch.exp(log_tau) * theta_std, sigmas) @ "ys"
+    return mu
 
 
 def jax_args(dtype=jnp.float32):
