@@ -8,34 +8,44 @@ Phases (each prints its own lines; any failure raises, so the exit code is
 nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
-   versions; the staging of every model and the build of every kernel from
-   ``gen_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all at once), with
-   registers, spills and local memory from ptxas.
+   versions; the staging of every model and the build of every kernel
+   variant from ``gen_tpu_torch/ops/csrc`` (two K1, three K3, three K6; one
+   ``nvcc`` per source, all at once), with registers, spills and stack
+   from ptxas.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
      3-d Gaussian with one frozen coordinate. Accept counts equal, values
      and histories within 2e-4.
-   - K3 (pair-scheduled NUTS): eight_schools d=10 at 8,192 chains (all
-     coordinates) and at 131,072 chains, the 100-school model (d=102) at
-     32,768 chains, a 4-d Gaussian (8,000 chains, a ragged last block) at
-     eps 0.9 with divergence threshold 4 (the divergence paths) and the
-     same Gaussian with one frozen coordinate, which must never move. Completed and history counts
-     equal, values, histories and stats within 1e-5.
+   - K3 (pair-scheduled NUTS) and K6 (one leapfrog per tick), each on five
+     configurations at the same leapfrog slots: eight_schools d=10 at
+     8,192 chains (all coordinates) and at 131,072 chains, the 100-school
+     model (d=102) at 32,768 chains, a 4-d Gaussian (8,000 chains, a
+     ragged last block) at eps 0.9 with divergence threshold 4 (the
+     divergence paths) and the same Gaussian with one frozen coordinate,
+     which must never move. Completed and history counts equal, values,
+     histories and stats within 1e-5.
 3. The headline path (``bench.py::main``): the regression model at 524,288
    chains, ``hmc_chains`` warmup, then the fused HMC kernel; gates of
    ``benchmarks/bench_verify.py`` (quadrature moments, split-R-hat).
 4. The general-model paths (``bench.py`` metrics 2 and 3): eight_schools at
    131,072 chains (d=10) and the 100-school model at 32,768 chains (d=102),
-   vmapped ``generate``, 400 iterations of ChEES warmup, then
-   ``nuts_chains_fused_chunked(paired=True)``: one decorrelation call and
+   vmapped ``generate`` and 400 iterations of ChEES warmup once, then for
+   each of K3 (``paired=True``) and K6 (``paired=False``) from that warmed
+   state: ``nuts_chains_fused_chunked`` with one decorrelation call and
    three timed calls of 2,000 leapfrog slots. Gates of
-   ``benchmarks/bench_nuts_fused.py``: 1,536 completed draws on each of
-   4,096 chains (``nuts_collect_draws``, all coordinates; gen_tpu's own
-   d=102 gate takes 1,536), a 25% burn, every coordinate within 0.05 sd
-   (mean) and 6% (sd) of the exact quadrature, split-R-hat below 1.01 on
-   2,048 chains.
-5. Numbers: per kernel its time, its plain version's time, its bound and
+   ``benchmarks/bench_nuts_fused.py`` for each kernel: 1,536 completed
+   draws on each of 4,096 chains (``nuts_collect_draws``, all
+   coordinates), a 25% burn, every coordinate within 0.05 sd (mean) and 6%
+   (sd) of the exact quadrature, split-R-hat below 1.01 on 2,048 chains.
+5. The one-call sampler ``sample_posterior`` on eight_schools through every
+   engine (``SAMPLE_RUNS``): ``auto`` (must dispatch to ``nuts_fused`` and
+   launch K3) and ``hmc_fused`` (K1) at 131,072 chains, ``nuts_fused`` with
+   ``mass="dense"`` (K3 on the whitened logp) at 32,768 chains, and the
+   torch-op engines ``nuts_fsm``, ``chees`` and ``nuts`` at 4,096 chains;
+   each call's wall time split into generate, warmup and sampling; gates
+   on the returned samples and summary.
+6. Numbers: per kernel its time, its plain version's time, its bound and
    launches on the main path, as one JSON line; then the card; then the
    result line.
 
@@ -62,7 +72,7 @@ NUTS_TOL = 1e-5     # tests/test_nuts_fused.py's kernel-vs-twin tolerance
 NUTS_TICKS = 2000
 NUTS_WARMUP = 400
 GATE_DRAWS = 1536   # completed draws per chain for the gates
-PLAIN_PAIRS = 10    # K3's plain version is timed over 10 pairs
+PLAIN_PAIRS = 10    # the NUTS plain versions are timed over 20 slots
 GAUSS_SDS = [1.0, 3.0, 0.5, 2.0]
 YS_8 = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
 SIGMAS_8 = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
@@ -124,6 +134,24 @@ def k3_ops(n_instr, d, pairs, n, completed, divergent):
     return (leapfrogs * (n_instr + 11 * d + 21) + pairs * n * 12 * d
             + slot2 * 6 * d
             + starts * (7 * d + 3 * d + 2 + 100 * (2 + (d + 3) // 4)))
+
+
+def k6_ops(n_instr, d, ticks, n, completed, divergent):
+    """Operations of one K6 call that this run's data needs (a lower bound,
+    conventions as :func:`k1_ops`): every chain does one leapfrog per tick,
+    each the staged program plus 11d + 21 as in :func:`k3_ops`; per tick
+    the bf16x2 checkpoint pack (12d integer) and one Philox call for the
+    four uniforms; the level-1 U-turn test (6d) at every odd in-subtree
+    position, at least (leapfrogs - starts - divergent - n) / 2 of them
+    (a trajectory's one-leapfrog first subtree has none, a divergence or
+    a chunk end can cut a pair); per trajectory start the momenta (7 per
+    normal) and their Philox calls."""
+    starts = completed + n
+    leapfrogs = ticks * n
+    level1 = max(0, (leapfrogs - starts - divergent - n) // 2)
+    return (leapfrogs * (n_instr + 11 * d + 21 + 12 * d + 100)
+            + level1 * 6 * d
+            + starts * (7 * d + 3 * d + 2 + 100 * ((d + 3) // 4)))
 
 
 def phase_env(torch):
@@ -241,26 +269,31 @@ def compare_k1(torch, fused, plain, key, logp, values0, n_steps, L_, eps,
     return vk, ck, err
 
 
-def nuts_streams(torch, pairs, n, d, dev, seed):
-    """The 8 injected streams: z (pairs, n, d), 7 uniforms (pairs, n) in
-    [1e-6, 1 - 1e-6], drawn on the card."""
+def nuts_streams(torch, steps, n, d, dev, seed, n_u):
+    """The injected streams: z (steps, n, d) and ``n_u`` uniforms (steps,
+    n) in [1e-6, 1 - 1e-6] (7 per pair for K3, 4 per tick for K6), drawn
+    on the card."""
     gen = torch.Generator(dev).manual_seed(seed)
-    z = torch.randn(pairs, n, d, device=dev, generator=gen)
-    us = [torch.rand(pairs, n, device=dev, generator=gen).clamp(1e-6,
+    z = torch.randn(steps, n, d, device=dev, generator=gen)
+    us = [torch.rand(steps, n, device=dev, generator=gen).clamp(1e-6,
                                                                 1 - 1e-6)
-          for _ in range(7)]
+          for _ in range(n_u)]
     return (z, *us)
 
 
-def compare_k3(torch, nf, logp, values0, pairs, eps, max_depth, collect_idx,
-               inv_mass, thr, seed, label):
-    """K3 vs its plain version on the card under the same injected
-    randomness; returns the kernel's outputs and the largest difference."""
+def compare_nuts(torch, nf, logp, values0, steps, eps, max_depth,
+                 collect_idx, inv_mass, thr, seed, label, paired):
+    """K3 (``paired``, ``steps`` pairs) or K6 (``steps`` ticks) vs its
+    plain version on the card under the same injected randomness; returns
+    the kernel's outputs and the largest difference."""
     n, d = values0.shape
-    inj = nuts_streams(torch, pairs, n, d, values0.device, seed)
-    kw = dict(num_ticks=2 * pairs, eps=eps, max_depth=max_depth,
-              inv_mass_diag=inv_mass, collect_idx=collect_idx,
-              divergence_threshold=thr, injected_rng=inj, paired=True)
+    kname = "K3" if paired else "K6"
+    inj = nuts_streams(torch, steps, n, d, values0.device, seed,
+                       7 if paired else 4)
+    kw = dict(num_ticks=2 * steps if paired else steps, eps=eps,
+              max_depth=max_depth, inv_mass_diag=inv_mass,
+              collect_idx=collect_idx, divergence_threshold=thr,
+              injected_rng=inj, paired=paired)
     key = torch.zeros(2, dtype=torch.int64, device=values0.device)
     out_k = nf.nuts_chains_fused(key, logp, values0, **kw)
     out_p = nf.nuts_chains_fused_plain(key, logp, values0, **kw)
@@ -270,7 +303,7 @@ def compare_k3(torch, nf, logp, values0, pairs, eps, max_depth, collect_idx,
     errs += [float((sk[s].float() - sp[s].float()).abs().max()) for s in sk]
     n_diff = int((ck != cp).sum()) + int((hck != hcp).any(dim=0).sum())
     ndiv = int(sk["num_divergent"].sum())
-    print(f"K3 {label}: max |kernel - plain| = {max(errs):.3e}, counts "
+    print(f"{kname} {label}: max |kernel - plain| = {max(errs):.3e}, counts "
           f"differ in {n_diff} of {n} chains, {int(ck.sum())} completed "
           f"trajectories, {ndiv} divergent, mean depth "
           f"{float(sk['mean_depth'].mean()):.2f}")
@@ -420,30 +453,25 @@ def phase_headline(torch, tt, dev, k1, tag, rng):
                 bound_by=b_by, library_ms=None)
 
 
-def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, k3_err,
+def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, errs,
                     staged):
-    """One general-model path at full width: vmapped generate, ChEES
-    warmup, the chunked fused NUTS driver, its gates. Returns the kernel's
-    JSON entry."""
+    """One general-model workload at full width: vmapped generate and ChEES
+    warmup once, then each fused NUTS kernel (K3 pair-scheduled, K6 one
+    leapfrog per tick) from the same warmed state, each with its timed
+    calls, plain-version time and gates. Returns the two JSON entries."""
     from gen_tpu_torch import random
     from gen_tpu_torch._verify import schools_exact
-    from gen_tpu_torch.diagnostics import autocorr_ess, rhat
-    from gen_tpu_torch.inference import chees_hmc_warmup_and_sample
-    from gen_tpu_torch.ops import nuts_fused as nf
-    from gen_tpu_torch.ops.hmc_fused import hmc_chains_fused
+    from gen_tpu_torch.inference import FlatTarget, chees_hmc_warmup_and_sample
 
     (model, args, obs, sel), ys, sigmas = setup
     key = random.PRNGKey(0, dev)
     k_init, k_warm, k_run, k_time = random.split(key, 4)
-    hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
     (traces, _), init_s = timed(torch, lambda: torch.func.vmap(
         lambda k: model.generate(k, args, obs))(
         random.split(k_init, n_chains)))
     one = model.generate(random.PRNGKey(1, dev), args, obs)[0]
-    from gen_tpu_torch.inference import FlatTarget
     target = FlatTarget(one, sel)
     paths, offsets = flat_layout(tt, one, sel)
-    d = int(offsets[-1])
     (_, values, winfo), warm_s = timed(
         torch, lambda: chees_hmc_warmup_and_sample(
             k_warm, traces, sel, num_warmup=NUTS_WARMUP, num_samples=1,
@@ -451,34 +479,63 @@ def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, k3_err,
     del traces
     eps = float(winfo["step_size"])
     inv_mass = winfo["inv_mass"]
-    print(f"{label}: ChEES warmup {warm_s:.2f} s for {NUTS_WARMUP} "
-          f"iterations ({warm_s / NUTS_WARMUP * 1e3:.1f} ms/iteration), "
-          f"eps {eps:.4f}, trajectory "
+    print(f"{label}: init {init_s:.2f} s; ChEES warmup {warm_s:.2f} s for "
+          f"{NUTS_WARMUP} iterations ({warm_s / NUTS_WARMUP * 1e3:.1f} "
+          f"ms/iteration), eps {eps:.4f}, trajectory "
           f"{float(winfo['trajectory_length']):.3f}, accept "
           f"{float(winfo['mean_accept']):.3f}, inv_mass "
           f"[{float(inv_mass.min()):.3g}, {float(inv_mass.max()):.3g}]")
-    kw = dict(eps=eps, max_depth=8, inv_mass_diag=inv_mass, paired=True)
+    run = dict(label=label, target=target, values=values, eps=eps,
+               inv_mass=inv_mass, keys=(k_run, k_time), paths=paths,
+               offsets=offsets, exact=schools_exact(ys, sigmas),
+               n_chains=n_chains, staged=staged, tag=tag)
+    return (nuts_kernel_path(torch, run, True, errs[True]),
+            nuts_kernel_path(torch, run, False, errs[False]))
 
-    def run(vals, k):
+
+def nuts_kernel_path(torch, run, paired, k_err):
+    """The main path of one fused NUTS kernel from the warmed state: launch
+    counts set to 0, one decorrelation call and three timed
+    ``nuts_chains_fused_chunked`` calls of ``NUTS_TICKS`` leapfrog slots,
+    counts read; ESS/s of coordinate 0; the plain version's time; the gates
+    through ``nuts_collect_draws``. Returns the kernel's JSON entry."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.diagnostics import autocorr_ess, rhat
+    from gen_tpu_torch.ops import nuts_fused as nf
+    from gen_tpu_torch.ops.hmc_fused import hmc_chains_fused
+
+    label, tag, n_chains = run["label"], run["tag"], run["n_chains"]
+    k_run, k_time = run["keys"]
+    logp, staged = run["target"].logp, run["staged"]
+    kname, kernel = ("K3", "nuts_pair") if paired else ("K6", "nuts_tick")
+    d = int(run["offsets"][-1])
+    kw = dict(eps=run["eps"], max_depth=8, inv_mass_diag=run["inv_mass"],
+              paired=paired)
+    steps = NUTS_TICKS // 2 if paired else NUTS_TICKS
+
+    def call(vals, k):
         return nf.nuts_chains_fused_chunked(
-            k, target.logp, vals, num_ticks=NUTS_TICKS, collect_idx=0, **kw)
+            k, logp, vals, num_ticks=NUTS_TICKS, collect_idx=0, **kw)
 
-    (values, hist, _, _, _), first_s = timed(torch, lambda: run(values,
-                                                                k_run))
+    hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
+    nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+    (values, hist, _, _, _), first_s = timed(
+        torch, lambda: call(run["values"], k_run))
     del hist
     times = []
     for rep in range(3):
-        out, t = timed(torch, lambda: run(values, random.fold_in(k_time,
+        out, t = timed(torch, lambda: call(values, random.fold_in(k_time,
                                                                   rep)))
         times.append(t)
-    launches = nf.nuts_chains_fused.launches
+    launches = nf.nuts_chains_fused.kernel_launches[kernel]
+    other = nf.nuts_chains_fused.launches - launches
+    print(f"{label} {kname}: {launches} launches of {kname}, {other} of the "
+          f"other NUTS kernel, {hmc_chains_fused.launches} of K1")
+    check(launches >= 1 and other == 0,
+          f"{label}: the {kname} path did not run through {kname} alone")
     _, hist_t, _, cnt_t, stats = out
-    print(f"{label}: {launches} fused NUTS launches, "
-          f"{hmc_chains_fused.launches} fused HMC launches")
-    check(launches >= 1, f"{label}: the path did not launch the kernel")
-    check(hist_t.shape == (NUTS_TICKS // 2, n_chains)
-          and bool(torch.isfinite(hist_t).all()),
-          f"{label}: bad history")
+    check(hist_t.shape == (steps, n_chains)
+          and bool(torch.isfinite(hist_t).all()), f"{label}: bad history")
     elapsed = float(np.median(times))
     ess, ess_s = timed(torch, lambda: autocorr_ess(hist_t))
     depth = float(stats["mean_depth"].mean())
@@ -487,24 +544,69 @@ def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, k3_err,
     completed = int(cnt_t.sum())
     del hist_t
 
-    # the plain version at the same width, over a few pairs
+    # the plain version at the same width, over a few pairs of slots
     _, plain_s = timed(torch, lambda: nf.nuts_chains_fused_plain(
-        random.fold_in(k_time, 9), target.logp, values, 2 * PLAIN_PAIRS,
+        random.fold_in(k_time, 9), logp, values, 2 * PLAIN_PAIRS,
         collect_idx=0, **kw))
 
     # -- gates ------------------------------------------------------------
-    exact = schools_exact(ys, sigmas)
     (draws, _, cnt_v, used), gate_s = timed(
         torch, lambda: nf.nuts_collect_draws(
-            random.fold_in(k_run, 1), target.logp, values[:4096],
+            random.fold_in(k_run, 1), logp, values[:4096],
             num_draws=GATE_DRAWS, collect_idx=None, **kw))
     m = int(cnt_v.min())
-    print(f"{label} gates: {GATE_DRAWS} draws on 4096 chains took {used} "
-          f"slots, {gate_s:.2f} s; completed draws min {m} mean "
+    print(f"{label} {kname} gates: {GATE_DRAWS} draws on 4096 chains took "
+          f"{used} slots, {gate_s:.2f} s; completed draws min {m} mean "
           f"{float(cnt_v.float().mean()):.1f}")
     check(m >= GATE_DRAWS and bool(torch.isfinite(draws).all()),
           f"{label}: only {m} completed draws on the slowest chain")
-    draws = draws[GATE_DRAWS // 4:].double()
+    gate_moments(torch, rhat, draws[GATE_DRAWS // 4:], run["paths"],
+                 run["offsets"], run["exact"], 2048, 0.05, 0.06, 1.01,
+                 f"{label} {kname}")
+
+    if paired:
+        ops = k3_ops(staged.n_instructions, d, steps, n_chains, completed,
+                     ndiv)
+    else:
+        ops = k6_ops(staged.n_instructions, d, steps, n_chains, completed,
+                     ndiv)
+    nbytes = 4 * n_chains * (2 * d + 2 * steps + 1 + 5)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    unit = "pair" if paired else "tick"
+    print(f"{tag} {label} {kname}: median of 3 = {elapsed * 1e3:.2f} ms for "
+          f"{NUTS_TICKS} slots ({elapsed / steps * 1e6:.2f} us/{unit}, "
+          f"{elapsed / NUTS_TICKS * 1e6:.2f} us per leapfrog slot; reps "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms; first call "
+          f"{first_s:.2f} s)")
+    print(f"{tag} {label} {kname} plain version: {plain_s * 1e3:.1f} ms for "
+          f"{2 * PLAIN_PAIRS} slots "
+          f"({plain_s / (2 * PLAIN_PAIRS) * 1e3:.2f} ms per leapfrog slot)")
+    print(f"{tag} {label} {kname} bound: {ops:.4e} operations "
+          f"({staged.n_instructions} staged), {nbytes / 1e6:.1f} MB -> "
+          f"{b_ms:.3f} ms per call, bound by {b_by}")
+    print(f"{tag} {label} {kname}: ESS(coord 0) {ess:.4e}, ESS/s "
+          f"{ess / elapsed:.4e}, mean depth {depth:.2f}, mean accept "
+          f"{accept:.3f}, divergent {ndiv}, completed {completed}; ESS on "
+          f"the card {ess_s:.2f} s")
+    slots_per_step = 2 if paired else 1
+    return dict(route="cuda",
+                source="gen_tpu_torch/ops/csrc/" + ("nuts_pair.cu" if paired
+                                                    else "nuts_tick.cu"),
+                replaces="gen_tpu/ops/nuts_fused.py:"
+                + ("550" if paired else "230"),
+                per=f"{unit} of {n_chains} chains, d={d}",
+                launches=launches, max_abs_err=k_err,
+                ms=elapsed / steps * 1e3,
+                plain_ms=plain_s / (2 * PLAIN_PAIRS) * slots_per_step * 1e3,
+                bound_ms=b_ms / steps, bound_by=b_by, library_ms=None)
+
+
+def gate_moments(torch, rhat, draws, paths, offsets, exact, rhat_chains,
+                 tol_mean, tol_sd, tol_rhat, label):
+    """Every coordinate's mean within ``tol_mean`` sd and sd within
+    ``tol_sd`` of the exact posterior, split-R-hat below ``tol_rhat`` on the
+    first ``rhat_chains`` chains; ``draws`` is ``(draws, chains, d)``."""
+    draws = draws.double()
     worst_rh = 0.0
     for p, lo, hi in zip(paths, offsets[:-1], offsets[1:]):
         m_ex, s_ex = (np.atleast_1d(v) for v in exact[p])
@@ -514,62 +616,175 @@ def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, k3_err,
             mu_c, sd_c = float(col.mean()), float(col.std(correction=0))
             worst_m = max(worst_m, abs(mu_c - m_ex[c - lo]) / s_ex[c - lo])
             worst_s = max(worst_s, abs(sd_c / s_ex[c - lo] - 1.0))
-            rh = float(rhat(col[:, :2048].contiguous()))
+            rh = float(rhat(col[:, :rhat_chains].contiguous()))
             worst_r = max(worst_r, rh if math.isfinite(rh) else math.inf)
         worst_rh = max(worst_rh, worst_r)
-        good = worst_m < 0.05 and worst_s < 0.06
+        good = worst_m < tol_mean and worst_s < tol_sd
         print(f"  {p[0]:<10} worst |dmean|/sd={worst_m:.4f} worst "
               f"|dsd|/sd={worst_s:.4f} worst split-R-hat {worst_r:.4f} "
-              f"{'OK' if good and worst_r < 1.01 else 'FAIL'}")
+              f"{'OK' if good and worst_r < tol_rhat else 'FAIL'}")
         check(good, f"{label}: moments of {p[0]} outside the gate")
-    check(worst_rh < 1.01, f"{label}: split-R-hat {worst_rh}")
-
-    pairs = NUTS_TICKS // 2
-    ops = k3_ops(staged.n_instructions, d, pairs, n_chains, completed, ndiv)
-    nbytes = 4 * n_chains * (2 * d + 2 * pairs + 1 + 5)
-    b_ms, b_by = bound_ms(ops, nbytes)
-    print(f"{tag} {label} K3: median of 3 = {elapsed * 1e3:.2f} ms for "
-          f"{NUTS_TICKS} slots ({elapsed / pairs * 1e6:.2f} us/pair, "
-          f"{elapsed / NUTS_TICKS * 1e6:.2f} us/tick; reps "
-          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms; first call "
-          f"{first_s:.2f} s)")
-    print(f"{tag} {label} K3 plain version: {plain_s * 1e3:.1f} ms for "
-          f"{PLAIN_PAIRS} pairs ({plain_s / PLAIN_PAIRS * 1e3:.2f} "
-          f"ms/pair)")
-    print(f"{tag} {label} K3 bound: {ops:.4e} operations "
-          f"({staged.n_instructions} staged), {nbytes / 1e6:.1f} MB -> "
-          f"{b_ms:.3f} ms per call, bound by {b_by}")
-    print(f"{tag} {label}: ESS(coord 0) {ess:.4e}, ESS/s "
-          f"{ess / elapsed:.4e}, mean depth {depth:.2f}, mean accept "
-          f"{accept:.3f}, divergent {ndiv}, completed {completed}; init "
-          f"{init_s:.2f} s, ESS on the card {ess_s:.2f} s")
-    return dict(route="cuda", source="gen_tpu_torch/ops/csrc/nuts_pair.cu",
-                replaces="gen_tpu/ops/nuts_fused.py:550",
-                per=f"pair of {n_chains} chains, d={d}",
-                launches=launches, max_abs_err=k3_err,
-                ms=elapsed / pairs * 1e3,
-                plain_ms=plain_s / PLAIN_PAIRS * 1e3,
-                bound_ms=b_ms / pairs, bound_by=b_by, library_ms=None)
+    check(worst_rh < tol_rhat, f"{label}: split-R-hat {worst_rh}")
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device; "
-                           "torch.cuda.is_available() is False")
-    import gen_tpu_torch as tt
+# sample_posterior on eight_schools: (engine, chains, keywords, gate,
+# kernel that must launch). The strict gate is the NUTS paths' (every
+# coordinate's mean within 0.05 sd and sd within 6% of schools_exact,
+# split-R-hat < 1.01 from the returned summary). The torch-op engines run
+# at 4,096 chains on small budgets, so their gate is looser: 0.15 sd, 15%
+# and split-R-hat < 1.1. Their warmups are short, and they return few
+# draws per chain (``nuts`` 30; ``nuts_fsm`` the slowest chain's count,
+# ~16 in 1,024 ticks): split-R-hat on half-chains of 8-15 autocorrelated
+# draws is biased upward by about (tau - 1) / n, which a converged run of
+# this length already puts near 1.07.
+STRICT, LOOSE = (0.05, 0.06, 1.01), (0.15, 0.15, 1.1)
+SAMPLE_RUNS = [
+    ("auto", 131072, dict(num_warmup=400, num_samples=500), STRICT,
+     "nuts_pair"),
+    ("hmc_fused", 131072, dict(num_warmup=400, num_samples=500), STRICT,
+     "hmc_fused"),
+    ("nuts_fused", 32768, dict(num_warmup=400, num_samples=500,
+                               mass="dense"), STRICT, "nuts_pair"),
+    ("nuts_fsm", 4096, dict(num_samples=64, num_ticks=1024, max_depth=6),
+     LOOSE, None),
+    ("chees", 4096, dict(num_warmup=300, num_samples=200), LOOSE, None),
+    ("nuts", 4096, dict(num_warmup=40, num_samples=30, max_depth=6), LOOSE,
+     None),
+]
+
+
+class PhaseClock:
+    """Wall time of every call of the named module functions, each call
+    synchronized, while the block runs: how a ``sample_posterior`` call's
+    time splits into warmup and sampling without a timing option in the
+    library."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.calls = torch, targets, {}
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod_name, fn_name in self.targets:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, fn_name)
+            self.calls[fn_name] = []
+            self.saved.append((mod, fn_name, fn))
+            setattr(mod, fn_name, self._wrap(fn, self.calls[fn_name]))
+        return self
+
+    def _wrap(self, fn, log):
+        def timed_fn(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            log.append(time.perf_counter() - t0)
+            return out
+        return timed_fn
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self.saved:
+            setattr(mod, fn_name, fn)
+        return False
+
+
+def phase_sample(torch, tt, dev, tag, s8):
+    """The one-call sampler on eight_schools through every engine, each
+    call with the kernels' launch counts set to 0 just before it and read
+    just after; gates on the returned samples and summary. Returns the
+    launches per kernel over all calls."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch._verify import schools_exact
+    from gen_tpu_torch.inference import sample_posterior
+    from gen_tpu_torch.ops import nuts_fused as nf
+    from gen_tpu_torch.ops.hmc_fused import hmc_chains_fused
+
+    (model, args, obs, _), ys, sigmas = s8
+    exact = schools_exact(ys, sigmas)
+    totals = dict(hmc_fused=0, nuts_pair=0, nuts_tick=0)
+    for engine, chains, kw, (t_mean, t_sd, t_rhat), kernel in SAMPLE_RUNS:
+        key = random.PRNGKey(5, dev)
+        k_init = random.split(key)[0]
+        _, gen_s = timed(torch, lambda: torch.func.vmap(
+            lambda k: model.generate(k, args, obs))(
+            random.split(k_init, chains)))
+        hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
+        nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+        clock = PhaseClock(torch, [
+            ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
+            ("gen_tpu_torch.inference.nuts_fsm", "nuts_fsm"),
+            ("gen_tpu_torch.inference.nuts", "nuts_flat")])
+        with clock:
+            out, total_s = timed(torch, lambda: sample_posterior(
+                key, model, args, obs, num_chains=chains, engine=engine,
+                **kw))
+        launches = dict(hmc_fused=hmc_chains_fused.launches,
+                        **nf.nuts_chains_fused.kernel_launches)
+        for k_, v_ in launches.items():
+            totals[k_] += v_
+        c = clock.calls
+        if engine == "nuts_fsm":       # the last FSM call is the sampling run
+            sampling = c["nuts_fsm"][-1]
+        elif engine == "nuts":         # the last num_samples transitions
+            sampling = sum(c["nuts_flat"][-kw["num_samples"]:])
+        elif engine == "chees":        # one function warms up and samples
+            sampling = float("nan")
+        else:                          # ChEES (and whitened re-)warmup
+            sampling = total_s - gen_s - sum(c["chees_warmup_flat"])
+        warm = total_s - gen_s - (0.0 if math.isnan(sampling) else sampling)
+        info = out.info
+        n_draws = out.samples["mu"].shape[0]
+        print(f"{tag} sample_posterior(engine={engine!r}, {chains} chains"
+              f"{', mass=' + kw['mass'] if 'mass' in kw else ''}): ran "
+              f"{info['engine']}, {n_draws} draws per chain; {total_s:.2f} "
+              f"s = generate {gen_s:.2f} s + warmup "
+              + (f"{warm:.2f} s + sampling {sampling:.2f} s"
+                 if not math.isnan(sampling) else
+                 f"and sampling {warm:.2f} s (one function)")
+              + f"; launches {launches}")
+        if engine == "auto":
+            check(info["engine"] == "nuts_fused"
+                  and info["engine_reason"] == "scalarization probe passed",
+                  f"auto dispatched to {info['engine']}")
+        if kernel is None:
+            check(sum(launches.values()) == 0,
+                  f"{engine}: a torch-op engine launched a kernel")
+        else:
+            check(launches[kernel] >= 1,
+                  f"{engine}: the path did not launch {kernel}")
+        check(n_draws >= 2 and all(bool(torch.isfinite(v).all())
+                                   for v in out.samples.values()),
+              f"{engine}: bad samples")
+        worst = [0.0, 0.0, 0.0]
+        for name, arr in out.samples.items():
+            m_ex, s_ex = (np.atleast_1d(v) for v in exact[(name,)])
+            flat = arr.double().reshape(arr.shape[0] * arr.shape[1], -1)
+            worst[0] = max(worst[0], float(((flat.mean(0).cpu().numpy()
+                                             - m_ex) / s_ex).__abs__().max()))
+            worst[1] = max(worst[1], float(abs(flat.std(0, correction=0)
+                                               .cpu().numpy() / s_ex
+                                               - 1.0).max()))
+            worst[2] = max(worst[2], float(out.summary[name]["rhat"].max()))
+        ok = worst[0] < t_mean and worst[1] < t_sd and worst[2] < t_rhat
+        print(f"  gates (mean {t_mean} sd, sd {t_sd:.0%}, split-R-hat "
+              f"{t_rhat}): worst |dmean|/sd={worst[0]:.4f} |dsd|/sd="
+              f"{worst[1]:.4f} split-R-hat={worst[2]:.4f} "
+              f"{'OK' if ok else 'FAIL'}")
+        check(ok, f"sample_posterior(engine={engine!r}) outside its gate")
+        del out
+    return totals
+
+
+def phase_build(torch, tt, dev, tag):
+    """Phase 1 after the environment: the models, their staging and the
+    parallel build of every kernel variant. Returns the models and staged
+    programs the later phases use."""
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
     from gen_tpu_torch.ops import _cuda_build, hmc_fused
     from gen_tpu_torch.ops import nuts_fused as nf
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    # -- phase 1: environment, staging and build --------------------------
-    card = phase_env(torch)
-    tag = f"[{card}]"
     model, X, obs, sel, xs, ys = regression_setup(torch, tt, dev)
     target = FlatTarget(model.generate(random.PRNGKey(1, dev), (X,),
                                        obs)[0], sel)
@@ -597,15 +812,17 @@ def main():
         hmc_fused.stage(school_targets["d10"].logp, 10, dev),
         hmc_fused.stage(school_targets["d102"].logp, 102, dev),
         hmc_fused.stage(gauss4_logp, 4, dev)))
-    jobs = [hmc_fused.build_job(st_reg), hmc_fused.build_job(st_g3),
-            nf.build_job(st_10, 8), nf.build_job(st_102, 8),
-            nf.build_job(st_g4, 5)]
-    names = ["K1 regression", "K1 gaussian", "K3 eight_schools d=10",
-             "K3 schools d=102", "K3 gaussian d=4"]
-    _, build_s = timed(torch, lambda: _cuda_build.build_all(jobs))
+    builds = [("K1 regression", st_reg, hmc_fused.build_job(st_reg)),
+              ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3))]
+    for paired, k in ((True, "K3"), (False, "K6")):
+        builds += [
+            (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
+            (f"{k} schools d=102", st_102, nf.build_job(st_102, 8, paired)),
+            (f"{k} gaussian d=4", st_g4, nf.build_job(st_g4, 5, paired))]
+    _, build_s = timed(torch, lambda: _cuda_build.build_all(
+        [job for _, _, job in builds]))
     by_hash = {h: (secs, rep) for h, secs, rep in _cuda_build.BUILD_LOG}
-    for name, st, (_, src, _) in zip(
-            names, (st_reg, st_g3, st_10, st_102, st_g4), jobs):
+    for name, st, (_, src, _) in builds:
         secs, report = by_hash.get(_cuda_build.source_hash(src),
                                    (float("nan"), ""))
         regs = [ln.strip() for ln in report.splitlines()
@@ -613,57 +830,100 @@ def main():
         print(f"{name}: {st.n_instructions} staged instructions, "
               f"{st.n_res} residual constants; nvcc {secs:.2f} s; "
               + " | ".join(regs))
-    print(f"{tag} staging {stage_s:.3f} s, parallel nvcc build "
-          f"{build_s:.2f} s")
+    print(f"{tag} staging {stage_s:.3f} s, parallel nvcc build of "
+          f"{len(builds)} sources {build_s:.2f} s")
+    return dict(k1=(model, X, obs, sel, xs, ys, target, gauss_logp, sds),
+                s8=s8, s100=s100, school_targets=school_targets,
+                gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
+                st_102=st_102, stage_s=stage_s, build_s=build_s)
 
-    # -- phase 2: K3 against its plain version -----------------------------
+
+def phase_compare(torch, ctx, dev, paired):
+    """Phase 2: K3 (``paired``) or K6 against its plain version on the five
+    injected configurations, at the same leapfrog slots (a K3 pair is two
+    K6 ticks). Returns the largest difference."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    k = "K3" if paired else "K6"
+    per = 1 if paired else 2          # steps per pair of leapfrog slots
+    st, gsds, g4_logp = ctx["school_targets"], ctx["gsds"], ctx["gauss4_logp"]
     errs = []
-    v10 = init_values(torch, *s8[0], random.split(random.PRNGKey(11, dev),
-                                                  131072))
-    errs.append(compare_k3(torch, nf, school_targets["d10"].logp,
-                           v10[:8192].contiguous(), 40, 0.3, 8, None, None,
-                           1000.0, 1, "eight_schools d=10 n=8192 "
-                           "collect=all")[1])
-    errs.append(compare_k3(torch, nf, school_targets["d10"].logp, v10, 6,
-                           0.3, 8, 0, None, 1000.0, 2,
-                           "eight_schools d=10 n=131072 collect=0")[1])
+    v10 = init_values(torch, *ctx["s8"][0], random.split(
+        random.PRNGKey(11, dev), 131072))
+    errs.append(compare_nuts(torch, nf, st["d10"].logp,
+                             v10[:8192].contiguous(), 40 * per, 0.3, 8, None,
+                             None, 1000.0, 1, "eight_schools d=10 n=8192 "
+                             "collect=all", paired)[1])
+    errs.append(compare_nuts(torch, nf, st["d10"].logp, v10, 6 * per, 0.3, 8,
+                             0, None, 1000.0, 2,
+                             "eight_schools d=10 n=131072 collect=0",
+                             paired)[1])
     del v10
-    v102 = init_values(torch, *s100[0], random.split(
+    v102 = init_values(torch, *ctx["s100"][0], random.split(
         random.PRNGKey(12, dev), 32768))
-    errs.append(compare_k3(torch, nf, school_targets["d102"].logp, v102, 4,
-                           0.1, 8, 0, None, 1000.0, 3,
-                           "schools d=102 n=32768 collect=0")[1])
+    errs.append(compare_nuts(torch, nf, st["d102"].logp, v102, 4 * per, 0.1,
+                             8, 0, None, 1000.0, 3,
+                             "schools d=102 n=32768 collect=0", paired)[1])
     del v102
     g4 = torch.randn(8000, 4, device=dev) * gsds    # a ragged last block
-    errs.append(compare_k3(torch, nf, gauss4_logp, g4, 40, 0.9, 5, 2, None,
-                           4.0, 7, "gaussian d=4 eps=0.9 threshold=4")[1])
+    errs.append(compare_nuts(torch, nf, g4_logp, g4, 40 * per, 0.9, 5, 2,
+                             None, 4.0, 7, "gaussian d=4 eps=0.9 threshold=4",
+                             paired)[1])
     inv4 = (gsds ** 2) * torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)
-    (vk, hk, _, _, _), err = compare_k3(
-        torch, nf, gauss4_logp, g4, 24, 0.5, 5, 2, inv4, 1000.0, 3,
-        "gaussian d=4 frozen coordinate")
+    (vk, hk, _, _, _), err = compare_nuts(
+        torch, nf, g4_logp, g4, 24 * per, 0.5, 5, 2, inv4, 1000.0, 3,
+        "gaussian d=4 frozen coordinate", paired)
     errs.append(err)
     check(torch.equal(vk[:, 2], g4[:, 2])
-          and torch.equal(hk, g4[:, 2].expand(24, -1)),
-          "K3: frozen coordinate moved")
+          and torch.equal(hk, g4[:, 2].expand(24 * per, -1)),
+          f"{k}: frozen coordinate moved")
     check(not torch.equal(vk[:, 0], g4[:, 0]),
-          "K3: free coordinate never moved")
-    print("K3 frozen coordinate: unchanged in every chain and pair")
-    k3_err = max(errs)
+          f"{k}: free coordinate never moved")
+    print(f"{k} frozen coordinate: unchanged in every chain and step")
+    return max(errs)
 
-    # -- phases 3-4: the main paths, each with its gates --------------------
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; "
+                           "torch.cuda.is_available() is False")
+    import gen_tpu_torch as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # -- phase 1: environment, staging and build --------------------------
+    card = phase_env(torch)
+    tag = f"[{card}]"
+    ctx = phase_build(torch, tt, dev, tag)
+
+    # -- phase 2: K3 and K6 against their plain versions -------------------
+    k3_err = phase_compare(torch, ctx, dev, paired=True)
+    k6_err = phase_compare(torch, ctx, dev, paired=False)
+
+    # -- phases 3-5: the main paths, each with its gates --------------------
     rng = np.random.default_rng(123)
-    k1_entry = phase_headline(
-        torch, tt, dev, (model, X, obs, sel, xs, ys, target, gauss_logp,
-                         sds), tag, rng)
-    e10 = phase_nuts_path(torch, tt, dev, "eight_schools d=10", s8, 131072,
-                          tag, k3_err, st_10)
-    e102 = phase_nuts_path(torch, tt, dev, "schools d=102", s100, 32768,
-                           tag, k3_err, st_102)
-    print(f"{tag} staging {stage_s:.3f} s, nvcc build {build_s:.2f} s")
+    k1_entry = phase_headline(torch, tt, dev, ctx["k1"], tag, rng)
+    errs = {True: k3_err, False: k6_err}
+    k3_10, k6_10 = phase_nuts_path(torch, tt, dev, "eight_schools d=10",
+                                   ctx["s8"], 131072, tag, errs, ctx["st_10"])
+    k3_102, k6_102 = phase_nuts_path(torch, tt, dev, "schools d=102",
+                                     ctx["s100"], 32768, tag, errs,
+                                     ctx["st_102"])
+    sample_launches = phase_sample(torch, tt, dev, tag, ctx["s8"])
+    print(f"{tag} sample_posterior launches over all engines: "
+          f"{sample_launches}")
+    print(f"{tag} staging {ctx['stage_s']:.3f} s, nvcc build "
+          f"{ctx['build_s']:.2f} s")
 
-    # -- phase 5: numbers ---------------------------------------------------
-    print(json.dumps({"kernels": [k1_entry, dict(name="nuts_pair", **e10),
-                                  dict(name="nuts_pair_d102", **e102)]}))
+    # -- phase 6: numbers ---------------------------------------------------
+    print(json.dumps({"kernels": [
+        k1_entry, dict(name="nuts_pair", **k3_10),
+        dict(name="nuts_pair_d102", **k3_102),
+        dict(name="nuts_tick", **k6_10), dict(name="nuts_tick_d102", **k6_102)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ built on first use from the sources under ``ops/csrc``; a tensor on the CPU
 runs each kernel's plain PyTorch twin instead.
 """
 
-from . import random
+from . import diagnostics, inference, random
 from .address import addr_path
 from .choice_map import ChoiceMap, choicemap
 from .dists import normal, normal_linear
@@ -16,7 +16,7 @@ from .gfi import GenerativeFunction, Trace
 from .selection import complement, select
 
 __all__ = [
-    "random", "addr_path", "ChoiceMap", "choicemap", "normal",
+    "diagnostics", "inference", "random", "addr_path", "ChoiceMap", "choicemap", "normal",
     "normal_linear", "gen", "init_param", "param", "trace_at",
     "GenerativeFunction", "Trace", "complement", "select",
 ]

@@ -109,12 +109,24 @@ def ess_bulk(x):
     return _ess_from_draws(_rank_normalize(torch.as_tensor(x)))
 
 
+def _quantiles(x, qs):
+    """Linear-interpolation quantiles of all elements, as ``jnp.quantile``
+    and ``torch.quantile`` compute them, by one sort (``torch.quantile``
+    refuses inputs above 2**24 elements, fewer than one gate's draws)."""
+    srt = torch.sort(x.reshape(-1)).values
+    out = []
+    for q in qs:
+        pos = q * (srt.shape[0] - 1)
+        lo = math.floor(pos)
+        hi = min(lo + 1, srt.shape[0] - 1)
+        out.append(srt[lo] + (srt[hi] - srt[lo]) * (pos - lo))
+    return out
+
+
 def ess_tail(x):
     """Tail ESS: min ESS of the 5% and 95% exceedance indicators."""
     x = torch.as_tensor(x)
-    q = torch.quantile(x.reshape(-1), torch.tensor([0.05, 0.95],
-                                                   dtype=x.dtype,
-                                                   device=x.device))
+    q = _quantiles(x, (0.05, 0.95))
     e05 = _ess_from_draws(_rank_normalize((x <= q[0]).to(torch.float32)))
     e95 = _ess_from_draws(_rank_normalize((x <= q[1]).to(torch.float32)))
     return torch.minimum(e05, e95)

@@ -3,8 +3,8 @@
 Counterpart: ``gen_tpu/dynamic/trace.py``. The trace is a
 ``torch.utils._pytree`` node: the record structure (which addresses exist,
 and whether each is a choice or a call), the generative function and the
-non-tensor arguments are the spec; values, scores and subtraces are the
-leaves. ``torch.func.vmap`` over ``generate`` therefore returns one trace
+non-tensor arguments and return values (e.g. a model body that returns
+nothing) are the spec; values, scores and subtraces are the leaves. ``torch.func.vmap`` over ``generate`` therefore returns one trace
 whose leaves carry the batch dimension. The masked-selection branch of
 ``project`` waits for the Switch combinator.
 """
@@ -66,10 +66,11 @@ class DynamicTrace(Trace):
     """See module docstring."""
 
     __slots__ = ("gen_fn", "args", "retval", "score", "noise", "records",
-                 "args_mask")
+                 "args_mask", "retval_mask")
 
     def __init__(self, gen_fn, args, retval, score, noise,
-                 records: Dict[Tuple, Any], args_mask=None):
+                 records: Dict[Tuple, Any], args_mask=None,
+                 retval_mask=None):
         self.gen_fn = gen_fn
         self.args = args
         self.retval = retval
@@ -77,6 +78,7 @@ class DynamicTrace(Trace):
         self.noise = noise
         self.records = records  # path tuple -> ChoiceRecord | CallRecord
         self.args_mask = args_mask  # which args are static, once flattened
+        self.retval_mask = retval_mask   # the same for the return value
 
     def get_args(self):
         return self.args
@@ -142,17 +144,19 @@ class DynamicTrace(Trace):
 def _trace_flatten(tr: DynamicTrace):
     paths = sorted(tr.records.keys(), key=_path_sort_key)
     args_dyn, args_aux = split_static(tr.args, tr.args_mask)
-    children = [args_dyn, tr.retval, tr.score, tr.noise,
+    ret_dyn, ret_aux = split_static(tr.retval, tr.retval_mask)
+    children = [args_dyn, ret_dyn, tr.score, tr.noise,
                 [tr.records[p] for p in paths]]
-    return children, (tr.gen_fn, tuple(paths), args_aux)
+    return children, (tr.gen_fn, tuple(paths), args_aux, ret_aux)
 
 
 def _trace_unflatten(children, aux):
-    gen_fn, paths, args_aux = aux
-    args_dyn, retval, score, noise, recs = children
-    return DynamicTrace(gen_fn, join_static(args_dyn, args_aux), retval,
-                        score, noise, dict(zip(paths, recs)),
-                        args_mask=args_aux[1])
+    gen_fn, paths, args_aux, ret_aux = aux
+    args_dyn, ret_dyn, score, noise, recs = children
+    return DynamicTrace(gen_fn, join_static(args_dyn, args_aux),
+                        join_static(ret_dyn, ret_aux), score, noise,
+                        dict(zip(paths, recs)), args_mask=args_aux[1],
+                        retval_mask=ret_aux[1])
 
 
 pytree.register_pytree_node(

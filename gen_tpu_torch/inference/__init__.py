@@ -1,11 +1,19 @@
-from .chees import chees_hmc_warmup_and_sample
+from . import mass
+from .chees import chees_hmc_warmup_and_sample, chees_warmup_flat
 from .hmc import hmc_chains
+from .mass import (dense_mass_chol, lowrank_mass_factors, unwhiten, whiten,
+                   whiten_logp)
 from .nuts import (da_init, da_update, find_reasonable_step_size, nuts,
                    nuts_flat, nuts_warmup_and_sample)
-from .nuts_fsm import FSMResult, nuts_fsm_paired
+from .nuts_fsm import (FSMResult, nuts_fsm, nuts_fsm_paired,
+                       nuts_fsm_warmup_and_sample)
+from .sample import PosteriorSamples, sample_posterior
 from .target import FlatTarget
 
 __all__ = ["FlatTarget", "hmc_chains", "nuts", "nuts_flat",
            "nuts_warmup_and_sample", "da_init", "da_update",
            "find_reasonable_step_size", "chees_hmc_warmup_and_sample",
-           "FSMResult", "nuts_fsm_paired"]
+           "chees_warmup_flat", "FSMResult", "nuts_fsm", "nuts_fsm_paired",
+           "nuts_fsm_warmup_and_sample", "mass", "dense_mass_chol",
+           "whiten", "unwhiten", "whiten_logp", "lowrank_mass_factors",
+           "PosteriorSamples", "sample_posterior"]

@@ -30,6 +30,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 from torch.func import vmap
 
 from .. import random
@@ -312,42 +313,62 @@ def nuts_warmup_and_sample(key, trace, selection: Selection, num_warmup=500,
     """Single-chain pipeline: dual-averaging warmup (+ diagonal mass from
     the second half of warmup), then sampling. Returns ``(samples_flat
     (num_samples, d), final_trace, info)``. A Python loop over transitions
-    where gen_tpu scans."""
-    target = FlatTarget(trace, selection)
-    dim = target.dim
-    theta = target.flat0
+    where gen_tpu scans.
+
+    A batch of chains, as gen_tpu's call vmapped over ``(key, trace)``:
+    ``trace`` with a leading chain axis (a vmapped ``generate``) and ``key``
+    ``(n, 2)``. Every chain runs its own pipeline (its own step size and
+    mass); returns ``(samples (n, num_samples, d), final traces with a
+    chain axis, info)`` with one info entry per chain."""
+    batched = key.dim() == 2
+    if batched:
+        target = FlatTarget(pytree.tree_map(lambda x: x[0], trace),
+                            selection)
+        theta = vmap(lambda tr: tr.get_choices().filter(selection)
+                     .to_array())(trace)
+    else:
+        target = FlatTarget(trace, selection)
+        theta, key = target.flat0[None], key[None]
+    n, dim = theta.shape
     dt, dev = theta.dtype, theta.device
-    k_find, k_warm, k_samp = random.split(key.to(dev), 3)
+    ks = _split(key.to(dev), 3)
+    k_find, k_warm, k_samp = ks[:, 0], ks[:, 1], ks[:, 2]
     eps0 = find_reasonable_step_size(k_find, target.value_and_grad, theta)
     da = da_init(eps0)
-    mean = torch.zeros(dim, dtype=dt, device=dev)
-    m2 = torch.zeros(dim, dtype=dt, device=dev)
-    count = torch.zeros((), dtype=dt, device=dev)
-    for step_key in random.split(k_warm, num_warmup):
-        theta, stats = nuts_flat(step_key, target.value_and_grad, theta,
-                                 torch.exp(da.log_eps), max_depth)
+    mean = torch.zeros((n, dim), dtype=dt, device=dev)
+    m2 = torch.zeros((n, dim), dtype=dt, device=dev)
+    count = torch.zeros((n,), dtype=dt, device=dev)
+    warm_keys = _split(k_warm, num_warmup)
+    for m in range(num_warmup):
+        theta, stats = nuts_flat(warm_keys[:, m], target.value_and_grad,
+                                 theta, torch.exp(da.log_eps), max_depth)
         da = da_update(da, stats.accept_prob, target_accept)
         # Welford on the second half of warmup
-        active = da.t > (num_warmup // 2)
-        count = count + torch.where(active, 1.0, 0.0)
+        active = (da.t > (num_warmup // 2)).expand(n)[:, None]
+        count = count + torch.where(active[:, 0], 1.0, 0.0)
         delta = theta - mean
-        mean2 = mean + torch.where(active, delta / torch.clamp(count, min=1.0),
-                                   0.0)
+        mean2 = mean + torch.where(
+            active, delta / torch.clamp(count, min=1.0)[:, None], 0.0)
         m2 = m2 + torch.where(active, delta * (theta - mean2), 0.0)
         mean = mean2
     eps_final = torch.exp(da.log_eps_bar)
-    var = m2 / torch.clamp(count - 1.0, min=1.0)
-    inv_mass = torch.where(torch.as_tensor(adapt_mass) & (count > 2),
+    var = m2 / torch.clamp(count - 1.0, min=1.0)[:, None]
+    inv_mass = torch.where(torch.as_tensor(adapt_mass) & (count > 2)[:, None],
                            torch.clamp(var, min=1e-6),
-                           torch.ones(dim, dtype=dt, device=dev))
+                           torch.ones((n, dim), dtype=dt, device=dev))
     samples, accepts, leapfrogs = [], [], []
-    for step_key in random.split(k_samp, num_samples):
-        theta, stats = nuts_flat(step_key, target.value_and_grad, theta,
-                                 eps_final, max_depth, inv_mass)
+    samp_keys = _split(k_samp, num_samples)
+    for s in range(num_samples):
+        theta, stats = nuts_flat(samp_keys[:, s], target.value_and_grad,
+                                 theta, eps_final, max_depth, inv_mass)
         samples.append(theta)
         accepts.append(stats.accept_prob)
         leapfrogs.append(stats.num_leapfrogs)
     info = dict(step_size=eps_final, inv_mass_diag=inv_mass,
-                mean_accept=torch.stack(accepts).mean(),
-                total_leapfrogs=torch.stack(leapfrogs).sum())
-    return torch.stack(samples), target.rebuild(theta), info
+                mean_accept=torch.stack(accepts).mean(dim=0),
+                total_leapfrogs=torch.stack(leapfrogs).sum(dim=0))
+    samples = torch.stack(samples, dim=1)
+    if batched:
+        return samples, vmap(target.rebuild)(theta), info
+    return (samples[0], target.rebuild(theta[0]),
+            {k: v[0] for k, v in info.items()})

@@ -31,6 +31,8 @@
 //   gen_tpu_torch/ops/scalarize.py and spliced in below. For small d it is
 //   inlined at its three call sites; for large d it is one non-inlined
 //   function, so the straight-line program is compiled once.
+// - The Philox, Box-Muller, logaddexp, bf16 and dot-product helpers are
+//   shared with K6 (nuts_tick.cu) in nuts_common.cuh, spliced in below.
 // - Randomness: Philox4x32-10 keyed by the two words of the caller's key,
 //   counter (chain, pair, tag, 0); tags 0-1 give the seven uniforms, tags
 //   2.. the Box-Muller normals. Injected mode reads z (pairs, d, n) and the
@@ -65,94 +67,9 @@
 
 #define NUTS_LEVELS (NUTS_MD > 1 ? NUTS_MD - 1 : 1)
 
+// @@NUTS_COMMON@@
+
 namespace {
-
-constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
-                                    float& lp, float* g) {
-  staged_vag(x, r, lp, g);
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// uint32 bits -> float uniform on [0, 1) (the mantissa construction)
-__device__ __forceinline__ float u01(uint32_t b) {
-  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float& z0, float& z1) {
-  const float u1 = fmaxf(u01(b1), kTiny);
-  const float u2 = u01(b2);
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(6.2831855f * u2, &s, &c);
-  z0 = r * c;
-  z1 = r * s;
-}
-
-// jnp.logaddexp's formula, as the twin writes it out
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float d = a - b;
-  return isnan(d) ? a + b : fmaxf(a, b) + log1pf(expf(-fabsf(d)));
-}
-
-// bf16 round-to-nearest-even bits (gen_tpu's integer arithmetic; the carry
-// of an all-ones-mantissa NaN wraps as in the twin)
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  return bf16_bits(a) | (bf16_bits(b) >> 16);
-}
-
-__device__ __forceinline__ float unpack_hi(uint32_t p) {
-  return __uint_as_float(p & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float unpack_lo(uint32_t p) {
-  return __uint_as_float(p << 16);
-}
-
-// sum_j (inv_j a_j) b_j, j = 0..D-1 in order
-__device__ __forceinline__ float dot_im(const float* inv, const float* a,
-                                        const float* b) {
-  float acc = (inv[0] * a[0]) * b[0];
-  NUTS_UNROLL
-  for (int j = 1; j < NUTS_D; ++j) acc = acc + (inv[j] * a[j]) * b[j];
-  return acc;
-}
-
-__device__ __forceinline__ float kinetic(const float* inv, const float* r) {
-  return 0.5f * dot_im(inv, r, r);
-}
-
-__device__ __forceinline__ bool uturn(const float* inv, const float* rho,
-                                      const float* ra, const float* rb) {
-  return (dot_im(inv, rho, ra) <= 0.0f) || (dot_im(inv, rho, rb) <= 0.0f);
-}
-
-__device__ __forceinline__ void copy(float* dst, const float* src) {
-  NUTS_UNROLL
-  for (int k = 0; k < NUTS_D; ++k) dst[k] = src[k];
-}
 
 template <bool INJECTED, bool COLLECT_ALL>
 __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
@@ -224,16 +141,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
       u[0] = u01(b0.x); u[1] = u01(b0.y); u[2] = u01(b0.z);
       u[3] = u01(b0.w); u[4] = u01(b1.x); u[5] = u01(b1.y);
       u[6] = u01(b1.z);
-      NUTS_UNROLL
-      for (int c = 0; c < (NUTS_D + 3) / 4; ++c) {
-        const uint4 b = philox4x32_10(make_uint4(i, p, 2u + c, 0u), key);
-        float q[4];
-        box_muller(b.x, b.y, q[0], q[1]);
-        box_muller(b.z, b.w, q[2], q[3]);
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          if (4 * c + t < NUTS_D) z[4 * c + t] = q[t];
-      }
+      philox_normals(z, i, p, 2u, key);
     }
     const float u_take1 = fmaxf(u[1], kTiny), u_bias1 = fmaxf(u[2], kTiny);
     const float u_take2 = fmaxf(u[4], kTiny), u_bias2 = fmaxf(u[5], kTiny);
@@ -371,16 +279,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
 #pragma unroll
       for (int l = 1; l < NUTS_MD; ++l) {
         if (((sn + 1) & ((1 << l) - 1)) != 0) continue;
-        float a = 0.0f, b = 0.0f;
-        NUTS_UNROLL
-        for (int k = 0; k < NUTS_D; ++k) {
-          const float br = rs[k] - unpack_lo(ck[l - 1][k]);
-          const float ta = (inv[k] * br) * unpack_hi(ck[l - 1][k]);
-          const float tb = (inv[k] * br) * rn[k];
-          a = k == 0 ? ta : a + ta;
-          b = k == 0 ? tb : b + tb;
-        }
-        turning_sub = turning_sub || a <= 0.0f || b <= 0.0f;
+        turning_sub = turning_sub || uturn_block(inv, rs, ck[l - 1], rn);
       }
       const bool sub_done2 = sn + 1 >= nl || turning_sub || div2;
       if (sub_done2) {

@@ -15,9 +15,11 @@ Where PyTorch and Hopper forced differences:
   a CPU tensor runs the plain twin :func:`hmc_chains_fused_plain`. There is
   no ``use_pallas``-style switch.
 - The TPU-only machinery (the ``(d, 8, n/8)`` plane layout, ``VMEM_LIMIT``,
-  the VMEM envelope estimator, ``auto_tile_hmc``'s v5e table and the
-  chunked driver that existed for VMEM) is not ported. The layout is
-  ``(d, n)`` with chains contiguous; the public API stays ``(n, d)``.
+  the VMEM envelope estimator, ``auto_tile_hmc``'s v5e table) is not
+  ported. The layout is ``(d, n)`` with chains contiguous; the public API
+  stays ``(n, d)``. The chunked runner :func:`hmc_chains_fused_chunked`
+  sizes its chunks by a device-memory budget for the history
+  (``HIST_BUDGET_BYTES``) instead of the VMEM envelope.
 - The kernel is built on first use with ``nvcc`` for ``sm_90a``
   (:mod:`._cuda_build`, shared with the fused NUTS kernel), keyed by a
   hash of the generated source, and bound through a plain C entry point
@@ -43,6 +45,7 @@ from . import _cuda_build
 from .scalarize import StagedLogp, stage_scalarized
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
+HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
 _CSRC = Path(__file__).resolve().parent / "csrc" / "hmc_fused.cu"
 _TINY = 1.1754944e-38
 
@@ -228,3 +231,33 @@ def hmc_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
         hist.append(v[collect_idx] if collect_idx is not None
                     else torch.stack(v))
     return _outputs(torch.stack(v), torch.stack(hist), acc, collect_idx)
+
+
+def hmc_chains_fused_chunked(key, logp: Callable, values0: torch.Tensor,
+                             n_steps: int, chunk_steps: Optional[int] = None,
+                             **kw):
+    """Drive :func:`hmc_chains_fused` in step chunks and concatenate the
+    collected histories. A chunk boundary is exact for fixed-L HMC (the
+    chain state is the whole sampler state); each chunk draws with
+    ``key, k_use = split(key)``, so the draws depend on the chunking.
+    Chunks are sized so that one chunk's history stays within
+    ``HIST_BUDGET_BYTES`` of device memory (``chunk_steps`` overrides).
+    Returns the same ``(values, collected, accept_counts)`` as one call."""
+    n, d = values0.shape
+    if chunk_steps is None:
+        per_step = (d if kw.get("collect_idx", 0) is None else 1) * 4 * n
+        chunk_steps = max(1, min(n_steps, HIST_BUDGET_BYTES // per_step))
+    chunks = []
+    acc = torch.zeros((n,), dtype=torch.float32, device=values0.device)
+    values = values0
+    key = key.to(values0.device)
+    done = 0
+    while done < n_steps:
+        t = int(min(chunk_steps, n_steps - done))
+        key, k_use = random.split(key)
+        values, collected, acc_c = hmc_chains_fused(k_use, logp, values,
+                                                    n_steps=t, **kw)
+        chunks.append(collected)
+        acc = acc + acc_c
+        done += t
+    return values, torch.cat(chunks, dim=0), acc

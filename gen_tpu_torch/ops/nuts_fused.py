@@ -1,11 +1,13 @@
 """Fused many-chain FSM-NUTS: the whole sampling run as one CUDA kernel launch.
 
-Counterpart: ``gen_tpu/ops/nuts_fused.py``. Ported: the pair-scheduled
-kernel K3 (``_kernel_pair``, ``nuts_chains_fused(paired=True)``) as
-``csrc/nuts_pair.cu``, its plain version :func:`nuts_chains_fused_plain`,
-and the drivers :func:`nuts_chains_fused_chunked`, :func:`nuts_collect_draws`
-and :func:`extract_completed_draws`. The one-leapfrog-per-tick kernel K6
-(``paired=False``) is not ported yet and raises.
+Counterpart: ``gen_tpu/ops/nuts_fused.py``. Ported: the one-leapfrog-per-
+tick kernel K6 (``_kernel``, ``nuts_chains_fused(paired=False)``, the
+default) as ``csrc/nuts_tick.cu``, the pair-scheduled kernel K3
+(``_kernel_pair``, ``paired=True``) as ``csrc/nuts_pair.cu``, the two
+sharing ``csrc/nuts_common.cuh``; their plain version
+:func:`nuts_chains_fused_plain`, and the chunked runners
+:func:`nuts_chains_fused_chunked`, :func:`nuts_collect_draws` and
+:func:`extract_completed_draws`.
 
 Where PyTorch and Hopper forced differences:
 
@@ -14,13 +16,15 @@ Where PyTorch and Hopper forced differences:
   tensor runs :func:`nuts_chains_fused_plain`. There is no ``use_pallas``,
   ``interpret`` or ``tile``, and no stream-vs-batched dispatch (streamed
   likelihoods are not staged yet).
-- The plain version is :func:`gen_tpu_torch.inference.nuts_fsm.run_pairs`,
-  the port's ``nuts_fsm_paired`` loop, driven by the torch rendering of the
-  staged program: one function is both the algorithm's twin and the
-  kernel's plain version.
-- The chunked drivers bound the per-pair history by a byte budget in device
-  memory (``HIST_BUDGET_BYTES``), not by the TPU's VMEM envelope; the
-  kernel's state does not live in the history's memory.
+- The plain versions are :func:`gen_tpu_torch.inference.nuts_fsm.run_ticks`
+  (K6) and :func:`~gen_tpu_torch.inference.nuts_fsm.run_pairs` (K3), the
+  port's ``nuts_fsm`` and ``nuts_fsm_paired`` loops, driven by the torch
+  rendering of the staged program: one function is both the algorithm's
+  twin and the kernel's plain version.
+- The chunked runners bound the history (one row per tick for K6, per pair
+  for K3) by a byte budget in device memory (``HIST_BUDGET_BYTES``), not by
+  the TPU's VMEM envelope; the kernels' state does not live in the
+  history's memory.
 - The kernel draws with Philox seeded from the key's two words, so its
   draws differ from the plain version's (:mod:`gen_tpu_torch.random`);
   with ``injected_rng`` both consume the same numbers and agree.
@@ -37,7 +41,7 @@ import torch
 
 from .. import random
 from ..inference.nuts_fsm import (injected_draws, key_draws, run_pairs,
-                                  summary_stats)
+                                  run_ticks, summary_stats)
 from ..utils import sqrt_mass_safe
 from . import _cuda_build
 from .hmc_fused import stage
@@ -45,13 +49,16 @@ from .scalarize import StagedLogp
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
-_CSRC = Path(__file__).resolve().parent / "csrc" / "nuts_pair.cu"
-_SIGNATURES = {"nuts_pair_launch": [
+_CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]}
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# paired -> (kernel name, source, injected uniforms per step)
+_KERNELS = {True: ("nuts_pair", "nuts_pair.cu", 7),
+            False: ("nuts_tick", "nuts_tick.cu", 4)}
 
 
 def extract_completed_draws(hist, hist_cnt, m: int):
@@ -77,31 +84,32 @@ def extract_completed_draws(hist, hist_cnt, m: int):
     return out.permute(1, 0, 2)
 
 
-def kernel_source(staged: StagedLogp, max_depth: int) -> str:
-    """The kernel's CUDA source with the staged program spliced in."""
+def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
+    """The CUDA source of K3 (``paired``) or K6 with the shared helpers and
+    the staged program spliced in (the build hashes this whole text)."""
     defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {staged.n_res}\n"
                f"#define NUTS_MD {int(max_depth)}\n"
                f"#define NUTS_BLOCK {BLOCK}")
-    return (_CSRC.read_text().replace("// @@DEFINES@@", defines)
-            .replace("// @@STAGED_VAG@@", staged.cuda_source()))
+    src = (_CSRC_DIR / _KERNELS[paired][1]).read_text()
+    return (src.replace("// @@DEFINES@@", defines)
+            .replace("// @@STAGED_VAG@@", staged.cuda_source())
+            .replace("// @@NUTS_COMMON@@",
+                     (_CSRC_DIR / "nuts_common.cuh").read_text()))
 
 
-def build_job(staged: StagedLogp, max_depth: int):
+def build_job(staged: StagedLogp, max_depth: int, paired: bool):
     """``(name, source, signatures)`` for :func:`_cuda_build.build_all`."""
-    return ("nuts_pair", kernel_source(staged, max_depth), _SIGNATURES)
+    name = _KERNELS[paired][0]
+    return (name, kernel_source(staged, max_depth, paired),
+            {f"{name}_launch": _ARGTYPES})
 
 
-def build(staged: StagedLogp, max_depth: int) -> ctypes.CDLL:
+def build(staged: StagedLogp, max_depth: int, paired: bool) -> ctypes.CDLL:
     """Compile (once per generated source) and load the kernel library."""
-    return _cuda_build.build(*build_job(staged, max_depth))
+    return _cuda_build.build(*build_job(staged, max_depth, paired))
 
 
-def _prepare(logp, values0, inv_mass_diag, collect_idx, paired):
-    if not paired:
-        raise NotImplementedError(
-            "nuts_chains_fused(paired=False) runs the one-leapfrog-per-tick "
-            "kernel K6 (gen_tpu/ops/nuts_fused.py:230), which is not ported "
-            "yet; use paired=True")
+def _prepare(logp, values0, inv_mass_diag, collect_idx):
     if not isinstance(values0, torch.Tensor) or values0.ndim != 2 \
             or 0 in values0.shape:
         raise ValueError("values0 must be a non-empty (n_chains, d) tensor")
@@ -130,21 +138,24 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
                       divergence_threshold: float = 1000.0,
                       injected_rng=None, paired: bool = False):
     """Run ``num_ticks`` FSM-NUTS leapfrog slots on the ``(n, d)`` chains
-    ``values0``, as ``ceil(num_ticks / 2)`` pairs (``paired=True``, the
-    pair-scheduled kernel K3; ``paired=False`` needs K6 and raises).
+    ``values0``: one leapfrog per tick (``paired=False``, the kernel K6) or
+    ``ceil(num_ticks / 2)`` pairs of two (``paired=True``, the
+    pair-scheduled kernel K3).
 
-    Returns ``(values (n, d), hist (pairs, n), hist_counts (pairs, n)
-    int32, counts (n,) int32, stats)``: ``hist[p, j]`` is coordinate
-    ``collect_idx`` of chain j's current sample after pair p (the whole
-    ``(pairs, n, d)`` state, a strided view, for ``collect_idx=None``);
-    ``hist_counts`` the completed-trajectory count after pair p (feed both
-    to :func:`extract_completed_draws`); ``stats`` the dict
+    Returns ``(values (n, d), hist (steps, n), hist_counts (steps, n)
+    int32, counts (n,) int32, stats)`` with one step per tick (K6) or per
+    pair (K3): ``hist[s, j]`` is coordinate ``collect_idx`` of chain j's
+    current sample after step s (the whole ``(steps, n, d)`` state, a
+    strided view, for ``collect_idx=None``); ``hist_counts`` the
+    completed-trajectory count after step s (feed both to
+    :func:`extract_completed_draws`); ``stats`` the dict
     ``mean_accept``/``mean_depth``/``num_divergent`` per chain.
-    ``injected_rng=(z (pairs, n, d), u_dir0, u_take1, u_bias1, u_dir1,
-    u_take2, u_bias2, u_dir2 each (pairs, n))`` replaces the kernel's
-    Philox draws, which makes the kernel and its plain version agree pair
-    for pair. A CUDA ``values0`` launches the kernel; a CPU ``values0``
-    runs :func:`nuts_chains_fused_plain`."""
+    ``injected_rng`` replaces the kernel's Philox draws, which makes the
+    kernel and its plain version agree step for step: ``(z (ticks, n, d),
+    u_dir0, u_take, u_bias, u_dir each (ticks, n))`` for K6, ``(z (pairs,
+    n, d), u_dir0, u_take1, u_bias1, u_dir1, u_take2, u_bias2, u_dir2 each
+    (pairs, n))`` for K3. A CUDA ``values0`` launches the kernel; a CPU
+    ``values0`` runs :func:`nuts_chains_fused_plain`."""
     if values0.device.type == "cpu":
         return nuts_chains_fused_plain(
             key, logp, values0, num_ticks, eps, max_depth, inv_mass_diag,
@@ -152,50 +163,56 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
     if values0.device.type != "cuda":
         raise ValueError(f"nuts_chains_fused: unsupported device "
                          f"{values0.device}")
-    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx,
-                               paired)
+    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx)
     d, n = vt.shape
-    pairs = (num_ticks + 1) // 2
-    lib = build(staged, max_depth)
+    name, _, n_u = _KERNELS[paired]
+    steps = (num_ticks + 1) // 2 if paired else num_ticks
+    lib = build(staged, max_depth, paired)
     dev = vt.device
     with torch.cuda.device(dev):
         msc = sqrt_mass_safe(inv).contiguous()
         inj = [None, None]
         if injected_rng is not None:
-            if len(injected_rng) != 8:
-                raise ValueError("injected_rng needs 8 streams (z and 7 "
-                                 "uniforms) for paired=True")
+            if len(injected_rng) != n_u + 1:
+                raise ValueError(
+                    f"injected_rng needs {n_u + 1} streams (z and {n_u} "
+                    f"uniforms) for paired={paired} "
+                    f"({'K3' if paired else 'K6'}), got "
+                    f"{len(injected_rng)}")
             z, *us = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                       for x in injected_rng)
-            inj = [z.reshape(pairs, n, d).permute(0, 2, 1).contiguous(),
-                   torch.stack([u.reshape(pairs, n) for u in us], dim=1)
+            inj = [z.reshape(steps, n, d).permute(0, 2, 1).contiguous(),
+                   torch.stack([u.reshape(steps, n) for u in us], dim=1)
                    .contiguous()]
         vout = torch.empty_like(vt)
-        hist = torch.empty((pairs, n) if collect_idx is not None
-                           else (pairs, d, n), dtype=torch.float32,
+        hist = torch.empty((steps, n) if collect_idx is not None
+                           else (steps, d, n), dtype=torch.float32,
                            device=dev)
-        hist_cnt = torch.empty((pairs, n), dtype=torch.int32, device=dev)
+        hist_cnt = torch.empty((steps, n), dtype=torch.int32, device=dev)
         counts = torch.empty((n,), dtype=torch.int32, device=dev)
         stats = torch.empty((5, n), dtype=torch.float32, device=dev)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
         res = staged.res_consts.contiguous()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nuts_pair_launch(
+        rc = getattr(lib, f"{name}_launch")(
             vt.data_ptr(), vout.data_ptr(), hist.data_ptr(),
             hist_cnt.data_ptr(), counts.data_ptr(), stats.data_ptr(),
-            res.data_ptr(), inv.data_ptr(), msc.data_ptr(), n, pairs,
+            res.data_ptr(), inv.data_ptr(), msc.data_ptr(), n, steps,
             float(eps), float(divergence_threshold),
             -1 if collect_idx is None else collect_idx, seed0, seed1,
             *[None if t is None else t.data_ptr() for t in inj], stream)
-    _cuda_build.check_launch(rc, "nuts_pair")
+    _cuda_build.check_launch(rc, name)
     nuts_chains_fused.launches += 1
+    nuts_chains_fused.kernel_launches[name] += 1
     # accept sum, depth sum, divergences, in-flight alpha sum and leapfrogs
     five = (stats[0], stats[1], stats[2].to(torch.int32), stats[3],
             stats[4].to(torch.int32))
     return _outputs(vout, hist, hist_cnt, counts, five, collect_idx)
 
 
+# launches of either kernel, and of each (K3 "nuts_pair", K6 "nuts_tick")
 nuts_chains_fused.launches = 0
+nuts_chains_fused.kernel_launches = {"nuts_pair": 0, "nuts_tick": 0}
 
 
 def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
@@ -204,32 +221,37 @@ def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
                             collect_idx: Optional[int] = 0,
                             divergence_threshold: float = 1000.0,
                             injected_rng=None, paired: bool = False):
-    """The kernel's plain PyTorch version, on any device: the port's
-    ``nuts_fsm_paired`` loop (:func:`run_pairs`) through the torch rendering
-    of the staged program, in float32 with the kernel's roundings and
-    summation order. Without ``injected_rng`` each chain draws from its own
-    key, ``random.split(key, n)``, as gen_tpu's XLA path does."""
-    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx,
-                               paired)
+    """The kernels' plain PyTorch version, on any device: the port's
+    ``nuts_fsm`` loop (:func:`run_ticks`, K6) or ``nuts_fsm_paired`` loop
+    (:func:`run_pairs`, K3) through the torch rendering of the staged
+    program, in float32 with the kernel's roundings and summation order.
+    Without ``injected_rng`` each chain draws from its own key,
+    ``random.split(key, n)``, as gen_tpu's XLA path does."""
+    staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx)
     d, n = vt.shape
     dev = vt.device
-    pairs = (num_ticks + 1) // 2
-    draw = (key_draws(random.split(key.to(dev), n), d, torch.float32)
+    n_u = _KERNELS[paired][2]
+    loop, steps = ((run_pairs, (num_ticks + 1) // 2) if paired
+                   else (run_ticks, num_ticks))
+    draw = (key_draws(random.split(key.to(dev), n), d, torch.float32, n_u,
+                      steps)
             if injected_rng is None
-            else injected_draws(injected_rng, n, d, torch.float32, dev))
-    s, hist, hist_cnt = run_pairs(
-        staged.vag, vt, float(eps), pairs, max_depth, inv,
+            else injected_draws(injected_rng, n, d, torch.float32, dev, n_u))
+    s, hist, hist_cnt = loop(
+        staged.vag, vt, float(eps), steps, max_depth, inv.reshape(d, 1),
         divergence_threshold, draw, collect_idx, ckpt_bf16=True)
     five = (s["acc_sum"], s["depth_sum"], s["div"], s["asum"], s["nlf"])
     return _outputs(s["theta"], hist, hist_cnt, s["count"], five,
                     collect_idx)
 
 
-def _chunk_ticks(n, d, collect_idx, num_ticks):
+def _chunk_ticks(n, d, collect_idx, num_ticks, paired):
     """Ticks per chunk so that one chunk's history (values and counts, one
-    row per pair) stays within ``HIST_BUDGET_BYTES``."""
-    per_pair = ((d if collect_idx is None else 1) + 1) * 4 * n
-    return max(2, min(num_ticks, 2 * (HIST_BUDGET_BYTES // per_pair)))
+    row per tick for K6, per pair for K3) stays within
+    ``HIST_BUDGET_BYTES``."""
+    per_row = ((d if collect_idx is None else 1) + 1) * 4 * n
+    per = 2 if paired else 1
+    return max(per, min(num_ticks, per * (HIST_BUDGET_BYTES // per_row)))
 
 
 def nuts_chains_fused_chunked(key, logp, values0, num_ticks: int,
@@ -244,7 +266,7 @@ def nuts_chains_fused_chunked(key, logp, values0, num_ticks: int,
     n, d = values0.shape
     if chunk_ticks is None:
         chunk_ticks = _chunk_ticks(n, d, kw.get("collect_idx", 0),
-                                   num_ticks)
+                                   num_ticks, kw.get("paired", False))
     dev = values0.device
     hists, hcnts = [], []
     cnt_total = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -293,7 +315,7 @@ def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
     n, d = values0.shape
     ci = kw.get("collect_idx", 0)
     if chunk_ticks is None:
-        chunk_ticks = _chunk_ticks(n, d, ci, 4096)
+        chunk_ticks = _chunk_ticks(n, d, ci, 4096, kw.get("paired", False))
     if max_ticks is None:
         max_ticks = 64 * num_draws
     dev = values0.device
@@ -310,7 +332,7 @@ def nuts_collect_draws(key, logp, values0, num_draws: int, eps: float,
         key, k_use = random.split(key)
         values, hist, hcnt, _, _ = nuts_chains_fused(
             k_use, logp, values, num_ticks=t, eps=eps, **kw)
-        hcnt_abs = hcnt + base[None, :]                     # (pairs, n)
+        hcnt_abs = hcnt + base[None, :]                     # (steps, n)
         pos = torch.searchsorted(hcnt_abs.T.contiguous(),
                                  targets.expand(n, num_draws).contiguous())
         pos = torch.clamp(pos, max=hcnt.shape[0] - 1)     # (n, num_draws)

@@ -198,6 +198,33 @@ def test_twin_own_randomness_samples_the_gaussian():
     assert 0.8 < float(at.mean()) / 150 <= 1.0
 
 
+def test_chunked_runner_stitches_chunks():
+    """``hmc_chains_fused_chunked`` (the ``hmc_fused`` engine's chunked runner):
+    chunk c runs with the second half of the c-th split of the key, so the
+    result equals those calls made by hand; the history is their
+    concatenation and the accept counts their sum."""
+    _, logp_t = _gauss_logps()
+    vals0 = torch.from_numpy(
+        (np.random.default_rng(10).standard_normal((64, 3)) * SDS)
+        .astype(np.float32))
+    kw = dict(L=4, eps=0.4, collect_idx=None, inv_mass_diag=INV_MASS_FROZEN)
+    key = tt.random.PRNGKey(4, "cpu")
+    v, c, a = hmc_fused.hmc_chains_fused_chunked(key, logp_t, vals0, 10,
+                                                 chunk_steps=4, **kw)
+    hist, acc, vm = [], torch.zeros(64), vals0
+    for t in (4, 4, 2):
+        key, k_use = tt.random.split(key)
+        vm, cm, am = hmc_chains_fused(k_use, logp_t, vm, t, **kw)
+        hist.append(cm)
+        acc = acc + am
+    torch.testing.assert_close(v, vm, rtol=0, atol=0)
+    torch.testing.assert_close(c, torch.cat(hist), rtol=0, atol=0)
+    torch.testing.assert_close(a, acc, rtol=0, atol=0)
+    assert c.shape == (10, 64, 3)
+    # the budget: one chunk unless the history would pass it
+    assert hmc_fused.HIST_BUDGET_BYTES // (3 * 4 * 64) > 10
+
+
 def test_cuda_source_renders():
     _, t = _regression_targets()
     staged = hmc_fused.stage(t.logp, 3, "cpu")

@@ -291,17 +291,21 @@ def test_collect_draws_matches_stitched_extraction():
 
 
 def test_unpaired_engine_raises_naming_its_kernel():
-    with pytest.raises(NotImplementedError, match="K6"):
+    """paired=False runs K6, whose injected layout has 5 streams: the
+    8-stream pair layout is refused with a message naming the kernel."""
+    inj = _streams(0, 2, 8, 2)
+    with pytest.raises(ValueError, match="K6"):
         nuts_chains_fused(tt.random.PRNGKey(0, "cpu"),
                           lambda x: -0.5 * torch.sum(x * x),
-                          torch.zeros(8, 2), num_ticks=4, eps=0.1)
+                          torch.zeros(8, 2), num_ticks=4, eps=0.1,
+                          injected_rng=inj)
 
 
 def test_cuda_source_renders():
     sds = torch.from_numpy(SDS)
     staged = stage(lambda x: -0.5 * torch.sum((x / sds) ** 2), 4, "cpu")
-    src = nuts_fused.kernel_source(staged, 5)
-    assert "@@" not in src
+    src = nuts_fused.kernel_source(staged, 5, paired=True)
+    assert "@@" not in src and "philox4x32_10" in src
     assert "#define NUTS_D 4" in src and "#define NUTS_MD 5" in src
     assert f"#define NUTS_R {staged.n_res}" in src
     assert 'extern "C" int nuts_pair_launch(' in src
