@@ -9,9 +9,9 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (two K1, three K3, three K6; one
-   ``nvcc`` per source, all at once), with registers, spills and stack
-   from ptxas.
+   variant from ``gen_tpu_torch/ops/csrc`` (two K1, three K3, three K6,
+   K4 in float32 and float64; one ``nvcc`` per source, all at once), with
+   registers, spills and stack from ptxas.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
@@ -25,6 +25,11 @@ nonzero and no result line is printed):
      divergence paths) and the same Gaussian with one frozen coordinate,
      which must never move. Completed and history counts equal, values,
      histories and stats within 1e-5.
+   - K4 (systematic resampling) against its plain version, the literal
+     count ``systematic_parents_count``, and against torch.searchsorted +
+     clamp: integer equality at N 1, 1,000 (ragged), 4,096, 32,768,
+     131,072 and 1,048,576, u 0, 0.5 and 1 - 2^-24, float32 and float64,
+     random weights, zero-weight runs and one dominant particle.
 3. The headline path (``bench.py::main``): the regression model at 524,288
    chains, ``hmc_chains`` warmup, then the fused HMC kernel; gates of
    ``benchmarks/bench_verify.py`` (quadrature moments, split-R-hat).
@@ -45,9 +50,28 @@ nonzero and no result line is printed):
    torch-op engines ``nuts_fsm``, ``chees`` and ``nuts`` at 4,096 chains;
    each call's wall time split into generate, warmup and sampling; gates
    on the returned samples and summary.
-6. Numbers: per kernel its time, its plain version's time, its bound and
-   launches on the main path, as one JSON line; then the card; then the
-   result line.
+6. The SMC slice, every resampling ``systematic`` (K4) unless named,
+   K4's launch count set to 0 before each path and read after:
+   a. ``smc_genealogy`` on ``benchmarks/workloads.py::
+      bench_smc_genealogy``'s nonlinear state-space model at 131,072
+      particles and T=32: one warm call, three timed calls, one call split
+      into extend (vmapped ``generate``) and resample (uniform, cdf, K4,
+      gather); then one filter at 1,048,576 particles. Particle-steps/s;
+      K4's launches must equal the resampling steps.
+   b. The linear-Gaussian model of ``tests/test_arena.py`` at T=32 and
+      131,072 particles against the exact Kalman filter, five seeds per
+      path: ``smc_genealogy``, ``smc_run`` on ``UnfoldArena`` and the
+      particle-filter API on ``Unfold`` (``initialize_particle_filter``,
+      ``maybe_resample``, ``particle_filter_step`` with ``(IntDiff(1),
+      NoChange)``). Gates: mean log-ML within 0.05, weighted filtered mean
+      of x_T-1 within 0.02 sd and its variance within 3%. Multinomial and
+      residual resampling on the particle-filter path (three seeds each,
+      the log-ML gate, no K4 launch); 1,000 reconstructed trajectories
+      re-assessed against their stored scores (relative 1e-5);
+      ``importance_sampling`` at T=2 within 0.05 of the exact log-ML.
+7. Numbers: per kernel its time, its plain version's time, its bound, the
+   library call's time where there is one and launches on the main path,
+   as one JSON line; then the card; then the result line.
 
 Each main path is driven with the kernels' launch counts set to 0 just
 before it and read just after. The script imports neither JAX nor gen_tpu.
@@ -77,6 +101,15 @@ GAUSS_SDS = [1.0, 3.0, 0.5, 2.0]
 YS_8 = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
 SIGMAS_8 = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
 SCHOOL_ADDRS = ("mu", "log_tau", "theta_std")
+SMC_N = 131072         # benchmarks/workloads.py::bench_smc_genealogy
+SMC_N_BIG = 1048576    # benchmarks/RESULTS.md's second SMC row
+SMC_T = 32
+SMC_SEEDS = 5          # seeds per path for the Kalman gates
+OTHER_SEEDS = 3        # seeds for multinomial and residual resampling
+K4_NS = (1, 1000, 4096, 32768, SMC_N, SMC_N_BIG)
+K4_US = (0.0, 0.5, 1.0 - 2.0 ** -24)
+K4_REPS = 100
+LML_TOL, MEAN_TOL, VAR_TOL = 0.05, 0.02, 0.03
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores and HBM3 bandwidth
 PEAK_OPS = 67e12
@@ -668,7 +701,7 @@ class PhaseClock:
         for mod_name, fn_name in self.targets:
             mod = importlib.import_module(mod_name)
             fn = getattr(mod, fn_name)
-            self.calls[fn_name] = []
+            self.calls.setdefault(fn_name, [])   # one log per name
             self.saved.append((mod, fn_name, fn))
             setattr(mod, fn_name, self._wrap(fn, self.calls[fn_name]))
         return self
@@ -776,13 +809,375 @@ def phase_sample(torch, tt, dev, tag, s8):
     return totals
 
 
+# -- K4 and the SMC slice ---------------------------------------------------
+
+def k4_log_weights(n, case, rng):
+    """Log weights for K4's checks: normals x 2, with runs of zero weight
+    (inside and at the end; particle 0 keeps mass), or all the mass on
+    one particle (tests/test_torch_resample.py's cases)."""
+    lw = rng.standard_normal(n) * 2.0
+    if case == "zero_runs" and n > 1:
+        lw[1 + n // 7: 1 + n // 3] = -np.inf
+        lw[-max(1, n // 10):] = -np.inf
+        lw[n // 2] = -np.inf
+    elif case == "dominant":
+        lw[:] = -np.inf
+        lw[(3 * n) // 4] = 0.0
+    return lw
+
+
+def k4_ops(n):
+    """Operations of K4 on N positions (conventions as :func:`k1_ops`):
+    per position the reciprocal, the index conversion, the add and the
+    multiply (4), ceil(log2(N + 1)) binary-search steps of a comparison
+    and an index update (2 each), and the clamp (1)."""
+    return n * (4 + 2 * math.ceil(math.log2(n + 1)) + 1)
+
+
+def gpu_ms(torch, fn, reps):
+    """Device time per call of ``fn`` (CUDA events around ``reps`` calls),
+    with the calls enqueued behind a spin kernel so that the host's time
+    between launches does not count."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e7))       # ~25 ms of device time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_compare_k4(torch, dev):
+    """Phase 2 for K4: the kernel against its plain version (the literal
+    count) and against torch.searchsorted + clamp, integer equality, at
+    every N of ``K4_NS`` and u of ``K4_US``, float32 and float64, with
+    random weights, zero-weight runs and one dominant particle (at
+    1,048,576 only zero-weight runs: the literal count is O(N^2)).
+    Returns the largest difference (0 when all agree)."""
+    from gen_tpu_torch.ops import resample as rs
+    rng = np.random.default_rng(4)
+    runs = dips = 0
+    worst = 0
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        for n in K4_NS:
+            cases = (("zero_runs",) if n > SMC_N
+                     else ("random", "zero_runs", "dominant"))
+            for case in cases:
+                lw = torch.tensor(k4_log_weights(n, case, rng), dtype=dtype,
+                                  device=dev)
+                cdf = rs.normalized_cdf(lw)
+                raw = torch.cumsum(torch.exp(lw - lw.max()), dim=0)
+                dips += int((raw[1:] < raw[:-1]).sum())
+                for u in K4_US:
+                    ut = torch.tensor(u, dtype=dtype, device=dev)
+                    # on the same cdf: the card's cumsum is not run-to-run
+                    # reproducible in the last ulp above ~32k elements
+                    got = rs.resample_cdf(cdf, ut)
+                    count = rs.systematic_parents_count(cdf, ut)
+                    lib = torch.searchsorted(
+                        cdf, rs.positions(n, ut, dtype, dev),
+                        out_int32=True).clamp_(max=n - 1)
+                    worst = max(worst, int((got - count).abs().max()),
+                                int((got - lib).abs().max()))
+                    runs += 1
+                    check(torch.equal(got, count) and torch.equal(got, lib),
+                          f"K4 {dtype} n={n} {case} u={u}: "
+                          f"{int((got != count).sum())} parents differ from "
+                          f"the count, {int((got != lib).sum())} from "
+                          "searchsorted")
+    print(f"K4: kernel == literal count == searchsorted+clamp on all {runs} "
+          f"configurations (float32 and float64; N {list(K4_NS)}; u 0, 0.5, "
+          f"1-2^-24; random, zero-weight runs, one dominant particle); "
+          f"{dips} decreasing steps in the raw cumsums (removed by the "
+          f"running max); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return float(worst)
+
+
+def smc_bench_setup(torch, tt, dev):
+    """benchmarks/workloads.py::bench_smc_genealogy's model and data."""
+    from gen_tpu_torch.combinators import VectorChoiceMap
+
+    @tt.gen
+    def ssm_kernel(t, prev):
+        x = tt.normal(0.8 * prev + 2.0 * torch.sin(0.5 * prev), 0.5) @ "x"
+        tt.normal(x, 0.4) @ "y"
+        return x
+
+    rng = np.random.default_rng(0)
+    ys = torch.tensor(np.cumsum(rng.standard_normal(SMC_T)) * 0.3,
+                      dtype=torch.float32, device=dev)
+    return ssm_kernel, VectorChoiceMap(tt.ChoiceMap().set_value("y", ys),
+                                       SMC_T)
+
+
+def resampled_steps(torch, ancestry):
+    """Steps whose ancestry row is not the identity (a resampling step)."""
+    ident = torch.arange(ancestry.shape[1], dtype=ancestry.dtype,
+                         device=ancestry.device)
+    return int((ancestry != ident).any(dim=1).sum())
+
+
+def phase_smc_throughput(torch, tt, dev, tag):
+    """Phase 6a: smc_genealogy on bench_smc_genealogy's model at 131,072
+    particles (one warm call, three timed, one synchronized call split
+    into extend and resample) and one timed filter at 1,048,576; K4's
+    launches must equal the resampling steps. Returns path a's numbers."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import smc
+    from gen_tpu_torch.ops import resample as rs
+
+    kernel, obs = smc_bench_setup(torch, tt, dev)
+    key = random.PRNGKey(0, dev)
+
+    def run(rep, n):
+        return smc.smc_genealogy(random.fold_in(key, rep), kernel, 0.0, (),
+                                 obs, n)
+
+    rs.systematic_resample.launches = 0
+    out, warm_s = timed(torch, lambda: run(0, SMC_N))
+    steps = resampled_steps(torch, out[1])
+    times = []
+    for rep in range(3):
+        out, t = timed(torch, lambda: run(1 + rep, SMC_N))
+        times.append(t)
+        steps += resampled_steps(torch, out[1])
+    clock = PhaseClock(torch, [
+        ("gen_tpu_torch.inference.smc", "extend_particles"),
+        ("gen_tpu_torch.inference.smc", "resample_states")])
+    with clock:
+        out, split_s = timed(torch, lambda: run(4, SMC_N))
+    steps += resampled_steps(torch, out[1])
+    launches = rs.systematic_resample.launches
+    subs, anc, lw, lml = out
+    print(f"{tag} smc_genealogy N={SMC_N} T={SMC_T}: {steps} resampling "
+          f"steps and {launches} K4 launches over 5 filters")
+    check(launches == steps and launches >= 1,
+          "smc_genealogy: K4 launches differ from resampling steps")
+    check(anc.shape == (SMC_T, SMC_N) and lw.shape == (SMC_N,)
+          and subs.get_choices()["x"].shape == (SMC_T, SMC_N)
+          and math.isfinite(float(lml)), "smc_genealogy: bad output")
+    elapsed = float(np.median(times))
+    ext, res = clock.calls["extend_particles"], clock.calls["resample_states"]
+    print(f"{tag} smc_genealogy N={SMC_N} T={SMC_T}: median of 3 = "
+          f"{elapsed * 1e3:.2f} ms per filter, "
+          f"{SMC_N * SMC_T / elapsed:.4e} particle-steps/s (reps "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms; warm call "
+          f"{warm_s * 1e3:.1f} ms); log-ML {float(lml):.4f}")
+    print(f"{tag}   split, one synchronized filter of {split_s * 1e3:.2f} "
+          f"ms: extend (vmapped generate) {sum(ext) * 1e3:.2f} ms over "
+          f"{len(ext)} steps ({sum(ext) / len(ext) * 1e3:.3f} ms/step), "
+          f"resample (uniform, cdf, K4, gather) {sum(res) * 1e3:.2f} ms over "
+          f"{len(res)} steps ({sum(res) / max(len(res), 1) * 1e3:.3f} "
+          f"ms/step), rest {(split_s - sum(ext) - sum(res)) * 1e3:.2f} ms")
+    del out, subs, anc
+    rs.systematic_resample.launches = 0
+    out, big_s = timed(torch, lambda: run(5, SMC_N_BIG))
+    big_steps = resampled_steps(torch, out[1])
+    big_launches = rs.systematic_resample.launches
+    big_lml = float(out[3])
+    print(f"{tag} smc_genealogy N={SMC_N_BIG} T={SMC_T}: one filter "
+          f"{big_s * 1e3:.2f} ms, {SMC_N_BIG * SMC_T / big_s:.4e} "
+          f"particle-steps/s; {big_steps} resampling steps, {big_launches} "
+          f"K4 launches; log-ML {big_lml:.4f}")
+    check(math.isfinite(big_lml) and big_launches == big_steps
+          and big_launches >= 1, "smc_genealogy at 1,048,576: bad run")
+    del out
+    return dict(launches=launches, filters=5, ms=elapsed * 1e3,
+                big_ms=big_s * 1e3)
+
+
+def ssm_data(T, seed=3):
+    """tests/test_arena.py's linear-Gaussian data."""
+    rng = np.random.default_rng(seed)
+    x, ys = 0.0, []
+    for _ in range(T):
+        x = 0.8 * x + 0.5 * rng.standard_normal()
+        ys.append(x + 0.3 * rng.standard_normal())
+    return np.asarray(ys)
+
+
+def weighted_moments(torch, x, log_w):
+    w = torch.softmax(log_w.double(), dim=0)
+    x = x.double()
+    m = (w * x).sum()
+    return float(m), float((w * (x - m) ** 2).sum())
+
+
+def phase_smc_gates(torch, tt, dev, tag):
+    """Phase 6b: the linear-Gaussian SSM of tests/test_arena.py at T=32 and
+    131,072 particles through smc_genealogy, smc_run on UnfoldArena and the
+    particle-filter API on Unfold, five seeds each, against the exact
+    Kalman filter; multinomial and residual resampling on the
+    particle-filter path; reconstructed trajectories re-assessed;
+    importance sampling at T=2."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch._verify import kalman_filter
+    from gen_tpu_torch.combinators import (Unfold, UnfoldArena,
+                                           vector_choicemap)
+    from gen_tpu_torch.diff import IntDiff, NoChange
+    from gen_tpu_torch.inference import importance_sampling, smc
+    from gen_tpu_torch.inference import particle_filter as pf
+    from gen_tpu_torch.ops import resample as rs
+
+    @tt.gen
+    def lg_kernel(t, prev):
+        x = tt.normal(0.8 * prev, 0.5) @ "x"
+        tt.normal(x, 0.3) @ "y"
+        return x
+
+    ys = ssm_data(SMC_T)
+    lml_ex, means, variances = kalman_filter(ys)
+    m_ex, v_ex = means[-1], variances[-1]
+    y_t = torch.tensor(ys, dtype=torch.float32, device=dev)
+    obs = vector_choicemap(SMC_T, y=y_t)
+    arena, unfold = UnfoldArena(lg_kernel, SMC_T), Unfold(lg_kernel)
+    kept = {}
+
+    def genealogy(k, method):
+        subs, anc, lw, lml = smc.smc_genealogy(
+            k, lg_kernel, 0.0, (), obs, SMC_N, resample_method=method)
+        kept.setdefault("genealogy", (subs, anc))
+        return lml, lw, subs.get_choices()["x"][-1]
+
+    def arena_run(k, method):
+        traces, lw, lml = tt.smc_run(k, arena, 0.0, (), obs, SMC_N,
+                                     resample_method=method)
+        return lml, lw, traces.subtraces.get_choices()["x"][:, SMC_T - 1]
+
+    def pf_run(k, method):
+        k0, *ks = random.split(k, SMC_T)
+        state = pf.initialize_particle_filter(
+            k0, unfold, (1, 0.0), tt.choicemap(((0, "y"), y_t[0])), SMC_N)
+        for t in range(1, SMC_T):
+            k_res, k_ext = random.split(ks[t - 1])
+            state, _ = pf.maybe_resample(k_res, state, method=method)
+            state = pf.particle_filter_step(
+                k_ext, state, (t + 1, 0.0), (IntDiff(1), NoChange),
+                tt.choicemap(((t, "y"), y_t[t])))
+        return (pf.log_ml_estimate(state), state.log_weights,
+                state.traces.get_retval()[:, SMC_T - 1])
+
+    def gate(label, run, method, seeds, moments):
+        rs.systematic_resample.launches = 0
+        clock = PhaseClock(torch, [
+            ("gen_tpu_torch.inference.particle_filter", "_resample_parents"),
+            ("gen_tpu_torch.inference.smc", "_resample_parents")])
+        with clock:
+            res, secs = timed(torch, lambda: [
+                run(random.PRNGKey(100 + s, dev), method)
+                for s in range(seeds)])
+        steps = len(clock.calls["_resample_parents"])
+        launches = rs.systematic_resample.launches
+        lmls = [float(r[0]) for r in res]
+        mom = np.array([weighted_moments(torch, r[2], r[1]) for r in res])
+        d_lml = float(np.mean(lmls)) - lml_ex
+        d_m = (mom[:, 0].mean() - m_ex) / math.sqrt(v_ex)
+        d_v = mom[:, 1].mean() / v_ex - 1.0
+        ok = abs(d_lml) < LML_TOL and (not moments or (
+            abs(d_m) < MEAN_TOL and abs(d_v) < VAR_TOL))
+        print(f"{tag} {label} ({method}, {seeds} seeds, {secs:.2f} s): "
+              f"log-ML {np.mean(lmls):.4f} (Kalman {lml_ex:.4f}, diff "
+              f"{d_lml:+.4f}; per seed "
+              f"{', '.join(f'{v:.4f}' for v in lmls)}); filtered x_T-1 mean "
+              f"diff {d_m:+.4f} sd, var {d_v:+.2%}; {steps} resampling "
+              f"steps, {launches} K4 launches {'OK' if ok else 'FAIL'}")
+        check(ok, f"{label} ({method}) outside the Kalman gates")
+        check(steps >= 1 and launches == (steps if method == "systematic"
+                                          else 0),
+              f"{label} ({method}): {launches} K4 launches for {steps} "
+              "resampling steps")
+
+    print(f"SSM T={SMC_T}: Kalman log-ML {lml_ex:.4f}, filtered x_T-1 "
+          f"mean {m_ex:.4f} sd {math.sqrt(v_ex):.4f}")
+    gate("smc_genealogy", genealogy, "systematic", SMC_SEEDS, True)
+    gate("smc_run (UnfoldArena)", arena_run, "systematic", SMC_SEEDS, True)
+    gate("particle-filter API (Unfold)", pf_run, "systematic", SMC_SEEDS,
+         True)
+    for method in ("multinomial", "residual"):
+        gate("particle-filter API (Unfold)", pf_run, method, OTHER_SEEDS,
+             False)
+
+    # coherence: re-assess the kernel along reconstructed columns
+    subs, anc = kept.pop("genealogy")
+    traj = smc.reconstruct_trajectories(subs, anc)
+    x = traj.get_choices()["x"][:, :1000]
+    prev = torch.cat([torch.zeros_like(x[:1]), x[:-1]])
+    worst = 0.0
+    for t in range(SMC_T):
+        w_t = torch.func.vmap(lambda p, xx: lg_kernel.assess(
+            (t, p), tt.choicemap(x=xx, y=y_t[t]))[0])(prev[t], x[t])
+        stored = traj.get_score()[t, :1000]
+        worst = max(worst, float(((w_t - stored).abs()
+                                  / stored.abs().clamp_min(1e-30)).max()))
+    print(f"reconstruct_trajectories: 1000 columns re-assessed over {SMC_T} "
+          f"steps, worst relative difference from the stored scores "
+          f"{worst:.3e}")
+    check(worst < 1e-5, "reconstructed trajectories are not coherent")
+    del subs, anc, traj
+
+    lml2 = kalman_filter(ys[:2])[0]
+    _, _, lml_is = importance_sampling(
+        random.PRNGKey(7, dev), unfold, (2, 0.0),
+        vector_choicemap(2, y=y_t[:2]), SMC_N)
+    print(f"importance_sampling T=2, {SMC_N} particles: log-ML "
+          f"{float(lml_is):.4f} (Kalman {lml2:.4f})")
+    check(abs(float(lml_is) - lml2) < LML_TOL,
+          "importance sampling outside the Kalman gate")
+
+
+def k4_entry(torch, dev, tag, smc_a, k4_err):
+    """Phase 7 for K4: its device time at 131,072 and 1,048,576 float32
+    particles, the literal count's time, torch.searchsorted + clamp's
+    time and the bound. Returns its JSON entry."""
+    from gen_tpu_torch.ops import resample as rs
+    rng = np.random.default_rng(5)
+    t = {}
+    for n in (SMC_N, SMC_N_BIG):
+        lw = torch.tensor(rng.standard_normal(n) * 2.0, dtype=torch.float32,
+                          device=dev)
+        cdf = rs.normalized_cdf(lw)
+        u = torch.tensor(0.5, dtype=torch.float32, device=dev)
+        pos = rs.positions(n, u, torch.float32, dev)
+        rs.resample_cdf(cdf, u)
+        k_ms = gpu_ms(torch, lambda: rs.resample_cdf(cdf, u), K4_REPS)
+        lib_ms = gpu_ms(torch, lambda: torch.searchsorted(
+            cdf, pos, out_int32=True).clamp_(max=n - 1), K4_REPS)
+        plain_ms = None
+        if n == SMC_N:
+            _, plain_s = timed(torch, lambda: rs.systematic_parents_count(
+                cdf, u))
+            plain_ms = plain_s * 1e3
+        b_ms, b_by = bound_ms(k4_ops(n), 4 * n + 4 * n + 4)
+        t[n] = (k_ms, lib_ms, plain_ms, b_ms, b_by)
+        print(f"{tag} K4 N={n} float32: kernel {k_ms * 1e3:.2f} us, "
+              f"searchsorted+clamp {lib_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by})"
+              + (f", literal count {plain_ms:.2f} ms" if plain_ms else ""))
+    k_ms, lib_ms, plain_ms, b_ms, b_by = t[SMC_N]
+    return dict(name="resample_systematic", route="cuda",
+                source="gen_tpu_torch/ops/csrc/resample.cu",
+                replaces="gen_tpu/ops/resample.py:40",
+                per=f"launch at {SMC_N} float32 particles",
+                launches=smc_a["launches"],
+                launches_per_filter=smc_a["launches"] / smc_a["filters"],
+                max_abs_err=k4_err, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                ms_1m=t[SMC_N_BIG][0], library_ms_1m=t[SMC_N_BIG][1],
+                bound_ms_1m=t[SMC_N_BIG][3])
+
+
 def phase_build(torch, tt, dev, tag):
     """Phase 1 after the environment: the models, their staging and the
     parallel build of every kernel variant. Returns the models and staged
     programs the later phases use."""
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
-    from gen_tpu_torch.ops import _cuda_build, hmc_fused
+    from gen_tpu_torch.ops import _cuda_build, hmc_fused, resample
     from gen_tpu_torch.ops import nuts_fused as nf
 
     model, X, obs, sel, xs, ys = regression_setup(torch, tt, dev)
@@ -813,7 +1208,8 @@ def phase_build(torch, tt, dev, tag):
         hmc_fused.stage(school_targets["d102"].logp, 102, dev),
         hmc_fused.stage(gauss4_logp, 4, dev)))
     builds = [("K1 regression", st_reg, hmc_fused.build_job(st_reg)),
-              ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3))]
+              ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3)),
+              ("K4 resample (float32, float64)", None, resample.build_job())]
     for paired, k in ((True, "K3"), (False, "K6")):
         builds += [
             (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
@@ -827,9 +1223,9 @@ def phase_build(torch, tt, dev, tag):
                                    (float("nan"), ""))
         regs = [ln.strip() for ln in report.splitlines()
                 if "registers" in ln or "spill" in ln or "stack" in ln]
-        print(f"{name}: {st.n_instructions} staged instructions, "
-              f"{st.n_res} residual constants; nvcc {secs:.2f} s; "
-              + " | ".join(regs))
+        staged = ("" if st is None else f"{st.n_instructions} staged "
+                  f"instructions, {st.n_res} residual constants; ")
+        print(f"{name}: {staged}nvcc {secs:.2f} s; " + " | ".join(regs))
     print(f"{tag} staging {stage_s:.3f} s, parallel nvcc build of "
           f"{len(builds)} sources {build_s:.2f} s")
     return dict(k1=(model, X, obs, sel, xs, ys, target, gauss_logp, sds),
@@ -900,9 +1296,10 @@ def main():
     tag = f"[{card}]"
     ctx = phase_build(torch, tt, dev, tag)
 
-    # -- phase 2: K3 and K6 against their plain versions -------------------
+    # -- phase 2: K3, K6 and K4 against their plain versions ---------------
     k3_err = phase_compare(torch, ctx, dev, paired=True)
     k6_err = phase_compare(torch, ctx, dev, paired=False)
+    k4_err = phase_compare_k4(torch, dev)
 
     # -- phases 3-5: the main paths, each with its gates --------------------
     rng = np.random.default_rng(123)
@@ -919,11 +1316,17 @@ def main():
     print(f"{tag} staging {ctx['stage_s']:.3f} s, nvcc build "
           f"{ctx['build_s']:.2f} s")
 
-    # -- phase 6: numbers ---------------------------------------------------
+    # -- phase 6: the SMC slice ------------------------------------------------
+    smc_a = phase_smc_throughput(torch, tt, dev, tag)
+    phase_smc_gates(torch, tt, dev, tag)
+
+    # -- phase 7: numbers ---------------------------------------------------
+    k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
     print(json.dumps({"kernels": [
         k1_entry, dict(name="nuts_pair", **k3_10),
         dict(name="nuts_pair_d102", **k3_102),
-        dict(name="nuts_tick", **k6_10), dict(name="nuts_tick_d102", **k6_102)]}))
+        dict(name="nuts_tick", **k6_10), dict(name="nuts_tick_d102", **k6_102),
+        k4]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

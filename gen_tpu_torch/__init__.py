@@ -7,16 +7,21 @@ built on first use from the sources under ``ops/csrc``; a tensor on the CPU
 runs each kernel's plain PyTorch twin instead.
 """
 
-from . import diagnostics, inference, random
+from . import combinators, diagnostics, inference, random
 from .address import addr_path
 from .choice_map import ChoiceMap, choicemap
+from .combinators import (Unfold, UnfoldArena, VectorChoiceMap, smc_run,
+                          vector_choicemap)
+from .diff import IntDiff, NoChange, UnknownChange
 from .dists import normal, normal_linear
 from .dynamic import gen, init_param, param, trace_at
 from .gfi import GenerativeFunction, Trace
 from .selection import complement, select
 
 __all__ = [
-    "diagnostics", "inference", "random", "addr_path", "ChoiceMap", "choicemap", "normal",
-    "normal_linear", "gen", "init_param", "param", "trace_at",
+    "combinators", "diagnostics", "inference", "random", "addr_path",
+    "ChoiceMap", "choicemap", "Unfold", "UnfoldArena", "VectorChoiceMap",
+    "smc_run", "vector_choicemap", "IntDiff", "NoChange", "UnknownChange",
+    "normal", "normal_linear", "gen", "init_param", "param", "trace_at",
     "GenerativeFunction", "Trace", "complement", "select",
 ]

@@ -1,9 +1,10 @@
-"""Exact posterior moments of the main-path models, by quadrature.
+"""Exact references for the main-path models, in numpy float64.
 
-Counterparts, in numpy: ``exact_posterior_moments`` in
-``benchmarks/bench_verify.py`` (the headline regression model) and
-``schools_exact`` in ``benchmarks/bench_hard_targets.py`` (eight_schools,
-at any number of schools).
+Counterparts: ``exact_posterior_moments`` in ``benchmarks/bench_verify.py``
+(the headline regression model, by quadrature), ``schools_exact`` in
+``benchmarks/bench_hard_targets.py`` (eight_schools, at any number of
+schools) and ``_kalman_lml`` in ``tests/test_arena.py`` (the SMC slice's
+linear-Gaussian state-space model, by the Kalman filter).
 
 Regression: ``p(slope, intercept, log_noise | ys)`` factorizes as
 ``p(beta | ln, ys) p(ln | ys)``: the first factor is Gaussian in closed
@@ -86,3 +87,21 @@ def schools_exact(ys, sigmas, mu_lo=-25.0, mu_hi=35.0, lt_lo=-7.0,
         t_mean[i], t_sd[i] = m, np.sqrt(e2 - m ** 2)
     out[("theta_std",)] = (t_mean, t_sd)
     return out
+
+
+def kalman_filter(ys, A=0.8, Q=0.25, R=0.09):
+    """Exact log marginal likelihood and filtered moments of the 1-D
+    linear-Gaussian state-space model ``x_t ~ N(A x_{t-1}, Q)`` (from
+    ``x_{-1} = 0``), ``y_t ~ N(x_t, R)``, with Q and R variances. Returns
+    ``(log_ml, means (T,), variances (T,))`` of ``x_t | y_0..y_t``."""
+    m, v, lml = 0.0, 0.0, 0.0
+    means, variances = [], []
+    for t, y in enumerate(np.asarray(ys, np.float64)):
+        pm, pv = (A * m, A * A * v + Q) if t else (0.0, Q)
+        S = pv + R
+        lml += -0.5 * np.log(2 * np.pi * S) - 0.5 * (y - pm) ** 2 / S
+        K = pv / S
+        m, v = pm + K * (y - pm), (1 - K) * pv
+        means.append(m)
+        variances.append(v)
+    return float(lml), np.asarray(means), np.asarray(variances)

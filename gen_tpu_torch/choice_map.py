@@ -89,6 +89,12 @@ class ChoiceMap:
     def has_submap(self, addr: Address) -> bool:
         return not self.get_submap(addr).is_empty()
 
+    def get_values_shallow(self) -> Dict[Key, Any]:
+        return dict(self._leaves)
+
+    def get_submaps_shallow(self) -> Dict[Key, "ChoiceMap"]:
+        return {k: v for k, v in self._subs.items() if not v.is_empty()}
+
     def __getitem__(self, addr: Address):
         return self.get_value(addr)
 

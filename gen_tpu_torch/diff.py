@@ -1,8 +1,9 @@
 """Change hints ("diffs") for incremental GFI operations.
 
-Counterpart: ``gen_tpu/diff.py``. Only the pieces the flat-target path uses
-are ported: ``NoChange``, ``UnknownChange`` and ``all_no_change``. The
-rest waits for ``update``/``regenerate`` and the combinators.
+Counterpart: ``gen_tpu/diff.py``. Ported: ``NoChange``, ``UnknownChange``,
+``IntDiff`` (the signal of Unfold's O(1) extension path),
+``all_no_change`` and ``all_unknown_change``. ``Diffed``, ``VectorDiff``,
+``SetDiff`` and ``DictDiff`` are not ported: no update path reads them.
 """
 
 from __future__ import annotations
@@ -26,5 +27,19 @@ NoChange = _NoChange()
 UnknownChange = _UnknownChange()
 
 
+class IntDiff(Diff):
+    """An integer changed by a known amount."""
+
+    def __init__(self, difference: int):
+        self.difference = difference
+
+    def __repr__(self):
+        return f"IntDiff({self.difference})"
+
+
 def all_no_change(args) -> tuple:
     return tuple(NoChange for _ in args)
+
+
+def all_unknown_change(args) -> tuple:
+    return tuple(UnknownChange for _ in args)

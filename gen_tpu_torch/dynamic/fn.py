@@ -3,8 +3,10 @@
 Counterpart: ``gen_tpu/dynamic/fn.py``. The body runs eagerly under a
 handler; ``torch.func.vmap`` batches it over keys and ``torch.func.grad``
 differentiates ``assess``, where gen_tpu relies on ``jax.vmap``/``jax.grad``.
-Ported: ``simulate``, ``generate``, ``assess``, ``project`` and the
-parameter store. ``update``/``regenerate`` wait for a later slice.
+Ported: ``simulate``, ``generate``, ``assess``, ``project``, ``update``
+(with the deletion pass, the discard and the not-visited check),
+``regenerate``, ``propose`` (the default, through ``simulate``) and the
+parameter store.
 """
 
 from __future__ import annotations
@@ -15,12 +17,22 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..choice_map import ChoiceMap
+from ..diff import UnknownChange
 from ..gfi import GenerativeFunction
 from ..selection import Selection
-from .handlers import (AssessHandler, GenerateHandler, SimulateHandler,
-                       active_handler)
+from .handlers import (AssessHandler, GenerateHandler, RegenerateHandler,
+                       SimulateHandler, UpdateHandler, active_handler)
 from .params import current_params
-from .trace import DynamicTrace
+from .trace import ChoiceRecord, DynamicTrace
+
+
+def _trace(gen_fn, args, retval, h) -> DynamicTrace:
+    """The trace a handler recorded. The noise accumulator is still the
+    CPU scalar it started as when the body traced no call; it moves to the
+    score's device, so that one index tensor can gather every leaf of a
+    batch of traces (resampling does)."""
+    return DynamicTrace(gen_fn, args, retval, h.score,
+                        h.noise.to(h.score.device), h.records)
 
 
 class GenFn(GenerativeFunction):
@@ -67,7 +79,7 @@ class GenFn(GenerativeFunction):
         args = self.fill_args(args)
         with SimulateHandler(key, current_params(self)) as h:
             retval = self.run_body(args)
-        return DynamicTrace(self, args, retval, h.score, h.noise, h.records)
+        return _trace(self, args, retval, h)
 
     def generate(self, key, args: Tuple,
                  constraints: Optional[ChoiceMap] = None):
@@ -75,8 +87,7 @@ class GenFn(GenerativeFunction):
         args = self.fill_args(args)
         with GenerateHandler(key, constraints, current_params(self)) as h:
             retval = self.run_body(args)
-        trace = DynamicTrace(self, args, retval, h.score, h.noise, h.records)
-        return trace, h.weight
+        return _trace(self, args, retval, h), h.weight
 
     def assess(self, args: Tuple, choices: ChoiceMap):
         args = self.fill_args(args)
@@ -91,6 +102,50 @@ class GenFn(GenerativeFunction):
 
     def project(self, trace: DynamicTrace, selection: Selection):
         return trace.project(selection)
+
+    def update(self, key, trace: DynamicTrace, args: Tuple, argdiffs: Tuple,
+               constraints: ChoiceMap):
+        args = self.fill_args(args)
+        with UpdateHandler(key, trace, constraints,
+                           current_params(self)) as h:
+            retval = self.run_body(args)
+        weight = h.weight
+        discard = h.discard
+        # deletion pass: previous records not visited again leave the
+        # trace; their scores leave the weight and their choices go to the
+        # discard
+        visited = h.visitor
+        for path, rec in trace.records.items():
+            if path not in visited.paths:
+                weight = weight - rec.score
+                if isinstance(rec, ChoiceRecord):
+                    discard.set_value(path, rec.value)
+                else:
+                    sub_choices = rec.subtrace.get_choices()
+                    if not sub_choices.is_empty():
+                        discard.set_submap(path, sub_choices)
+        unconsumed = [a for a in constraints.addresses()
+                      if not visited.covers(a)]
+        if unconsumed:
+            raise ValueError(
+                f"update: did not visit constraints at {unconsumed!r}")
+        new_trace = _trace(self, args, retval, h)
+        return new_trace, weight, UnknownChange, discard
+
+    def regenerate(self, key, trace: DynamicTrace, args: Tuple,
+                   argdiffs: Tuple, selection: Selection):
+        args = self.fill_args(args)
+        with RegenerateHandler(key, trace, selection,
+                               current_params(self)) as h:
+            retval = self.run_body(args)
+        weight = h.weight
+        # calls that were not visited again leave with their noise
+        for path, rec in trace.records.items():
+            if path not in h.visitor.paths and not isinstance(
+                    rec, ChoiceRecord):
+                weight = weight - rec.noise
+        new_trace = _trace(self, args, retval, h)
+        return new_trace, weight, UnknownChange
 
 
 def gen(fn=None, **kwargs):

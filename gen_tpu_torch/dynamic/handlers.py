@@ -4,9 +4,10 @@ Counterpart: ``gen_tpu/dynamic/handlers.py``. A model body is plain Python
 and torch code; every ``dist(args) @ "addr"`` dispatches to the innermost
 active handler, which threads an explicit key (split once per traced call,
 in execution order, exactly as gen_tpu does, so both packages draw the same
-bits). Ported: ``Simulate``, ``Generate`` and ``Assess``. ``Update`` and
-``Regenerate``, masked constraints and the distribution-call recorder wait
-for later slices.
+bits). Ported: ``Simulate``, ``Generate``, ``Assess``, ``Update`` and
+``Regenerate``. Masked constraint values and masked selections (gen_tpu's
+``masked.py``, ROADMAP queue 1 item 12) raise ``NotImplementedError``;
+the distribution-call recorder waits for ``mixed.py``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 from .. import random
 from ..address import Address, addr_path
 from ..choice_map import ChoiceMap
+from ..diff import all_unknown_change
 from ..dists.distribution import Distribution
-from ..selection import NONE
+from ..selection import NONE, Selection
 from .trace import CallRecord, ChoiceRecord
 
 _STACK: List["Handler"] = []
@@ -86,6 +88,21 @@ class AddressVisitor:
         if path in self.paths:
             return True
         return any(path[:i] in self.paths for i in range(1, len(path)))
+
+
+def _sel_at_path(sel: Selection, path: Tuple) -> Selection:
+    for k in path:
+        sel = sel.subselection(k)
+    return sel
+
+
+def refuse_masked(x, what: str):
+    """gen_tpu's masked constraint values and selections carry per-lane
+    flags (``flag``, ``flag_at``); their branchless paths come with
+    ``masked.py``."""
+    if hasattr(x, "flag") or hasattr(x, "flag_at"):
+        raise NotImplementedError(
+            f"masked {what} come with masked.py (ROADMAP queue 1 item 12)")
 
 
 def _zero():
@@ -198,6 +215,7 @@ class GenerateHandler(Handler):
                 f"constraints hold a submap at choice address {path!r}")
         if constrained:
             v = self.constraints.get_value(path)
+            refuse_masked(v, "constraint values")
         else:
             v = dist.sample(self._next_key(), *args)
         s = dist.logpdf(v, *args)
@@ -243,3 +261,110 @@ class AssessHandler(Handler):
         w, retval = fn.assess(args, self.choices.get_submap(path))
         self.weight = self.weight + w
         return retval
+
+
+class UpdateHandler(Handler):
+    """Per-choice weight bookkeeping of ``update``; the deletion term and
+    the discard of unvisited records are completed in ``GenFn.update``."""
+
+    def __init__(self, key, prev_trace, constraints: ChoiceMap, params):
+        super().__init__(key, params)
+        self.prev = prev_trace
+        self.constraints = constraints
+        self.records: Dict[Tuple, Any] = {}
+        self.discard = ChoiceMap()
+        self.score = _zero()
+        self.noise = _zero()
+        self.weight = _zero()
+
+    def handle_dist(self, path, dist, args):
+        has_prev = self.prev.has_choice(path)
+        constrained = self.constraints.has_value(path)
+        if not constrained and self.constraints.has_submap(path):
+            raise ValueError(
+                f"constraints hold a submap at choice address {path!r}")
+        if has_prev:
+            prev_rec = self.prev.get_choice(path)
+        if constrained:
+            v = self.constraints.get_value(path)
+            refuse_masked(v, "constraint values")
+            if has_prev:
+                self.discard.set_value(path, prev_rec.value)
+        elif has_prev:
+            v = prev_rec.value
+        else:
+            v = dist.sample(self._next_key(), *args)
+        s = dist.logpdf(v, *args)
+        if has_prev:
+            self.weight = self.weight + s - prev_rec.score
+        elif constrained:
+            self.weight = self.weight + s
+        self.records[path] = ChoiceRecord(v, s)
+        self.score = self.score + s
+        return v
+
+    def handle_call(self, path, fn, args):
+        if self.constraints.has_value(path):
+            raise ValueError(
+                f"constraints hold a value at call address {path!r}")
+        sub_constraints = self.constraints.get_submap(path)
+        if self.prev.has_call(path):
+            prev_sub = self.prev.get_call(path).subtrace
+            sub, w, _, sub_discard = fn.update(
+                self._maybe_key(), prev_sub, args, all_unknown_change(args),
+                sub_constraints)
+            if not sub_discard.is_empty():
+                self.discard.set_submap(path, sub_discard)
+        else:
+            sub, w = fn.generate(self._maybe_key(), args, sub_constraints)
+        noise = sub.project(NONE)
+        self.records[path] = CallRecord(sub, noise)
+        self.score = self.score + sub.get_score()
+        self.noise = self.noise + noise
+        self.weight = self.weight + w
+        return sub.get_retval()
+
+
+class RegenerateHandler(Handler):
+    """Selected choices are resampled from the prior (their weight
+    contribution cancels); retained choices contribute score - prev_score."""
+
+    def __init__(self, key, prev_trace, selection: Selection, params):
+        super().__init__(key, params)
+        refuse_masked(selection, "selections")
+        self.prev = prev_trace
+        self.selection = selection
+        self.records: Dict[Tuple, Any] = {}
+        self.score = _zero()
+        self.noise = _zero()
+        self.weight = _zero()
+
+    def handle_dist(self, path, dist, args):
+        keep = self.prev.has_choice(path) and path not in self.selection
+        if keep:
+            prev_rec = self.prev.get_choice(path)
+            v = prev_rec.value
+        else:
+            v = dist.sample(self._next_key(), *args)
+        s = dist.logpdf(v, *args)
+        if keep:
+            self.weight = self.weight + s - prev_rec.score
+        self.records[path] = ChoiceRecord(v, s)
+        self.score = self.score + s
+        return v
+
+    def handle_call(self, path, fn, args):
+        subsel = _sel_at_path(self.selection, path)
+        if self.prev.has_call(path):
+            prev_sub = self.prev.get_call(path).subtrace
+            sub, w, _ = fn.regenerate(
+                self._maybe_key(), prev_sub, args, all_unknown_change(args),
+                subsel)
+        else:
+            sub, w = fn.generate(self._maybe_key(), args, ChoiceMap())
+        noise = sub.project(NONE)
+        self.records[path] = CallRecord(sub, noise)
+        self.score = self.score + sub.get_score()
+        self.noise = self.noise + noise
+        self.weight = self.weight + w
+        return sub.get_retval()

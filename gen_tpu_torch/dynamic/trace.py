@@ -5,8 +5,9 @@ Counterpart: ``gen_tpu/dynamic/trace.py``. The trace is a
 and whether each is a choice or a call), the generative function and the
 non-tensor arguments and return values (e.g. a model body that returns
 nothing) are the spec; values, scores and subtraces are the leaves. ``torch.func.vmap`` over ``generate`` therefore returns one trace
-whose leaves carry the batch dimension. The masked-selection branch of
-``project`` waits for the Switch combinator.
+whose leaves carry the batch dimension, and ``update`` vmapped over traces
+reads each particle's records. The masked-selection branch of ``project``
+waits for ``masked.py``.
 """
 
 from __future__ import annotations
@@ -118,6 +119,26 @@ class DynamicTrace(Trace):
                 rest = path[len(p):]
                 return r.subtrace[rest if len(rest) > 1 else rest[0]]
         raise KeyError(f"no record at address {addr!r}")
+
+    # -- record lookup (used by the update and regenerate handlers) --------
+
+    def has_choice(self, path: Tuple) -> bool:
+        return isinstance(self.records.get(path), ChoiceRecord)
+
+    def get_choice(self, path: Tuple) -> ChoiceRecord:
+        rec = self.records.get(path)
+        if not isinstance(rec, ChoiceRecord):
+            raise KeyError(f"no choice at {path!r}")
+        return rec
+
+    def has_call(self, path: Tuple) -> bool:
+        return isinstance(self.records.get(path), CallRecord)
+
+    def get_call(self, path: Tuple) -> CallRecord:
+        rec = self.records.get(path)
+        if not isinstance(rec, CallRecord):
+            raise KeyError(f"no call at {path!r}")
+        return rec
 
     def project(self, selection: Selection):
         """Sum of selected choice scores plus recursive projects of calls;

@@ -4,9 +4,10 @@ Counterpart: ``gen_tpu/gfi.py``. Same design: every sampling method takes an
 explicit key (a :mod:`gen_tpu_torch.random` key tensor, not a
 ``torch.Generator``, so that ``torch.func.vmap`` can batch it), methods are
 pure, and traces are pytrees whose structure is static and whose leaves are
-tensors. Ported so far: ``simulate``, ``generate``, ``assess`` and
-``project``. ``propose``, ``update``, ``regenerate`` and the gradient
-methods wait for later slices.
+tensors. Ported: ``simulate``, ``generate``, ``assess``, ``project``,
+``propose``, ``update`` and ``regenerate``, with the trace-first
+forwarding of ``update``/``regenerate``. The gradient methods wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 from .choice_map import ChoiceMap
+from .diff import all_no_change
 from .selection import Selection
 
 
@@ -40,6 +42,21 @@ class Trace:
     def __getitem__(self, addr):
         return self.get_choices()[addr]
 
+    def update(self, key, constraints: ChoiceMap, args=None, argdiffs=None):
+        fn = self.get_gen_fn()
+        if args is None:
+            args = self.get_args()
+            argdiffs = all_no_change(args)
+        return fn.update(key, self, args, argdiffs, constraints)
+
+    def regenerate(self, key, selection: Selection, args=None,
+                   argdiffs=None):
+        fn = self.get_gen_fn()
+        if args is None:
+            args = self.get_args()
+            argdiffs = all_no_change(args)
+        return fn.regenerate(key, self, args, argdiffs, selection)
+
     def project(self, selection: Selection):
         return self.get_gen_fn().project(self, selection)
 
@@ -62,9 +79,27 @@ class GenerativeFunction:
         decomposition."""
         raise NotImplementedError
 
+    def propose(self, key, args: Tuple) -> Tuple[ChoiceMap, Any, Any]:
+        """(choices, weight, retval); the default goes through simulate."""
+        trace = self.simulate(key, args)
+        return trace.get_choices(), trace.get_score(), trace.get_retval()
+
     def assess(self, args: Tuple, choices: ChoiceMap) -> Tuple[Any, Any]:
         """(weight, retval) with ALL addressed choices given; key-free and
         differentiable."""
+        raise NotImplementedError
+
+    def update(self, key, trace: Trace, args: Tuple, argdiffs: Tuple,
+               constraints: ChoiceMap):
+        """(new_trace, weight, retdiff, discard); the incremental edit move.
+        weight = log [p(t';x') q(r;x,t)] / [p(t;x) q(r';x',t') q(t';x',t+u)].
+        ``key`` may be None when nothing needs to be sampled."""
+        raise NotImplementedError
+
+    def regenerate(self, key, trace: Trace, args: Tuple, argdiffs: Tuple,
+                   selection: Selection):
+        """(new_trace, weight, retdiff); resample the selected addresses from
+        the internal proposal."""
         raise NotImplementedError
 
     def __call__(self, *args):

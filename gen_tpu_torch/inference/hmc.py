@@ -1,13 +1,14 @@
 """Many-chain Hamiltonian Monte Carlo in flat coordinates.
 
 Counterpart: ``gen_tpu/inference/hmc.py``; only ``hmc_chains`` is ported
-(``hmc`` and ``hmc_chain`` rebuild traces through ``update`` and wait for
-it). The step is gen_tpu's, draw for draw: the same key splits, the same
-jittered step size, momenta, L leapfrogs, NaN-to-minus-infinity energy
-error, MH accept and optional warmup teleport, so under the same key it
-matches gen_tpu step for step. Where gen_tpu scans, this is a Python loop
-over steps and leapfrogs; the per-chain value and gradient is
-``torch.func.vmap`` of ``FlatTarget.value_and_grad``.
+(``hmc`` and ``hmc_chain``, the trace-level kernels, wait for
+``inference/common.py``). The step is gen_tpu's, draw for draw: the same
+key splits, the same jittered step size, momenta, L leapfrogs,
+NaN-to-minus-infinity energy error, MH accept and optional warmup
+teleport, so under the same key it matches gen_tpu step for step. Where
+gen_tpu scans, this is a Python loop over steps and leapfrogs; the
+per-chain value and gradient is ``torch.func.vmap`` of
+``FlatTarget.value_and_grad``.
 """
 
 from __future__ import annotations

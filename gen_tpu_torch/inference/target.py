@@ -3,16 +3,15 @@
 Counterpart: ``gen_tpu/inference/target.py``. ``logp`` is ``assess`` on the
 merged choice map, as in gen_tpu; ``value_and_grad`` comes from
 ``torch.func.grad_and_value`` (reordered to gen_tpu's ``(value, grad)``).
-``rebuild`` is a fully constrained ``generate`` (gen_tpu's is ``update``,
-which the port has not yet): every choice is constrained, so the key is
-unused and the trace is the same.
+``rebuild`` is gen_tpu's key-free ``update`` of the trace with the
+selected choices constrained.
 """
 
 from __future__ import annotations
 
 from torch.func import grad_and_value
 
-from .. import random
+from ..diff import all_no_change
 from ..gfi import Trace
 from ..selection import Selection
 
@@ -30,7 +29,8 @@ class FlatTarget:
         rest = choices.filter(selection.complement())
         self.flat0 = self.values_chm.to_array()
         self.dim = self.flat0.shape[0]
-        self._gen_fn, self._args, self._rest = gen_fn, args, rest
+        self._trace, self._gen_fn, self._args = trace, gen_fn, args
+        self._argdiffs = all_no_change(args)
 
         def logp(flat):
             chm = self.values_chm.from_array(flat)
@@ -47,8 +47,9 @@ class FlatTarget:
         self.value_and_grad = value_and_grad
 
     def rebuild(self, flat):
-        """New trace with the selected choices set to ``flat``."""
-        trace, _ = self._gen_fn.generate(
-            random.PRNGKey(0, flat.device), self._args,
-            self._rest.merge(self.values_chm.from_array(flat)))
-        return trace
+        """New trace with the selected choices set to ``flat`` (one
+        ``update``; key-free since every change is constrained)."""
+        new_trace, _, _, _ = self._gen_fn.update(
+            None, self._trace, self._args, self._argdiffs,
+            self.values_chm.from_array(flat))
+        return new_trace

@@ -16,7 +16,9 @@ Normals use XLA's single-precision ``erf_inv`` polynomial (Giles 2010), not
 ``torch.special.erfinv``, which differs from it by up to 63 ulp. float64
 normals fall back to ``torch.special.erfinv``: XLA's double-precision
 coefficients are not reproduced here, so f64 normals agree with JAX to
-~1e-12 relative, not bit for bit.
+~1e-12 relative, not bit for bit. ``exponential``, ``gumbel`` and
+``categorical`` use ``jax.random``'s constructions on the same bits; their
+logs are torch's, which may differ from XLA's in the last ulp.
 """
 
 from __future__ import annotations
@@ -173,6 +175,39 @@ def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = (),
     here ``torch.get_default_dtype()``."""
     dtype = torch.get_default_dtype() if dtype is None else dtype
     return uniform(key, shape, dtype) < p
+
+
+def exponential(key: torch.Tensor, shape: Shape = (),
+                dtype=None) -> torch.Tensor:
+    """Standard exponentials ``-log1p(-u)``, as ``jax.random.exponential``.
+    ``dtype`` defaults to ``torch.get_default_dtype()``, the counterpart of
+    JAX's default float."""
+    dtype = torch.get_default_dtype() if dtype is None else dtype
+    return -torch.log1p(-uniform(key, shape, dtype))
+
+
+def gumbel(key: torch.Tensor, shape: Shape = (), dtype=None) -> torch.Tensor:
+    """Standard Gumbels ``-log(-log(u))`` with u uniform on [tiny, 1):
+    ``jax.random.gumbel`` in its default ("low") mode."""
+    dtype = torch.get_default_dtype() if dtype is None else dtype
+    u = uniform(key, shape, dtype, torch.finfo(dtype).tiny, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: Shape = None) -> torch.Tensor:
+    """Draws from the categoricals over the last axis of ``logits`` by
+    Gumbel-argmax, as ``jax.random.categorical`` (axis -1, with
+    replacement): one Gumbel per category and draw, ties to the lowest
+    index. ``shape`` defaults to the batch shape ``logits.shape[:-1]``;
+    extra leading dimensions are independent draws. Returns int64."""
+    batch_shape = tuple(logits.shape[:-1])
+    shape = batch_shape if shape is None else _shape(shape)
+    if shape[len(shape) - len(batch_shape):] != batch_shape:
+        raise ValueError(f"categorical: shape {shape} is not compatible "
+                         f"with the batch shape {batch_shape}")
+    g = gumbel(key, (*shape, logits.shape[-1]), logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int,

@@ -1,10 +1,11 @@
 """Selections: sets of hierarchical addresses.
 
 Counterpart: ``gen_tpu/selection.py``. Selections are static metadata and
-hold no tensors, so the classes carry over unchanged. Left out until a
-slice needs them: the masked-selection lowering (``selection_signature``,
-``static_leaf_paths``, ``batch_selections``), which serves the Switch
-combinator.
+hold no tensors, so the classes carry over unchanged.
+``selection_signature`` and ``static_leaf_paths`` tell Unfold's
+``regenerate`` when gen_tpu would lower per-step selections onto a masked
+selection; ``batch_selections`` itself waits for ``masked.py`` (ROADMAP
+queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -141,3 +142,42 @@ def select(*addrs: Address) -> Selection:
 
 def complement(sel: Selection) -> Selection:
     return sel.complement()
+
+
+def selection_signature(sel):
+    """Structural signature of a static selection (content-based equality).
+    Raises NotImplementedError for selection types whose membership is not
+    statically enumerable."""
+    if isinstance(sel, AllSelection):
+        return ("all",)
+    if isinstance(sel, EmptySelection):
+        return ("empty",)
+    if isinstance(sel, ComplementSelection):
+        return ("compl", selection_signature(sel.inner))
+    if isinstance(sel, HierarchicalSelection):
+        return ("hier", tuple(sorted(
+            ((k, selection_signature(v)) for k, v in sel.subs.items()),
+            key=lambda kv: repr(kv[0]))))
+    raise NotImplementedError(
+        f"{type(sel).__name__} selections have no static signature")
+
+
+def static_leaf_paths(sel, prefix=()):
+    """Explicit address paths a static selection selects. A bare
+    AllSelection at the root (whose address universe is unknown) and
+    selections that are not statically enumerable raise
+    NotImplementedError."""
+    if isinstance(sel, EmptySelection):
+        return []
+    if isinstance(sel, AllSelection):
+        if not prefix:
+            raise NotImplementedError(
+                "a bare AllSelection cannot be expanded into addresses")
+        return [prefix]
+    if isinstance(sel, HierarchicalSelection):
+        out = []
+        for k, v in sel.subs.items():
+            out.extend(static_leaf_paths(v, prefix + (k,)))
+        return out
+    raise NotImplementedError(
+        f"{type(sel).__name__} selections are not statically enumerable")

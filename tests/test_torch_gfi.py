@@ -130,6 +130,8 @@ def test_imports_without_jax():
         "import gen_tpu_torch, gen_tpu_torch.convert, gen_tpu_torch._verify\n"
         "import gen_tpu_torch.diagnostics, gen_tpu_torch.inference\n"
         "import gen_tpu_torch.ops.scalarize, gen_tpu_torch.ops.hmc_fused\n"
+        "import gen_tpu_torch.ops.resample, gen_tpu_torch.combinators\n"
+        "import gen_tpu_torch.inference.smc\n"
         "import chip_smoke\n"
         "assert not any(m == 'gen_tpu' or m.startswith(('gen_tpu.', 'jax.'))"
         " for m in sys.modules)\n")
