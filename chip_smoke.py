@@ -9,9 +9,9 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (two K1, three K3, three K6,
-   K4 in float32 and float64; one ``nvcc`` per source, all at once), with
-   registers, spills and stack from ptxas.
+   variant from ``gen_tpu_torch/ops/csrc`` (two K1, five K3, three K6,
+   K4 in float32 and float64, K5; one ``nvcc`` per source, all at once),
+   with registers, spills and stack from ptxas.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
@@ -25,6 +25,10 @@ nonzero and no result line is printed):
      divergence paths) and the same Gaussian with one frozen coordinate,
      which must never move. Completed and history counts equal, values,
      histories and stats within 1e-5.
+   - K5 (batched categorical) against its plain version with injected
+     uniforms (with exact zeros, a row of ties and a NaN row): index
+     equality at (300, 37), decode's (432, 27) and (4,672, 27), (16,384,
+     27), (131,072, 64) and (4,096, 256).
    - K4 (systematic resampling) against its plain version, the literal
      count ``systematic_parents_count``, and against torch.searchsorted +
      clamp: integer equality at N 1, 1,000 (ragged), 4,096, 32,768,
@@ -69,7 +73,28 @@ nonzero and no result line is printed):
       the log-ML gate, no K4 launch); 1,000 reconstructed trajectories
       re-assessed against their stored scores (relative 1e-5);
       ``importance_sampling`` at T=2 within 0.05 of the exact log-ML.
-7. Numbers: per kernel its time, its plain version's time, its bound, the
+7. K5's own Philox draws: a vmapped call over 16 keys equals its
+   per-key calls (the custom op's vmap rule), a chi-square on 65,536
+   equal rows of 7 categories (under 30), distinct draws across equal
+   rows and across two keys.
+8. The mixed discrete + continuous slice, K5's and K3's launch counts set
+   to 0 before each path and read after:
+   a. The cipher-decode example (``gen_tpu_torch.examples.decode``) at its
+      own size: 292 characters, K=27, 16 restarts under vmap, 600 sweeps;
+      gate: the best restart decodes > 90% of characters; K5 launches 3
+      per sweep (1,800).
+   b. ``sample_posterior(engine="auto")`` on tests/test_mixed.py's GMM
+      (N=6, 16,384 chains) and examples/regression.py's flagship (n=50,
+      256 chains), both ``gibbs_nuts_fused`` (K3 launches > 0), and on the
+      scalar categorical model (1,024 chains, ``gibbs_nuts``, no K3
+      launch); then the GMM under ``engine="nuts"`` (``gibbs_nuts``) at
+      the same 16,384 chains (40 + 40 iterations at tests/test_mixed.py's
+      max_depth 6: its lockstep loop waits for the slowest chain's tree),
+      to compare the drivers; the gates of
+      tests/test_mixed.py (exact enumeration; the regression's slope and
+      intercept); wall time split into generate,
+      warmup and sampling, with the Gibbs sweeps' and the kernel's share.
+9. Numbers: per kernel its time, its plain version's time, its bound, the
    library call's time where there is one and launches on the main path,
    as one JSON line; then the card; then the result line.
 
@@ -1171,13 +1196,409 @@ def k4_entry(torch, dev, tag, smc_a, k4_err):
                 bound_ms_1m=t[SMC_N_BIG][3])
 
 
+# -- phase 8: the mixed discrete + continuous slice and K5 --------------------
+
+K5_SHAPES = ((300, 37), (16 * 27, 27), (16 * 292, 27), (16384, 27),
+             (131072, 64))
+K5_TIMED_ONLY = (4096, 256)
+K5_MAIN_SHAPE = (16 * 292, 27)      # decode's plaintext blocks
+K5_CHI_PROBS = (0.05, 0.1, 0.2, 0.02, 0.33, 0.25, 0.05)
+K5_CHI_ROWS = 65536
+DECODE_SWEEPS, DECODE_RESTARTS = 600, 16
+GMM_YS = (-2.3, -1.8, -0.4, 0.6, 2.2, 1.9)
+GMM_SIGMA, GMM_TAU, GMM_LOCS = 1.0, 1.5, (-2.0, 2.0)
+SCALAR_LOCS, SCALAR_PRIOR, SCALAR_Y = (-3.0, 0.0, 3.0), (0.5, 0.3, 0.2), 2.4
+# (model, chains, sample_posterior keywords, the engine that must run:
+# gen_tpu's pick under "auto"); the last run is the GMM on the
+# alternating driver at the same chains, to compare the two drivers
+MIXED_RUNS = (
+    ("gmm", 16384, dict(engine="auto", num_warmup=150, num_samples=120),
+     "gibbs_nuts_fused"),
+    ("regression", 256, dict(engine="auto", num_warmup=120,
+                             num_samples=120), "gibbs_nuts_fused"),
+    ("scalar", 1024, dict(engine="auto", num_warmup=60, num_samples=120,
+                          max_depth=6), "gibbs_nuts"),
+    ("gmm", 16384, dict(engine="nuts", num_warmup=40, num_samples=40,
+                        max_depth=6), "gibbs_nuts"),
+)
+
+
+def mixed_setup(torch, tt, dev):
+    """tests/test_mixed.py's GMM (N=6) and scalar categorical model and
+    examples/regression.py's flagship (make_dataset's n=50), on ``dev``.
+    Returns name -> (model, args, observations)."""
+    from gen_tpu_torch.combinators import vector_choicemap
+
+    @tt.gen
+    def gmm_datum(mu0, mu1):
+        z = tt.bernoulli(0.5) @ "z"
+        return tt.normal(torch.where(z, mu1, mu0), GMM_SIGMA) @ "y"
+
+    gmm_data = tt.Map(gmm_datum)
+
+    @tt.gen
+    def gmm(n):
+        mu0 = tt.normal(GMM_LOCS[0], GMM_TAU) @ "mu0"
+        mu1 = tt.normal(GMM_LOCS[1], GMM_TAU) @ "mu1"
+        return gmm_data(mu0.expand(n), mu1.expand(n)) @ "data"
+
+    @tt.gen
+    def reg_datum(x, slope, intercept, inlier_std, outlier_std):
+        is_outlier = tt.bernoulli(0.5) @ "is_outlier"
+        std = torch.where(is_outlier, outlier_std, inlier_std)
+        return tt.normal(slope * x + intercept, std) @ "y"
+
+    reg_data = tt.Map(reg_datum)
+
+    @tt.gen
+    def regression(xs):
+        slope = tt.normal(0.0, 2.0) @ "slope"
+        intercept = tt.normal(0.0, 2.0) @ "intercept"
+        inlier_log_std = tt.normal(0.0, 1.0) @ "inlier_log_std"
+        outlier_log_std = tt.normal(2.0, 1.0) @ "outlier_log_std"
+        n = xs.shape[0]
+        return reg_data(xs, slope.expand(n), intercept.expand(n),
+                        torch.exp(inlier_log_std).expand(n),
+                        torch.exp(outlier_log_std).expand(n)) @ "data"
+
+    prior = torch.tensor(SCALAR_PRIOR, device=dev)
+    locs = torch.tensor(SCALAR_LOCS, device=dev)
+
+    @tt.gen
+    def scalar_mix():
+        k = tt.categorical(prior) @ "k"
+        mu = tt.normal(locs[k.long().reshape(1)][0], 1.0) @ "mu"
+        return tt.normal(mu, 0.5) @ "y"
+
+    rng = np.random.default_rng(0)          # make_dataset(n=50, seed=0)
+    xs = np.linspace(-5, 5, 50)
+    ys = -1.2 * xs + 2.0 + rng.normal(0, 0.5, 50)
+    outliers = rng.random(50) < 0.15
+    ys[outliers] = rng.normal(0, 8.0, outliers.sum())
+
+    def vec_obs(y):
+        obs = tt.ChoiceMap()
+        obs.set_submap("data", vector_choicemap(
+            len(y), y=torch.tensor(np.asarray(y, np.float32), device=dev)))
+        return obs
+
+    return dict(
+        gmm=(gmm, (len(GMM_YS),), vec_obs(GMM_YS)),
+        regression=(regression, (torch.tensor(xs.astype(np.float32),
+                                              device=dev),), vec_obs(ys)),
+        scalar=(scalar_mix, (), tt.choicemap(
+            y=torch.tensor(SCALAR_Y, device=dev))))
+
+
+def mixed_jobs(torch, tt, dev, models):
+    """K3 build jobs for the two models whose extended logp stages (the
+    fused mixed driver launches K3 on them at sample_posterior's default
+    max_depth 8), so that they build with the other kernels."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference.mixed import extended_layout
+    from gen_tpu_torch.inference.target import FlatTarget
+    from gen_tpu_torch.ops import hmc_fused
+    from gen_tpu_torch.ops import nuts_fused as nf
+    jobs = []
+    for name in ("gmm", "regression"):
+        model, args, obs = models[name]
+        tr = model.generate(random.PRNGKey(1, dev), args, obs)[0]
+        target = FlatTarget(tr, extended_layout(tr, obs)[0])
+        st = hmc_fused.stage(target.logp, target.dim, dev)
+        jobs.append((f"K3 {name} extended d={target.dim}", st,
+                     nf.build_job(st, 8, True)))
+    return jobs
+
+
+def k5_inputs(torch, n, k, dev, seed):
+    """Logits ~ 2 N(0, 1) and uniforms on [0, 1) with exact zeros, a
+    constant row (ties) and a NaN row."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = torch.randn(n, k, generator=g) * 2.0
+    u = torch.rand(n, k, generator=g)
+    u[0, : min(k, 5)] = 0.0
+    if n > 2:
+        logits[1], u[1] = 0.0, 0.5
+        logits[2, k // 2] = float("nan")
+    return logits.to(dev), u.to(dev)
+
+
+def phase_compare_k5(torch, dev):
+    """Phase 2 for K5: the kernel against its plain version with injected
+    uniforms at every shape of ``K5_SHAPES`` and ``K5_TIMED_ONLY`` (index
+    equality). Returns the largest index difference (0 when all agree)."""
+    from gen_tpu_torch.ops import categorical as cat
+    worst = 0
+    for n, k in K5_SHAPES + (K5_TIMED_ONLY,):
+        logits, u = k5_inputs(torch, n, k, dev, n + k)
+        got = cat.batched_categorical(None, logits, injected_u=u)
+        want = cat.batched_categorical_plain(logits, u)
+        worst = max(worst, int((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"K5 ({n}, {k}): {int((got != want).sum())} rows differ from "
+              "the plain version")
+        check(int(got[2]) == k - 1 and int(got[1]) == 0,
+              f"K5 ({n}, {k}): NaN row or tie rule wrong")
+    print(f"K5: kernel == plain version (injected uniforms, zeros, ties, a "
+          f"NaN row) at {list(K5_SHAPES + (K5_TIMED_ONLY,))}")
+    return float(worst)
+
+
+def phase_k5_draws(torch, dev):
+    """Phase 7: K5's own Philox draws. The vmap rule against per-key
+    calls, a chi-square on (65,536, 7) rows of equal logits, distinct
+    draws across such rows and across two keys."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import categorical as cat
+    lt = torch.randn(27, 27, device=dev)
+    keys = random.split(random.PRNGKey(3, dev), DECODE_RESTARTS)
+    batched = torch.func.vmap(lambda kk: cat.categorical_fast(kk, lt))(keys)
+    check(all(torch.equal(batched[b], cat.categorical_fast(keys[b], lt))
+              for b in range(DECODE_RESTARTS)),
+          "K5 vmap rule: a batched call differs from its per-key calls")
+    probs = torch.tensor(K5_CHI_PROBS, device=dev)
+    logits = torch.log(probs).expand(K5_CHI_ROWS, -1).contiguous()
+    draws = cat.categorical_fast(random.PRNGKey(0, dev), logits)
+    counts = torch.bincount(draws.long(), minlength=7).double()
+    expected = probs.double() * K5_CHI_ROWS
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    other = cat.categorical_fast(random.PRNGKey(1, dev), logits)
+    distinct = int(torch.unique(draws[:64]).numel())
+    print(f"K5: vmap over {DECODE_RESTARTS} keys == per-key calls; own "
+          f"draws: chi-square "
+          f"{chi2:.2f} (df 6, limit 30) on {K5_CHI_ROWS} equal rows, "
+          f"{distinct} distinct values in the first 64 rows, "
+          f"{int((draws != other).sum())} of {K5_CHI_ROWS} rows differ "
+          "between two keys")
+    check(chi2 < 30, f"K5 chi-square {chi2:.2f} >= 30")
+    check(distinct > 1 and not torch.equal(draws, other),
+          "K5: equal rows or two keys drew the same values")
+
+
+def gmm_exact_moments():
+    """tests/test_mixed.py::_gmm_exact_moments: mu0's posterior mean and
+    variance and P(z_i = 1) by enumeration of all 2^N assignments with
+    conjugate per-cluster evidence."""
+    import itertools
+    y = np.asarray(GMM_YS, np.float64)
+    logws, m0s, v0s, zs = [], [], [], []
+    for z in itertools.product([0, 1], repeat=len(y)):
+        z = np.asarray(z)
+        lw, ms, vs = 0.0, [], []
+        for k in (0, 1):
+            yk = y[z == k]
+            vk = 1.0 / (1.0 / GMM_TAU ** 2 + len(yk) / GMM_SIGMA ** 2)
+            mk = vk * (GMM_LOCS[k] / GMM_TAU ** 2 + yk.sum() / GMM_SIGMA ** 2)
+            lw += 0.5 * np.log(vk / GMM_TAU ** 2) + 0.5 * mk ** 2 / vk
+            ms.append(mk)
+            vs.append(vk)
+        logws.append(lw)
+        m0s.append(ms[0])
+        v0s.append(vs[0])
+        zs.append(z)
+    w = np.exp(np.asarray(logws) - max(logws))
+    w /= w.sum()
+    mean = float(w @ np.asarray(m0s))
+    var = float(w @ (np.asarray(v0s) + np.asarray(m0s) ** 2) - mean ** 2)
+    return mean, var, w @ np.asarray(zs, np.float64)
+
+
+def scalar_exact_posterior():
+    """P(k | y) of the scalar categorical model, mu integrated out."""
+    locs, pri = np.asarray(SCALAR_LOCS), np.asarray(SCALAR_PRIOR)
+    var = 1.0 + 0.25
+    log_ev = (np.log(pri) - 0.5 * (SCALAR_Y - locs) ** 2 / var
+              - 0.5 * np.log(2 * np.pi * var))
+    post = np.exp(log_ev - log_ev.max())
+    return post / post.sum()
+
+
+def mixed_gate(torch, name, out):
+    """The gates of tests/test_mixed.py. Returns (ok, text)."""
+    s = {k: v.double().cpu().numpy() for k, v in out.samples.items()}
+    if name == "gmm":
+        mean, var, pz = gmm_exact_moments()
+        burn = s["mu0"].shape[0] // 4
+        mu0, z = s["mu0"][burn:].ravel(), s[("data", "z")][burn:]
+        dm, dv = abs(mu0.mean() - mean), abs(mu0.var() / var - 1.0)
+        dz = float(np.abs(z.mean(axis=(0, 1)) - pz).max())
+        return (dm < 0.12 and dv < 0.3 and dz < 0.06,
+                f"mu0 mean {mu0.mean():.4f} (exact {mean:.4f}, |d| {dm:.4f} "
+                f"< 0.12), var {mu0.var():.4f} (exact {var:.4f}, "
+                f"{dv:.1%} < 30%), max |P(z=1) - exact| {dz:.4f} < 0.06")
+    if name == "regression":
+        sl, it = s["slope"].mean(), s["intercept"].mean()
+        return (abs(sl + 1.2) < 0.3 and abs(it - 2.0) < 0.5,
+                f"slope {sl:.4f} (|+1.2| < 0.3), intercept {it:.4f} "
+                "(|-2.0| < 0.5)")
+    freqs = np.bincount(s["k"].astype(np.int64).ravel(), minlength=3)
+    freqs = freqs / freqs.sum()
+    post = scalar_exact_posterior()
+    d = float(np.abs(freqs - post).max())
+    return (d < 0.06, f"P(k) {np.round(freqs, 4).tolist()} against "
+            f"enumeration {np.round(post, 4).tolist()}, max |d| {d:.4f} "
+            "< 0.06")
+
+
+def phase_decode(torch, dev, tag):
+    """Phase 8a: the cipher-decode example at its own size (292
+    characters, K=27, 16 restarts, 600 sweeps), with its gate (best
+    restart > 90% of characters, asserted by ``main``); K5's launches must
+    be 3 per sweep. Returns its numbers."""
+    from gen_tpu_torch.examples import decode
+    from gen_tpu_torch.ops import categorical as cat
+    from gen_tpu_torch.ops import nuts_fused as nf
+    cat.batched_categorical.launches = 0
+    nf.nuts_chains_fused.launches = 0
+    torch.cuda.synchronize()
+    res = decode.main(DECODE_SWEEPS, DECODE_RESTARTS, 0, dev)
+    torch.cuda.synchronize()
+    launches = cat.batched_categorical.launches
+    print(f"{tag} decode: {DECODE_RESTARTS} restarts x {DECODE_SWEEPS} "
+          f"sweeps in {res['seconds']:.2f} s "
+          f"({res['seconds'] / DECODE_SWEEPS * 1e3:.2f} ms per sweep), best "
+          f"accuracy {res['accuracy']:.2%}, K5 launches {launches}")
+    check(launches == 3 * DECODE_SWEEPS,
+          f"decode launched K5 {launches} times, not 3 per sweep")
+    check(nf.nuts_chains_fused.launches == 0, "decode launched K3")
+    return dict(launches=launches, seconds=res["seconds"],
+                accuracy=res["accuracy"])
+
+
+def phase_mixed(torch, tt, dev, tag, models):
+    """Phase 8b: sample_posterior on the three mixed models of
+    ``MIXED_RUNS``, each with the kernels' launch counts set to 0 just
+    before it and read just after; the engine must be the one gen_tpu's
+    probe picks, K3 must launch on the fused runs and not on the
+    alternating one, and the gates of tests/test_mixed.py must hold.
+    Returns per-run numbers."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import sample_posterior
+    from gen_tpu_torch.ops import categorical as cat
+    from gen_tpu_torch.ops import nuts_fused as nf
+    out_runs = {}
+    for name, chains, kw, engine in MIXED_RUNS:
+        model, args, obs = models[name]
+        key = random.PRNGKey(0, dev)
+        k_init = random.split(key)[0]
+        _, gen_s = timed(torch, lambda: torch.func.vmap(
+            lambda k: model.generate(k, args, obs))(
+            random.split(k_init, chains)))
+        nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+        cat.batched_categorical.launches = 0
+        clock = PhaseClock(torch, [
+            ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
+            ("gen_tpu_torch.ops.nuts_fused", "nuts_chains_fused_chunked"),
+            ("gen_tpu_torch.inference.mixed", "nuts_flat"),
+            ("gen_tpu_torch.inference.mixed", "gibbs_sweep")])
+        with clock:
+            out, total_s = timed(torch, lambda: sample_posterior(
+                key, model, args, obs, num_chains=chains, **kw))
+        k3 = nf.nuts_chains_fused.kernel_launches["nuts_pair"]
+        c = clock.calls
+        sweeps = c["gibbs_sweep"]
+        if engine == "gibbs_nuts_fused":
+            n_seg = 3                    # the warmup's Gibbs segments
+            warm = sum(c["chees_warmup_flat"]) + sum(sweeps[:n_seg])
+            kernel_s = sum(c["nuts_chains_fused_chunked"])
+        else:
+            n_s = kw["num_samples"]
+            kernel_s = sum(c["nuts_flat"][-n_s:])
+            warm = total_s - gen_s - kernel_s - sum(sweeps[-n_s:])
+        sampling = total_s - gen_s - warm
+        gibbs_s = sum(sweeps)
+        ok, text = mixed_gate(torch, name, out)
+        info = out.info
+        draws = out.samples[next(iter(out.samples))].shape[0]
+        print(f"{tag} sample_posterior({name}, {chains} chains, engine="
+              f"{kw['engine']!r}): ran {info['engine']}, {draws} draws per "
+              f"chain; {total_s:.2f} s = generate {gen_s:.2f} s + "
+              f"warmup {warm:.2f} s + sampling {sampling:.2f} s "
+              f"({sampling / draws * 1e3:.1f} ms per draw of all chains); "
+              f"{len(sweeps)} Gibbs sweeps {gibbs_s:.2f} s "
+              f"({gibbs_s / max(len(sweeps), 1) * 1e3:.2f} ms each, "
+              f"{info['discrete_evals_per_sweep']} model updates each), "
+              + ("K3 chunks" if engine == "gibbs_nuts_fused" else
+                 "NUTS transitions (sampling)")
+              + f" {kernel_s:.2f} s; K3 launches {k3}, K5 launches "
+              f"{cat.batched_categorical.launches}")
+        print(f"{tag}   gate: {text} {'OK' if ok else 'FAIL'}")
+        check(info["engine"] == engine,
+              f"{name}: ran {info['engine']}, gen_tpu's probe picks {engine}"
+              f" ({info.get('engine_reason')})")
+        check((k3 > 0) == (engine == "gibbs_nuts_fused"),
+              f"{name}: {k3} K3 launches on {engine}")
+        check(all(bool(torch.isfinite(v.double()).all())
+                  for v in out.samples.values()), f"{name}: bad samples")
+        check(ok, f"{name}: outside its gate")
+        out_runs[(name, kw["engine"])] = dict(
+            seconds=total_s, generate=gen_s, warmup=warm, sampling=sampling,
+            draws=draws, gibbs_s=gibbs_s, sweeps=len(sweeps),
+            kernel_s=kernel_s, k3_launches=k3)
+        del out
+    return out_runs
+
+
+def k5_ops(n, k):
+    """Operations of K5 on (n, k) logits (conventions as :func:`k1_ops`):
+    per column a quarter of a Philox4x32-10 call (10 rounds of two 32-bit
+    products, two high products, four XORs and two key adds: 25), the
+    uniform (shift, or, subtract: 3), the clamp, two logs, two negations
+    and the add (6), the comparison and select (3); per row five shuffle
+    steps of a comparison, a select and two moves (20) and the clamp."""
+    return n * k * (25 + 3 + 6 + 3) + n * 21
+
+
+def k5_entry(torch, dev, tag, decode_run, k5_err):
+    """Phase 9 for K5: device time per launch (CUDA events, median of 3
+    timings of 20 launches) of the kernel (the custom op on prepared key
+    words) and of the whole wrapper ``batched_categorical`` (plus the key
+    words' conversion) at every shape, its plain version's time, the
+    library call's time (torch.multinomial of torch.softmax: the same
+    distribution from other noise) and the bound. Returns its JSON entry,
+    with decode's shape as the headline."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import categorical as cat
+    rows = {}
+    for n, k in K5_SHAPES + (K5_TIMED_ONLY,):
+        logits, u = k5_inputs(torch, n, k, dev, n * k)
+        logits = torch.nan_to_num(logits)
+        key = random.PRNGKey(9, dev)
+        words = cat._key_words(key)
+
+        def med(fn):
+            fn()
+            return float(np.median([gpu_ms(torch, fn, 20) for _ in range(3)]))
+
+        k_ms = med(lambda: cat._categorical_op(logits, words, None, n))
+        w_ms = med(lambda: cat.batched_categorical(key, logits))
+        plain_ms = med(lambda: cat.batched_categorical_plain(logits, u))
+        lib_ms = med(lambda: torch.multinomial(torch.softmax(logits, -1), 1))
+        b_ms, b_by = bound_ms(k5_ops(n, k), 4 * n * k + 4 * n)
+        rows[(n, k)] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"{tag} K5 ({n}, {k}): kernel {k_ms * 1e3:.2f} us (wrapper "
+              f"{w_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+              f"multinomial(softmax) {lib_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by})")
+    head = rows[K5_MAIN_SHAPE]
+    return dict(name="categorical", route="cuda",
+                source="gen_tpu_torch/ops/csrc/categorical.cu",
+                replaces="gen_tpu/ops/categorical.py:46",
+                per=f"launch at {K5_MAIN_SHAPE} float32 logits",
+                launches=decode_run["launches"], max_abs_err=k5_err,
+                **head, library="torch.multinomial(torch.softmax(logits, "
+                "-1), 1)",
+                shapes={f"{n}x{k}": v for (n, k), v in rows.items()})
+
+
 def phase_build(torch, tt, dev, tag):
     """Phase 1 after the environment: the models, their staging and the
     parallel build of every kernel variant. Returns the models and staged
     programs the later phases use."""
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
-    from gen_tpu_torch.ops import _cuda_build, hmc_fused, resample
+    from gen_tpu_torch.ops import _cuda_build, categorical, hmc_fused, resample
     from gen_tpu_torch.ops import nuts_fused as nf
 
     model, X, obs, sel, xs, ys = regression_setup(torch, tt, dev)
@@ -1207,9 +1628,15 @@ def phase_build(torch, tt, dev, tag):
         hmc_fused.stage(school_targets["d10"].logp, 10, dev),
         hmc_fused.stage(school_targets["d102"].logp, 102, dev),
         hmc_fused.stage(gauss4_logp, 4, dev)))
+    mixed = mixed_setup(torch, tt, dev)
+    t_stage = time.perf_counter()
+    mixed_builds = mixed_jobs(torch, tt, dev, mixed)
+    stage_s += time.perf_counter() - t_stage
     builds = [("K1 regression", st_reg, hmc_fused.build_job(st_reg)),
               ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3)),
-              ("K4 resample (float32, float64)", None, resample.build_job())]
+              ("K4 resample (float32, float64)", None, resample.build_job()),
+              ("K5 categorical", None, categorical.build_job())]
+    builds += mixed_builds
     for paired, k in ((True, "K3"), (False, "K6")):
         builds += [
             (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
@@ -1231,7 +1658,8 @@ def phase_build(torch, tt, dev, tag):
     return dict(k1=(model, X, obs, sel, xs, ys, target, gauss_logp, sds),
                 s8=s8, s100=s100, school_targets=school_targets,
                 gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
-                st_102=st_102, stage_s=stage_s, build_s=build_s)
+                st_102=st_102, stage_s=stage_s, build_s=build_s,
+                mixed=mixed)
 
 
 def phase_compare(torch, ctx, dev, paired):
@@ -1300,6 +1728,7 @@ def main():
     k3_err = phase_compare(torch, ctx, dev, paired=True)
     k6_err = phase_compare(torch, ctx, dev, paired=False)
     k4_err = phase_compare_k4(torch, dev)
+    k5_err = phase_compare_k5(torch, dev)
 
     # -- phases 3-5: the main paths, each with its gates --------------------
     rng = np.random.default_rng(123)
@@ -1320,13 +1749,19 @@ def main():
     smc_a = phase_smc_throughput(torch, tt, dev, tag)
     phase_smc_gates(torch, tt, dev, tag)
 
-    # -- phase 7: numbers ---------------------------------------------------
+    # -- phases 7 and 8: K5's own draws, the mixed/decode slice ------------
+    phase_k5_draws(torch, dev)
+    decode_run = phase_decode(torch, dev, tag)
+    phase_mixed(torch, tt, dev, tag, ctx["mixed"])
+
+    # -- phase 9: numbers ---------------------------------------------------
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
+    k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     print(json.dumps({"kernels": [
         k1_entry, dict(name="nuts_pair", **k3_10),
         dict(name="nuts_pair_d102", **k3_102),
         dict(name="nuts_tick", **k6_10), dict(name="nuts_tick_d102", **k6_102),
-        k4]}))
+        k4, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

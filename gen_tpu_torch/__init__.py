@@ -10,18 +10,23 @@ runs each kernel's plain PyTorch twin instead.
 from . import combinators, diagnostics, inference, random
 from .address import addr_path
 from .choice_map import ChoiceMap, choicemap
-from .combinators import (Unfold, UnfoldArena, VectorChoiceMap, smc_run,
-                          vector_choicemap)
+from .combinators import (Map, Unfold, UnfoldArena, VectorChoiceMap,
+                          smc_run, vector_choicemap)
 from .diff import IntDiff, NoChange, UnknownChange
-from .dists import normal, normal_linear
+from .dists import (bernoulli, binom, categorical, dirac, gamma, geometric,
+                    labeled_categorical, multinomial, neg_binom, normal,
+                    normal_linear, poisson, uniform_discrete)
 from .dynamic import gen, init_param, param, trace_at
 from .gfi import GenerativeFunction, Trace
 from .selection import complement, select
 
 __all__ = [
     "combinators", "diagnostics", "inference", "random", "addr_path",
-    "ChoiceMap", "choicemap", "Unfold", "UnfoldArena", "VectorChoiceMap",
-    "smc_run", "vector_choicemap", "IntDiff", "NoChange", "UnknownChange",
-    "normal", "normal_linear", "gen", "init_param", "param", "trace_at",
+    "ChoiceMap", "choicemap", "Map", "Unfold", "UnfoldArena",
+    "VectorChoiceMap", "smc_run", "vector_choicemap", "IntDiff", "NoChange",
+    "UnknownChange", "normal", "normal_linear", "gamma", "bernoulli",
+    "categorical", "labeled_categorical", "uniform_discrete", "poisson",
+    "binom", "geometric", "neg_binom", "dirac", "multinomial", "gen",
+    "init_param", "param", "trace_at",
     "GenerativeFunction", "Trace", "complement", "select",
 ]

@@ -1,13 +1,18 @@
-"""Continuous distributions: ``normal`` and ``normal_linear``.
+"""Continuous distributions: ``normal``, ``normal_linear`` and ``gamma``.
 
-Counterpart: ``gen_tpu/dists/continuous.py`` (``Normal`` and
-``NormalLinear``; the other distributions wait for later slices). The
-logpdfs are the same expressions in the same order. ``normal_linear`` keeps
+Counterpart: ``gen_tpu/dists/continuous.py`` (``Normal``, ``NormalLinear``
+and ``Gamma``; the other distributions wait for later slices). The
+logpdfs are the same expressions in the same order. ``gamma`` draws by
+inverting its cdf (``torch.special.gammainc``) in float64, exact in
+distribution where gen_tpu runs ``jax.random.gamma``'s rejection loop,
+which ``torch.func.vmap`` cannot run. ``normal_linear`` keeps
 the Gram-matrix form: ``G = [X|v]^T [X|v]`` depends only on the data, which
 is what lets the staging pass hoist it out of the fused kernel.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,5 +61,25 @@ class NormalLinear(Distribution):
                                                    + _HALF_LOG_2PI)
 
 
+class Gamma(Distribution):
+    """gamma(shape, scale), the shape/scale parameterization."""
+
+    def sample(self, key, shape, scale):
+        from .discrete import gamma_icdf
+        shape, scale = _f(shape), _f(scale)
+        size = tuple(torch.broadcast_shapes(shape.shape, scale.shape))
+        g = gamma_icdf(shape, random.uniform(key, size, torch.float64))
+        return g.to(torch.result_type(shape, scale)) * scale
+
+    def logpdf(self, v, shape, scale):
+        v, shape, scale = _f(v), _f(shape), _f(scale)
+        inside = v > 0
+        v_safe = torch.where(inside, v, 1.0)
+        lp = ((shape - 1) * torch.log(v_safe) - v_safe / scale
+              - shape * torch.log(scale) - torch.lgamma(shape))
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+
 normal = Normal()
 normal_linear = NormalLinear()
+gamma = Gamma()

@@ -2,13 +2,20 @@
 
 Counterpart: ``gen_tpu/dists/distribution.py``. ``logpdf`` is plain torch
 code, traced by ``torch.func`` transforms and by the staging pass in
-:mod:`gen_tpu_torch.ops.scalarize`. Left out until a slice needs them:
-``logpdf_grad`` and the gradient metadata (``arg_grads``,
-``has_output_grad``; gradients come from ``torch.func.grad`` of
-``assess``), ``is_discrete``, ``enumerate_support`` and ``logsumexp2``.
+:mod:`gen_tpu_torch.ops.scalarize`. The gradient metadata
+(``is_discrete``, ``has_output_grad``, ``arg_grads``) and
+``enumerate_support`` are gen_tpu's. Left out until a slice needs them:
+``logpdf_grad`` (gradients come from ``torch.func.grad`` of ``assess``),
+``get_return_type`` and ``logsumexp2``.
+
+Where PyTorch forced a difference: gen_tpu's supports refuse JAX tracers.
+Here a support bound must be a concrete value: a Python number or a plain
+tensor, not one batched by ``torch.func.vmap`` (:func:`concrete_int`).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -18,11 +25,30 @@ from ..gfi import GenerativeFunction
 class Distribution(GenerativeFunction):
     """Base class for primitive probability distributions."""
 
+    is_discrete: bool = False
+    has_output_grad: bool = True
+    arg_grads: Tuple[bool, ...] = ()
+
     def sample(self, key, *args):
         raise NotImplementedError
 
     def logpdf(self, v, *args):
         raise NotImplementedError
+
+    def has_argument_grads(self) -> Tuple[bool, ...]:
+        return self.arg_grads
+
+    def enumerate_support(self, *args):
+        """Finite support of the distribution (a 1-D tensor of candidate
+        values), for exact enumerative moves (the Gibbs sweeps of
+        :mod:`gen_tpu_torch.inference.mixed`). Only finite discrete
+        distributions implement it; it reads shapes and concrete bounds,
+        never traced values."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no finite enumerable support; "
+            "addresses drawn from it cannot be moved by exact Gibbs — "
+            "pass explicit discrete_supports= (if a finite truncation is "
+            "acceptable) or marginalize the address out of the model")
 
     def __repr__(self):
         return f"{type(self).__name__.lower()}"
@@ -35,3 +61,17 @@ def _f(x) -> torch.Tensor:
     if not torch.is_floating_point(x):
         x = x.to(torch.get_default_dtype())
     return x
+
+
+def concrete_int(x, what: str) -> int:
+    """``x`` as a Python int, refusing a tensor batched by a
+    ``torch.func`` transform (gen_tpu refuses JAX tracers the same
+    way)."""
+    if isinstance(x, torch.Tensor):
+        from torch._C._functorch import is_functorch_wrapped_tensor
+        if is_functorch_wrapped_tensor(x):
+            raise NotImplementedError(
+                f"{what} is a traced value — the support cannot be "
+                "enumerated statically; pass explicit discrete_supports= "
+                "covering the widest possible range")
+    return int(x)

@@ -5,9 +5,10 @@ and torch code; every ``dist(args) @ "addr"`` dispatches to the innermost
 active handler, which threads an explicit key (split once per traced call,
 in execution order, exactly as gen_tpu does, so both packages draw the same
 bits). Ported: ``Simulate``, ``Generate``, ``Assess``, ``Update`` and
-``Regenerate``. Masked constraint values and masked selections (gen_tpu's
-``masked.py``, ROADMAP queue 1 item 12) raise ``NotImplementedError``;
-the distribution-call recorder waits for ``mixed.py``.
+``Regenerate``, and the distribution-call recorder
+(:class:`record_dist_calls`) that ``inference/mixed.py`` discovers discrete
+supports with. Masked constraint values and masked selections (gen_tpu's
+``masked.py``, ROADMAP queue 1 item 12) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,47 @@ from ..selection import NONE, Selection
 from .trace import CallRecord, ChoiceRecord
 
 _STACK: List["Handler"] = []
+
+# -- distribution-call recorder (support discovery for mixed-model
+#    inference, inference/mixed.py). While active, every dist call anywhere
+#    in the execution is recorded as (path, dist, args); a combinator's
+#    inner calls build their own handlers while the recorder's prefix stack
+#    still holds the outer call path. Combinator-inserted integer keys are
+#    absent from the recorded paths; consumers match on int-stripped
+#    paths. ------------------------------------------------------------
+
+
+class _DistRecorder:
+    __slots__ = ("prefix", "records")
+
+    def __init__(self):
+        self.prefix: List[Tuple] = []
+        self.records: List[Tuple[Tuple, Distribution, Tuple]] = []
+
+    def full(self, path: Tuple) -> Tuple:
+        out: Tuple = ()
+        for p in self.prefix:
+            out = out + p
+        return out + path
+
+
+_RECORDER: List[_DistRecorder] = []   # at most one active
+
+
+class record_dist_calls:
+    """Context manager: record every distribution call executed inside.
+    ``.records`` afterwards holds (path, dist, args) triples; paths omit
+    combinator-inserted integer keys."""
+
+    def __enter__(self):
+        self._rec = _DistRecorder()
+        _RECORDER.append(self._rec)
+        return self._rec
+
+    def __exit__(self, *exc):
+        assert _RECORDER[-1] is self._rec
+        _RECORDER.pop()
+        return False
 
 
 def active_handler() -> "Handler":
@@ -162,7 +204,17 @@ class Handler:
     def handle(self, path: Tuple, fn, args):
         self.visitor.visit(path)
         if isinstance(fn, Distribution):
+            if _RECORDER:
+                rec = _RECORDER[-1]
+                rec.records.append((rec.full(path), fn, args))
             return self.handle_dist(path, fn, args)
+        if _RECORDER:
+            rec = _RECORDER[-1]
+            rec.prefix.append(path)
+            try:
+                return self.handle_call(path, fn, args)
+            finally:
+                rec.prefix.pop()
         return self.handle_call(path, fn, args)
 
     def handle_dist(self, path, dist, args):

@@ -1,10 +1,13 @@
 from . import mass
 from ..combinators.arena import smc_run
 from .chees import chees_hmc_warmup_and_sample, chees_warmup_flat
+from .common import mh_accept, select_trace
 from .hmc import hmc_chains
 from .importance import importance_resampling, importance_sampling
 from .mass import (dense_mass_chol, lowrank_mass_factors, unwhiten, whiten,
                    whiten_logp)
+from .mixed import (DiscreteSite, discover_discrete_sites, gibbs_sweep,
+                    mixed_warmup_and_sample)
 from .nuts import (da_init, da_update, find_reasonable_step_size, nuts,
                    nuts_flat, nuts_warmup_and_sample)
 from .nuts_fsm import (FSMResult, nuts_fsm, nuts_fsm_paired,
@@ -28,4 +31,6 @@ __all__ = ["FlatTarget", "hmc_chains", "nuts", "nuts_flat",
            "ParticleFilterState", "initialize_particle_filter",
            "particle_filter_step", "maybe_resample", "log_ml_estimate",
            "effective_sample_size", "sample_unweighted_traces", "smc_run",
-           "smc_genealogy", "reconstruct_trajectories"]
+           "smc_genealogy", "reconstruct_trajectories", "select_trace",
+           "mh_accept", "DiscreteSite", "discover_discrete_sites",
+           "gibbs_sweep", "mixed_warmup_and_sample"]

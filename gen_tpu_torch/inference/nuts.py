@@ -80,15 +80,25 @@ def _uniform(keys, dtype):
     return vmap(lambda k: random.uniform(k, (), dtype))(keys)
 
 
+def _batched_vag(value_and_grad, vag_args):
+    """``value_and_grad`` over a batch of chains; ``vag_args`` are per-chain
+    pytrees (leading chain axis) passed after theta: each chain's own
+    conditioning values, e.g. the mixed driver's discrete block (gen_tpu
+    builds one target per chain inside its vmap)."""
+    vg = vmap(value_and_grad)
+    return lambda theta: vg(theta, *vag_args)
+
+
 def nuts_flat(key, value_and_grad, theta0, step_size, max_depth=10,
-              inv_mass_diag=None, divergence_threshold=1000.0):
+              inv_mass_diag=None, divergence_threshold=1000.0, vag_args=()):
     """One NUTS transition of each chain. ``theta0`` is ``(n, d)`` with
     ``key`` ``(n, 2)`` (one key per chain), or a single ``(d,)`` chain with
-    a ``(2,)`` key. Returns ``(theta, NUTSStats)`` with the chain axis
-    kept as given."""
+    a ``(2,)`` key. ``vag_args``: see :func:`_batched_vag`. Returns
+    ``(theta, NUTSStats)`` with the chain axis kept as given."""
     single = theta0.dim() == 1
     if single:
         theta0, key = theta0[None], key[None]
+        vag_args = pytree.tree_map(lambda x: x[None], tuple(vag_args))
     n, dim = theta0.shape
     dt, dev = theta0.dtype, theta0.device
     fdt = torch.get_default_dtype()        # JAX's default float
@@ -96,7 +106,7 @@ def nuts_flat(key, value_and_grad, theta0, step_size, max_depth=10,
     inv_mass = (torch.ones(dim, dtype=dt, device=dev) if inv_mass_diag is None
                 else torch.as_tensor(inv_mass_diag, dtype=dt, device=dev))
     sqrt_mass = sqrt_mass_safe(inv_mass)
-    vg = vmap(value_and_grad)
+    vg = _batched_vag(value_and_grad, vag_args)
 
     def kinetic(r):
         return 0.5 * _dot(r, inv_mass * r)
@@ -266,17 +276,20 @@ def da_update(state: DAState, accept_prob, target_accept=0.8, gamma=0.05,
     return DAState(log_eps, log_eps_bar, h_bar, t + 1.0, state.mu)
 
 
-def find_reasonable_step_size(key, value_and_grad, theta0, inv_mass=None):
+def find_reasonable_step_size(key, value_and_grad, theta0, inv_mass=None,
+                              vag_args=()):
     """Heuristic of Hoffman & Gelman algorithm 4 for a ``(d,)`` chain (or a
-    batch ``(n, d)`` with keys ``(n, 2)``, each chain on its own)."""
+    batch ``(n, d)`` with keys ``(n, 2)``, each chain on its own);
+    ``vag_args`` as in :func:`nuts_flat`."""
     single = theta0.dim() == 1
     if single:
         theta0, key = theta0[None], key[None]
+        vag_args = pytree.tree_map(lambda x: x[None], tuple(vag_args))
     n, dim = theta0.shape
     dt, dev = theta0.dtype, theta0.device
     inv_mass = (torch.ones(dim, dtype=dt, device=dev) if inv_mass is None
                 else torch.as_tensor(inv_mass, dtype=dt, device=dev))
-    vg = vmap(value_and_grad)
+    vg = _batched_vag(value_and_grad, vag_args)
     logp0, grad0 = vg(theta0)
     r0 = sqrt_mass_safe(inv_mass) * vmap(
         lambda k: random.normal(k, (dim,), dt))(key.to(dev))

@@ -21,10 +21,15 @@ Where PyTorch forced differences:
 - The fused engines launch the hand-written CUDA kernels on a CUDA key and
   run their plain versions on the CPU; ``auto`` probes whether the logp
   stages through :mod:`gen_tpu_torch.ops.scalarize` on a tiny batch.
+- A model with unobserved discrete addresses takes gen_tpu's mixed path
+  (:mod:`.mixed`): ``gibbs_nuts_fused`` (K3 with the discrete values as
+  frozen coordinates) when ``engine`` is ``auto``/``mixed``, there are >= 2
+  chains and the extended logp stages, else ``gibbs_nuts``; the probe's
+  refusal lands in ``info["engine_reason"]``. gen_tpu ignores ``mass``,
+  ``num_ticks`` and ``mesh`` there without a word; the port raises
+  ``ValueError`` naming the argument (ROADMAP queue 3).
 - Not ported yet, and refused with ``NotImplementedError`` naming the slice
-  that brings them: the mixed discrete + continuous path (gen_tpu's
-  ``_sample_mixed``/``_sample_mixed_fused``; ROADMAP queue 1 item 15, with
-  the categorical kernel K5) and ``mesh=`` (the parallel slice, item 17).
+  that brings it: ``mesh=`` (the parallel slice, ROADMAP queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -145,21 +150,29 @@ def _auto_engine(one_trace, observations, selection,
         full_sel, _ = _default_selection(one_trace, observations)
     except ValueError as e:
         return "nuts", f"flat-universe layout unavailable: {e}"
-    from ..ops.scalarize import stage_scalarized
     from .target import FlatTarget
     target = FlatTarget(one_trace, full_sel)
+    refusal = _staging_refusal(target)
+    if refusal is not None:
+        return "nuts", ("the model's assess-logp does not stage through "
+                        f"ops.scalarize: {refusal}")
+    return "nuts_fused", "scalarization probe passed"
+
+
+def _staging_refusal(target):
+    """None when ``target.logp`` stages through ops.scalarize and the
+    staged program evaluates; else the reason, ``"Error: first line"``.
+    Staging raises on an op outside the table or oversized residual
+    constants; evaluating the program (value and gradient) on a tiny batch
+    catches what only shows there."""
+    from ..ops.scalarize import stage_scalarized
     d, dev = target.dim, target.flat0.device
     try:
-        # staging raises on an op outside the table or oversized residual
-        # constants; evaluating the program (value and gradient) on a tiny
-        # batch catches what only shows there
         staged = stage_scalarized(target.logp, d, dev)
         staged.vag(torch.zeros((d, 8), dtype=torch.float32, device=dev))
     except Exception as e:  # noqa: BLE001 - any failure means "no fusion"
-        return "nuts", ("the model's assess-logp does not stage through "
-                        f"ops.scalarize: {type(e).__name__}: "
-                        + str(e).split(chr(10))[0])
-    return "nuts_fused", "scalarization probe passed"
+        return f"{type(e).__name__}: {str(e).partition(chr(10))[0]}"
+    return None
 
 
 def _value_and_grad(logp):
@@ -258,6 +271,134 @@ def _fused_warmup(traces, one_trace, full_sel, k_warm, num_warmup,
     return logp_use, inv_mass_use, to_x, warm_flat, winfo, winfo2
 
 
+def _probe_fused_mixed(one_trace, observations):
+    """None when the EXTENDED (continuous + frozen discrete) universe's
+    assess-logp stages; otherwise the refusal reason (e.g. a ``probs[z]``
+    gather on a categorical site: such models take the alternating
+    driver)."""
+    from .mixed import extended_layout
+    from .target import FlatTarget
+    sel_ext, _ = extended_layout(one_trace, observations)
+    return _staging_refusal(FlatTarget(one_trace, sel_ext))
+
+
+def _summarize_each(samples):
+    """Diagnostics per entry: the keys mix strings and tuples, and the
+    discrete entries are summarized as float32."""
+    from ..diagnostics import summarize
+    return {k: summarize({"x": torch.as_tensor(v).to(torch.float32)})["x"]
+            for k, v in samples.items()}
+
+
+def _mixed_info(info, engine, requested_engine, sites):
+    from .mixed import model_evals_per_sweep
+    return dict(info, engine=engine, engine_requested=requested_engine,
+                discrete_sites=[s.path for s in sites],
+                discrete_evals_per_sweep=model_evals_per_sweep(sites))
+
+
+def _sample_mixed_fused(observations, traces, one_trace, sites, k_run, *,
+                        num_warmup, num_samples, max_depth, target_accept,
+                        requested_engine, summarize):
+    """Mixed models through the fused kernel (:func:`.mixed.
+    mixed_fused_sample`). Samples include both blocks: the draws carry the
+    frozen discrete coordinates of the chunk they were drawn in; a vector
+    combinator's element leaves come back as one dense entry keyed by the
+    int-stripped path, ``(draws, chains, n_elements, ...)``."""
+    from .mixed import _is_int, mixed_fused_sample
+    draws, sel_ext, _, info = mixed_fused_sample(
+        k_run, traces, one_trace, sites, observations=observations,
+        num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+        target_accept=target_accept)
+    per_path, offset = {}, 0
+    for path, v in one_trace.get_choices().filter(sel_ext).leaf_items():
+        v = torch.as_tensor(v)
+        size = v.numel()
+        block = draws[:, :, offset:offset + size].to(v.dtype)
+        per_path[path] = block.reshape(draws.shape[0], draws.shape[1],
+                                       *v.shape)
+        offset += size
+    grouped, order = {}, []
+    for path, arr in per_path.items():
+        ints = [i for i, kk in enumerate(path) if _is_int(kk)]
+        if len(ints) == 1:
+            stripped = path[:ints[0]] + path[ints[0] + 1:]
+            if stripped not in grouped:
+                order.append(stripped)
+                grouped[stripped] = {}
+            grouped[stripped][path[ints[0]]] = arr
+        else:
+            order.append(path)
+            grouped[path] = arr
+    samples = {}
+    for path in order:
+        v = grouped[path]
+        samples[path if len(path) > 1 else path[0]] = (
+            torch.stack([v[i] for i in sorted(v)], dim=2)
+            if isinstance(v, dict) else v)
+    info = _mixed_info(info, "gibbs_nuts_fused", requested_engine, sites)
+    summary = _summarize_each(samples) if summarize else None
+    return PosteriorSamples(samples, summary, info, None)
+
+
+def _sample_mixed(model, args, observations, traces, one_trace, k_run, *,
+                  num_chains, num_warmup, num_samples, max_depth,
+                  target_accept, adapt_mass, discrete_supports,
+                  requested_engine, summarize):
+    """One-call alternating Gibbs-within-NUTS over a mixed model (see
+    :mod:`.mixed`). Supports are discovered from the model's own
+    distribution calls; the result holds both the continuous and the
+    discrete addresses (a vectorized discrete leaf comes back as one dense
+    entry keyed by its int-stripped path, ``(draws, chains, n_elements,
+    ...)``)."""
+    from .mixed import discover_discrete_sites, mixed_warmup_and_sample
+    cont_paths, _ = _split_paths(one_trace, observations)
+    if not cont_paths:
+        raise ValueError(
+            "no unobserved continuous addresses: the model is purely "
+            "discrete; enumerate it or run a Gibbs sweep directly")
+    cont_sel = select(*cont_paths)
+    sites = discover_discrete_sites(one_trace, observations, model, args,
+                                    discrete_supports)
+    if requested_engine not in ("auto", "mixed"):
+        reason = f"engine={requested_engine!r} asks for the alternating driver"
+    elif num_chains < 2:
+        reason = ("num_chains < 2: the fused driver warms up with "
+                  "cross-chain ChEES statistics")
+    else:
+        refusal = _probe_fused_mixed(one_trace, observations)
+        if refusal is None:
+            return _sample_mixed_fused(
+                observations, traces, one_trace, sites, k_run,
+                num_warmup=num_warmup, num_samples=num_samples,
+                max_depth=max_depth, target_accept=target_accept,
+                requested_engine=requested_engine, summarize=summarize)
+        reason = ("the extended logp does not stage through ops.scalarize: "
+                  f"{refusal}")
+
+    layout = [(path, tuple(torch.as_tensor(v).shape)) for path, v in
+              one_trace.get_choices().filter(cont_sel).leaf_items()]
+    cont, discs, final_traces, info = mixed_warmup_and_sample(
+        random.split(k_run, num_chains), traces, cont_sel, sites,
+        num_warmup=num_warmup, num_samples=num_samples, max_depth=max_depth,
+        target_accept=target_accept, adapt_mass=adapt_mass)
+    flat = cont.transpose(0, 1)                 # -> (draws, chains, d)
+    samples, offset = {}, 0
+    for path, shape in layout:
+        size = math.prod(shape)
+        samples[path if len(path) > 1 else path[0]] = \
+            flat[:, :, offset:offset + size].reshape(
+                flat.shape[0], flat.shape[1], *shape)
+        offset += size
+    for site, d in zip(sites, discs):
+        p = site.path
+        samples[p if len(p) > 1 else p[0]] = d.transpose(0, 1)
+    info = _mixed_info(info, "gibbs_nuts", requested_engine, sites)
+    info["engine_reason"] = reason
+    summary = _summarize_each(samples) if summarize else None
+    return PosteriorSamples(samples, summary, info, final_traces)
+
+
 def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                      observations: ChoiceMap, *,
                      selection: Optional[Selection] = None,
@@ -309,17 +450,19 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     ``chees``/``hmc_fused`` engines. ``info["engine"]`` records the engine
     that ran.
 
-    ``mesh``, and a model with unobserved discrete addresses under
-    ``engine="nuts"``/``"auto"``/``"mixed"``, raise ``NotImplementedError``:
-    those paths belong to later slices of the port. ``mesh_axis`` and
-    ``discrete_supports`` are kept for gen_tpu's signature and serve only
-    them.
+    A model with unobserved discrete addresses (and no ``selection``)
+    runs the mixed path under ``engine="nuts"``/``"auto"``/``"mixed"``:
+    exact enumerative Gibbs over the discrete addresses alternating with
+    NUTS over the continuous block (``gibbs_nuts``), or with K3 over the
+    extended universe (``gibbs_nuts_fused``) where ``auto``/``mixed`` finds
+    its extended logp stageable. ``discrete_supports`` (address -> values)
+    overrides the discovered supports. ``mass``, ``num_ticks`` and ``mesh``
+    do not apply there and raise ``ValueError`` when set. ``info`` then
+    also holds ``discrete_sites`` and ``discrete_evals_per_sweep``.
+
+    ``mesh`` raises ``NotImplementedError``: the parallel slice is not
+    ported yet; ``mesh_axis`` is kept for gen_tpu's signature.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_posterior(mesh=...) shards the chains over devices; the "
-            "parallel slice (ROADMAP queue 1 item 17, torch.distributed) is "
-            "not ported yet")
     k_init, k_run = random.split(key)
     init_keys = random.split(k_init, num_chains)
     traces, _ = vmap(lambda k: model.generate(k, args, observations))(
@@ -336,14 +479,29 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
                     "move; use engine='nuts'/'auto' (alternating "
                     "Gibbs-within-NUTS), pass an explicit selection= of "
                     "continuous latents, or marginalize them")
-            raise NotImplementedError(
-                f"model has unobserved discrete addresses {disc_paths!r}: "
-                "the mixed discrete + continuous path (alternating "
-                "Gibbs-within-NUTS and its fused form, gen_tpu/inference/"
-                "mixed.py with the categorical kernel K5) is ROADMAP queue "
-                "1 item 15, not ported yet; pass an explicit selection= of "
-                "continuous latents")
+            for name, value, default in (("mass", mass, "diag"),
+                                         ("num_ticks", num_ticks, None),
+                                         ("mesh", mesh, None)):
+                if (value is not None if default is None
+                        else value != default):
+                    raise ValueError(
+                        f"{name}={value!r} does not apply to the mixed "
+                        "discrete + continuous path (gibbs_nuts / "
+                        "gibbs_nuts_fused), which adapts its own diagonal "
+                        f"mass and budget; leave {name} at {default!r}")
+            return _sample_mixed(
+                model, args, observations, traces, one_trace, k_run,
+                num_chains=num_chains, num_warmup=num_warmup,
+                num_samples=num_samples, max_depth=max_depth,
+                target_accept=target_accept, adapt_mass=adapt_mass,
+                discrete_supports=discrete_supports,
+                requested_engine=engine, summarize=summarize)
         selection, _ = _default_selection(one_trace, observations)
+    if mesh is not None:
+        raise NotImplementedError(
+            "sample_posterior(mesh=...) shards the chains over devices; the "
+            "parallel slice (ROADMAP queue 1 item 17, torch.distributed) is "
+            "not ported yet")
     # flat layout (sorted-address to_array order) for unflattening
     values_chm = one_trace.get_choices().filter(selection)
     layout = [(path, tuple(torch.as_tensor(v).shape))

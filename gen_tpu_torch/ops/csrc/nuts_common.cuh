@@ -1,14 +1,17 @@
 // Helpers shared by the fused NUTS kernels K3 (nuts_pair.cu) and K6
 // (nuts_tick.cu): Philox4x32-10, uniforms and Box-Muller normals, the
 // logaddexp formula of jnp.logaddexp, bf16x2 checkpoint packing with
-// gen_tpu's integer rounding, and the mass-weighted dot products.
+// gen_tpu's integer rounding, and the mass-weighted dot products. The
+// batched-categorical kernel K5 (categorical.cu) takes the Philox and
+// uniform helpers from here too.
 //
-// ops/nuts_fused.py splices this file's text into each kernel's generated
-// source in place of its NUTS_COMMON marker line (the source is compiled
-// in the build directory, where no relative #include would be found, and
-// the build cache hashes the spliced text, so an edit here rebuilds both
-// kernels). The including source defines NUTS_D, NUTS_UNROLL,
-// NUTS_VAG_INLINE and staged_vag first.
+// ops/nuts_fused.py and ops/categorical.py splice this file's text into
+// each kernel's generated source in place of its NUTS_COMMON marker line
+// (the source is compiled in the build directory, where no relative
+// #include would be found, and the build cache hashes the spliced text, so
+// an edit here rebuilds every kernel that splices it). The NUTS kernels
+// define NUTS_D, NUTS_UNROLL, NUTS_VAG_INLINE and staged_vag first; the
+// helpers that need them exist only where NUTS_D is defined.
 
 namespace {
 
@@ -16,10 +19,12 @@ constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+#ifdef NUTS_D
 __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
                                     float& lp, float* g) {
   staged_vag(x, r, lp, g);
 }
+#endif
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -51,6 +56,7 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
   z1 = r * s;
 }
 
+#ifdef NUTS_D
 // NUTS_D standard normals from Philox counters (i, step, tag0 + c, 0),
 // c = 0..ceil(NUTS_D / 4) - 1
 __device__ __forceinline__ void philox_normals(float* z, uint32_t i,
@@ -67,6 +73,8 @@ __device__ __forceinline__ void philox_normals(float* z, uint32_t i,
       if (4 * c + t < NUTS_D) z[4 * c + t] = q[t];
   }
 }
+
+#endif  // NUTS_D
 
 // jnp.logaddexp's formula, as the twin writes it out
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -93,6 +101,7 @@ __device__ __forceinline__ float unpack_lo(uint32_t p) {
   return __uint_as_float(p << 16);
 }
 
+#ifdef NUTS_D
 // sum_j (inv_j a_j) b_j, j = 0..D-1 in order
 __device__ __forceinline__ float dot_im(const float* inv, const float* a,
                                         const float* b) {
@@ -132,5 +141,6 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) dst[k] = src[k];
 }
+#endif  // NUTS_D
 
 }  // namespace

@@ -30,8 +30,11 @@ The pass:
   ``(n_chains,)`` tensors (:meth:`StagedLogp.vag`), the CPU and reference
   twin. Both run the same arithmetic in the same order.
 
-An aten op outside the table raises ``ValueError`` naming it; nothing falls
-back silently. gen_tpu's structured pieces (``scan``, ``cond``,
+A cast between float32 and bool becomes ``x != 0`` or ``b ? 1 : 0``, and
+``xlogy``/``xlog1py`` are written out as torch computes them: the mixed
+driver stages a model's discrete values as float coordinates. An aten op
+outside the table raises ``ValueError`` naming it; nothing falls back
+silently. gen_tpu's structured pieces (``scan``, ``cond``,
 ``cholesky``, ``triangular_solve``: part b) and streamed likelihoods
 (``StreamArray`` and the in-kernel data loops: part c) are not ported yet.
 """
@@ -345,6 +348,13 @@ _BINARY_ATEN = {
     aten.ne.Tensor: "ne", aten.ne.Scalar: "ne",
     aten.logical_and.default: "and", aten.logical_or.default: "or",
 }
+_XLOGY_ATEN = {
+    aten.xlogy.Tensor: "log", aten.xlogy.Scalar_Other: "log",
+    aten.xlogy.Scalar_Self: "log",
+    aten.special_xlog1py.default: "log1p",
+    aten.special_xlog1py.other_scalar: "log1p",
+    aten.special_xlog1py.self_scalar: "log1p",
+}
 _IDENTITY_ATEN = {
     aten.clone.default, aten.alias.default, aten.detach.default,
     aten.lift_fresh_copy.default, aten.contiguous.default,
@@ -370,12 +380,18 @@ def _as_sa(v) -> ScalarArray:
     raise ValueError(f"scalarize: unexpected operand {type(v).__name__}")
 
 
-def _elementwise(prog: Program, op: str, *args) -> ScalarArray:
+def _broadcast(*args):
+    """The broadcast shape of the operands and their elements, zipped."""
     sas = [_as_sa(a) for a in args]
     shape = np.broadcast_shapes(*[a.shape for a in sas])
     cols = [a.take(np.broadcast_to(a.index_array(), shape)).elems
             for a in sas]
-    return ScalarArray(shape, [prog.emit(op, *xs) for xs in zip(*cols)])
+    return shape, zip(*cols)
+
+
+def _elementwise(prog: Program, op: str, *args) -> ScalarArray:
+    shape, rows = _broadcast(*args)
+    return ScalarArray(shape, [prog.emit(op, *xs) for xs in rows])
 
 
 def _sum_elems(prog, elems):
@@ -435,6 +451,34 @@ def _scatter_zeros(grad: ScalarArray, sizes, dst_index):
     return ScalarArray(tuple(sizes), out)
 
 
+def _cast_elem(prog: Program, e, dt: str):
+    if _dtype_of(e) == dt:
+        return e
+    if dt == "b":
+        return prog.emit("ne", e, 0.0)
+    return prog.emit("where", e, 1.0, 0.0)
+
+
+def _cast(prog: Program, a, dt: str) -> ScalarArray:
+    """Elementwise cast between float32 and bool: a float becomes ``x !=
+    0``, a bool 1.0 or 0.0, so that a cast value carries the cast's
+    semantics into whatever reads it."""
+    a = _as_sa(a)
+    return ScalarArray(a.shape, [_cast_elem(prog, e, dt) for e in a.elems])
+
+
+def _xlogy(prog: Program, log_op: str, x, y) -> ScalarArray:
+    """torch's ``xlogy``/``xlog1py``: NaN where y is NaN, else 0 where x
+    is 0, else x * log(y) (log1p(y))."""
+    def one(a, b):
+        out = prog.emit("where", prog.emit("eq", a, 0.0), 0.0,
+                        prog.emit("mul", a, prog.emit(log_op, b)))
+        return prog.emit("where", prog.emit("isnan", b), math.nan, out)
+
+    shape, rows = _broadcast(x, y)
+    return ScalarArray(shape, [one(a, b) for a, b in rows])
+
+
 def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
     name = getattr(target, "__name__", str(target))
     if target in _UNARY_ATEN:
@@ -483,11 +527,15 @@ def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
         return args[0]
     if target is aten._to_copy.default:
         dt = kwargs.get("dtype")
-        if dt not in (None, torch.float32, torch.bool):
-            raise ValueError(f"scalarize: conversion to {dt} in the "
-                             "x-dependent part of logp; the staged "
-                             "program is float32")
-        return args[0]
+        if dt is torch.bool:
+            return _cast(prog, args[0], "b")
+        if dt in (None, torch.float32):
+            return _cast(prog, args[0], "f")
+        raise ValueError(f"scalarize: conversion to {dt} in the "
+                         "x-dependent part of logp; the staged "
+                         "program is float32")
+    if target in _XLOGY_ATEN:       # torch's xlogy/xlog1py, written out
+        return _xlogy(prog, _XLOGY_ATEN[target], args[0], args[1])
     if target in _FILL_ATEN:
         src = args[0]
         shape = src.shape if isinstance(src, ScalarArray) else tuple(src)

@@ -8,7 +8,9 @@ Left out until a slice needs them: ``partition_inexact``/``combine``/
 ``tree_vdot`` (gradient methods).
 
 Not in gen_tpu: :func:`default_device`. The port's entry points put new
-tensors on the card unless the caller names another device.
+tensors on the card unless the caller names another device. And
+:func:`default_int`, JAX's default integer under the port's counterpart
+of the x64 flag.
 """
 
 from __future__ import annotations
@@ -26,6 +28,15 @@ def default_device() -> torch.device:
     call that allocates there raises, as torch does. Pass ``device="cpu"``
     to run on the CPU (the tests do)."""
     return torch.device("cuda")
+
+
+def default_int() -> torch.dtype:
+    """JAX's default integer as the port reads it: int64 when torch's
+    default float is float64 (the counterpart of JAX's x64 mode), else
+    int32. Integer draws (``categorical``, ``uniform_discrete``, ...) take
+    it, as ``jax.random``'s do."""
+    return (torch.int64 if torch.get_default_dtype() == torch.float64
+            else torch.int32)
 
 
 def is_static_scalar(x) -> bool:

@@ -9,11 +9,13 @@ gen_tpu: its pieces, its output layout, its refusals, and one whole run.
   gen_tpu's ``info`` keys and ``engine``.
 - ``engine="auto"`` on a model that does not stage falls back to ``nuts``
   with a warning and the reason in ``info``.
-- The refusals: ``mesh=`` and the mixed discrete path raise
-  ``NotImplementedError`` naming their slices; a discrete address with
-  another engine, a selection outside the universe, ``mass`` with a
-  non-fused engine and a dense metric past the residual cap raise
-  gen_tpu's ``ValueError``.
+- The refusals: ``mesh=`` raises ``NotImplementedError`` naming its
+  slice; the mixed discrete path refuses gen_tpu's way a model with no
+  continuous latent (``ValueError``) and a discrete address without a
+  finite support (``NotImplementedError`` pointing at
+  ``discrete_supports``); a discrete address with another engine, a
+  selection outside the universe, ``mass`` with a non-fused engine and a
+  dense metric past the residual cap raise gen_tpu's ``ValueError``.
 - The slice as a whole: ``sample_posterior(engine="nuts_fused")`` on
   eight_schools under the same key in both frameworks, float32 on both
   sides. The initial traces agree to float32 normals (4 ulp, checked to
@@ -72,8 +74,8 @@ def t_sort():
 
 
 class _Coin(Distribution):
-    """A discrete choice for the refusal probes (the port has no discrete
-    distributions yet)."""
+    """A discrete choice without a finite support, for the refusal
+    probes."""
 
     def sample(self, key, p):
         return (tt.random.uniform(key, ()) < p).to(torch.int32)
@@ -87,6 +89,13 @@ class _Coin(Distribution):
 def t_mixed():
     z = _Coin()(0.5) @ "z"
     tt.normal(torch.where(z == 1, 1.0, -1.0), 1.0) @ "y"
+
+
+@tt.gen
+def t_mixed_latent():
+    x = tt.normal(0.0, 1.0) @ "x"
+    z = _Coin()(0.5) @ "z"
+    tt.normal(x + torch.where(z == 1, 1.0, -1.0), 1.0) @ "y"
 
 
 def _traces():
@@ -193,10 +202,11 @@ REFUSALS = {
     "mesh": (NotImplementedError, "item 17",
              lambda: _run(t_vec, tt.choicemap(ys=torch.from_numpy(YS)),
                           mesh=object())),
-    "mixed_nuts": (NotImplementedError, "item 15",
+    "mixed_nuts": (ValueError, "no unobserved continuous",
                    lambda: _run(t_mixed, tt.choicemap(y=torch.tensor(0.5)))),
-    "mixed_auto": (NotImplementedError, "K5",
-                   lambda: _run(t_mixed, tt.choicemap(y=torch.tensor(0.5)),
+    "mixed_auto": (NotImplementedError, "discrete_supports",
+                   lambda: _run(t_mixed_latent,
+                                tt.choicemap(y=torch.tensor(0.5)),
                                 engine="auto")),
     "discrete_other_engine": (
         ValueError, "discrete",

@@ -305,3 +305,57 @@ def test_residual_above_gumbel_limit_is_unbiased():
     top = np.argsort(w)[-n // 10:]
     np.testing.assert_allclose(counts[top].sum() / (2 * n), w[top].sum(),
                                atol=0.01)
+
+
+# -- the categorical HMM of tests/test_particle_filter.py, against the exact
+#    forward algorithm ------------------------------------------------------
+
+HMM_TRANS = np.array([[0.7, 0.3], [0.2, 0.8]])
+HMM_EMIT = np.array([[0.9, 0.1], [0.4, 0.6]])
+HMM_INIT = np.array([0.6, 0.4])
+HMM_OBS = [0, 0, 1, 1, 0, 1, 0, 0]
+
+
+@tt.gen
+def _hmm_kernel(t, prev_z):
+    probs = torch.where(t == 0, torch.tensor(HMM_INIT),
+                        torch.tensor(HMM_TRANS)[prev_z.long()])
+    z = tt.categorical(probs) @ "z"
+    tt.categorical(torch.tensor(HMM_EMIT)[z.long()]) @ "y"
+    return z
+
+
+def _hmm_exact_log_ml(obs):
+    """The forward algorithm."""
+    alpha = HMM_INIT * HMM_EMIT[:, obs[0]]
+    log_ml = 0.0
+    for t in range(1, len(obs)):
+        s = alpha.sum()
+        log_ml += np.log(s)
+        alpha = (alpha / s) @ HMM_TRANS * HMM_EMIT[:, obs[t]]
+    return log_ml + np.log(alpha.sum())
+
+
+def test_pf_log_ml_matches_forward_algorithm():
+    """tests/test_particle_filter.py's case: 3,000 particles, systematic
+    resampling (K4's plain route here) at ESS < n/2, log-ML within 0.05 of
+    the exact forward algorithm."""
+    n = 3000
+    hmm = TUnfold(_hmm_kernel)
+
+    def obs_at(t):
+        return tt.choicemap(((t, "y"), torch.tensor(HMM_OBS[t])))
+
+    with float64_default():
+        key = tt.random.PRNGKey(0, "cpu")
+        key, k0 = tt.random.split(key)
+        state = tpf.initialize_particle_filter(k0, hmm, (1, 0), obs_at(0),
+                                               n)
+        for t in range(1, len(HMM_OBS)):
+            key, kr, ks = tt.random.split(key, 3)
+            state, _ = tpf.maybe_resample(kr, state, ess_threshold=n / 2)
+            state = tpf.particle_filter_step(
+                ks, state, (t + 1, 0), (tt.IntDiff(1), tt.NoChange),
+                obs_at(t))
+        lml = float(tpf.log_ml_estimate(state))
+    np.testing.assert_allclose(lml, _hmm_exact_log_ml(HMM_OBS), atol=0.05)

@@ -96,3 +96,158 @@ def float64_default():
         yield
     finally:
         torch.set_default_dtype(prev)
+
+
+# -- mixed discrete + continuous models (tests/test_mixed.py's GMM and
+#    scalar categorical model; examples/regression.py's flagship) ----------
+
+GMM_SIGMA, GMM_TAU = 1.0, 1.5
+GMM_LOCS = (-2.0, 2.0)
+GMM_YS = np.array([-2.3, -1.8, -0.4, 0.6, 2.2, 1.9])
+SCALAR_LOCS = np.array([-3.0, 0.0, 3.0])
+SCALAR_PRIOR = np.array([0.5, 0.3, 0.2])
+
+
+@gt.gen
+def _jax_gmm_datum(mu0, mu1):
+    z = gt.bernoulli(0.5) @ "z"
+    return gt.normal(jnp.where(z, mu1, mu0), GMM_SIGMA) @ "y"
+
+
+_jax_gmm_data = gt.Map(_jax_gmm_datum)
+
+
+@gt.gen
+def jax_gmm(n):
+    mu0 = gt.normal(GMM_LOCS[0], GMM_TAU) @ "mu0"
+    mu1 = gt.normal(GMM_LOCS[1], GMM_TAU) @ "mu1"
+    return _jax_gmm_data(jnp.full(n, mu0), jnp.full(n, mu1)) @ "data"
+
+
+@tt.gen
+def _torch_gmm_datum(mu0, mu1):
+    z = tt.bernoulli(0.5) @ "z"
+    return tt.normal(torch.where(z, mu1, mu0), GMM_SIGMA) @ "y"
+
+
+_torch_gmm_data = tt.Map(_torch_gmm_datum)
+
+
+@tt.gen
+def torch_gmm(n):
+    mu0 = tt.normal(GMM_LOCS[0], GMM_TAU) @ "mu0"
+    mu1 = tt.normal(GMM_LOCS[1], GMM_TAU) @ "mu1"
+    return _torch_gmm_data(mu0.expand(n), mu1.expand(n)) @ "data"
+
+
+@gt.gen
+def _jax_reg_datum(x, slope, intercept, inlier_std, outlier_std):
+    is_outlier = gt.bernoulli(0.5) @ "is_outlier"
+    std = jnp.where(is_outlier, outlier_std, inlier_std)
+    return gt.normal(slope * x + intercept, std) @ "y"
+
+
+_jax_reg_data = gt.Map(_jax_reg_datum)
+
+
+@gt.gen
+def jax_outlier_regression(xs):
+    slope = gt.normal(0.0, 2.0) @ "slope"
+    intercept = gt.normal(0.0, 2.0) @ "intercept"
+    inlier_log_std = gt.normal(0.0, 1.0) @ "inlier_log_std"
+    outlier_log_std = gt.normal(2.0, 1.0) @ "outlier_log_std"
+    n = xs.shape[0]
+    return _jax_reg_data(
+        xs, jnp.full(n, slope), jnp.full(n, intercept),
+        jnp.full(n, jnp.exp(inlier_log_std)),
+        jnp.full(n, jnp.exp(outlier_log_std))) @ "data"
+
+
+@tt.gen
+def _torch_reg_datum(x, slope, intercept, inlier_std, outlier_std):
+    is_outlier = tt.bernoulli(0.5) @ "is_outlier"
+    std = torch.where(is_outlier, outlier_std, inlier_std)
+    return tt.normal(slope * x + intercept, std) @ "y"
+
+
+_torch_reg_data = tt.Map(_torch_reg_datum)
+
+
+@tt.gen
+def torch_outlier_regression(xs):
+    slope = tt.normal(0.0, 2.0) @ "slope"
+    intercept = tt.normal(0.0, 2.0) @ "intercept"
+    inlier_log_std = tt.normal(0.0, 1.0) @ "inlier_log_std"
+    outlier_log_std = tt.normal(2.0, 1.0) @ "outlier_log_std"
+    n = xs.shape[0]
+    return _torch_reg_data(
+        xs, slope.expand(n), intercept.expand(n),
+        torch.exp(inlier_log_std).expand(n),
+        torch.exp(outlier_log_std).expand(n)) @ "data"
+
+
+def outlier_dataset(n=50, seed=0):
+    """examples/regression.py::make_dataset as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-5, 5, n)
+    ys = -1.2 * xs + 2.0 + rng.normal(0, 0.5, n)
+    outliers = rng.random(n) < 0.15
+    ys[outliers] = rng.normal(0, 8.0, outliers.sum())
+    return xs, ys
+
+
+@gt.gen
+def jax_scalar_mix():
+    k = gt.categorical(jnp.asarray(SCALAR_PRIOR)) @ "k"
+    mu = gt.normal(jnp.asarray(SCALAR_LOCS)[k], 1.0) @ "mu"
+    return gt.normal(mu, 0.5) @ "y"
+
+
+@tt.gen
+def torch_scalar_mix():
+    k = tt.categorical(torch.tensor(SCALAR_PRIOR,
+                                    dtype=torch.get_default_dtype())) @ "k"
+    locs = torch.tensor(SCALAR_LOCS, dtype=torch.get_default_dtype())
+    # a 1-element index: torch takes a 0-dim index tensor as an integer,
+    # which a chain-batched k under torch.func.grad cannot be
+    mu = tt.normal(locs[k.long().reshape(1)][0], 1.0) @ "mu"
+    return tt.normal(mu, 0.5) @ "y"
+
+
+def gmm_obs(g, ys):
+    """Observations of ``data``'s y at every element, for package ``g``."""
+    obs = g.ChoiceMap()
+    obs.set_submap("data", g.vector_choicemap(len(ys), y=ys))
+    return obs
+
+
+def mixed_problems(dtype):
+    """name -> (jax model, torch model, jax args, torch args, jax obs,
+    torch obs) for the three models of sample_posterior's mixed path, in
+    ``dtype`` (torch) and its JAX counterpart."""
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    xs, ys = outlier_dataset()
+    return {
+        "gmm": (jax_gmm, torch_gmm, (6,), (6,),
+                gmm_obs(gt, jnp.asarray(GMM_YS, jdt)),
+                gmm_obs(tt, torch.tensor(GMM_YS, dtype=dtype))),
+        "regression": (jax_outlier_regression, torch_outlier_regression,
+                       (jnp.asarray(xs, jdt),),
+                       (torch.tensor(xs, dtype=dtype),),
+                       gmm_obs(gt, jnp.asarray(ys, jdt)),
+                       gmm_obs(tt, torch.tensor(ys, dtype=dtype))),
+        "scalar": (jax_scalar_mix, torch_scalar_mix, (), (),
+                   gt.choicemap(y=jnp.asarray(2.4, jdt)),
+                   tt.choicemap(y=torch.tensor(2.4, dtype=dtype))),
+    }
+
+
+def same_choices(jtr, ttr, rtol=1e-8):
+    """Two traces hold the same addresses with values within ``rtol``."""
+    jl = list(jtr.get_choices().leaf_items())
+    tl = list(ttr.get_choices().leaf_items())
+    assert [p for p, _ in jl] == [p for p, _ in tl]
+    for (p, a), (_, b) in zip(jl, tl):
+        np.testing.assert_allclose(np.asarray(b.numpy(), np.float64),
+                                   np.asarray(a, np.float64), rtol=rtol,
+                                   err_msg=str(p))
