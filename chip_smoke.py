@@ -9,9 +9,10 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (two K1, five K3, three K6,
-   K4 in float32 and float64, K5; one ``nvcc`` per source, all at once),
-   with registers, spills and stack from ptxas.
+   variant from ``gen_tpu_torch/ops/csrc`` (three K1, six K3, four K6,
+   two staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
+   per source, all at once), with registers, spills and stack from
+   ptxas.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
@@ -63,13 +64,14 @@ nonzero and no result line is printed):
       gather); then one filter at 1,048,576 particles. Particle-steps/s;
       K4's launches must equal the resampling steps.
    b. The linear-Gaussian model of ``tests/test_arena.py`` at T=32 and
-      131,072 particles against the exact Kalman filter, five seeds per
-      path: ``smc_genealogy``, ``smc_run`` on ``UnfoldArena`` and the
+      131,072 particles against the exact Kalman filter, twenty seeds per
+      path (each path's mean log-ML offset and its standard error):
+      ``smc_genealogy``, ``smc_run`` on ``UnfoldArena`` and the
       particle-filter API on ``Unfold`` (``initialize_particle_filter``,
       ``maybe_resample``, ``particle_filter_step`` with ``(IntDiff(1),
       NoChange)``). Gates: mean log-ML within 0.05, weighted filtered mean
       of x_T-1 within 0.02 sd and its variance within 3%. Multinomial and
-      residual resampling on the particle-filter path (three seeds each,
+      residual resampling on the particle-filter path (twenty seeds each,
       the log-ML gate, no K4 launch); 1,000 reconstructed trajectories
       re-assessed against their stored scores (relative 1e-5);
       ``importance_sampling`` at T=2 within 0.05 of the exact log-ML.
@@ -94,9 +96,35 @@ nonzero and no result line is printed):
       tests/test_mixed.py (exact enumeration; the regression's slope and
       intercept); wall time split into generate,
       warmup and sampling, with the Gibbs sweeps' and the kernel's share.
-9. Numbers: per kernel its time, its plain version's time, its bound, the
-   library call's time where there is one and launches on the main path,
-   as one JSON line; then the card; then the result line.
+10. The streamed likelihood (staging part c, K2c) and the unrolled Kalman
+    recursion (part b, K2b), K1, K3 and K6's launch counts and the staged
+    code's (``scalarize.body_launches``, ``staged_eval.staged_vag``) set
+    to 0 before each path and read after:
+    a. The staged code alone and K1, K3 and K6 with the stream loop
+       (robust-t n = 10,000 at 8,192 chains, n = 10^6 at 1,024) and K1 and
+       K3 with the Kalman body (T = 100, 131,072 chains) against their
+       plain versions under injected randomness, bit for bit.
+    b. ``benchmarks/bench_stream.py``'s robust-t regression: n = 10,000 at
+       8,192 chains through ``sample_posterior(engine="auto")``, which
+       must pick ``nuts_fused`` and stream; gates 0.05 sd, 6% against
+       ``_verify.robust_t_quadrature``, split-R-hat < 1.02. Then n = 10^6
+       at 1,024 chains: ChEES on 128 chains (bench_stream.py:178-196),
+       tiled, then K3; gen_tpu's f32 floor for this row (0.3 sd, 12%),
+       split-R-hat < 1.02, the absolute errors printed. Then a short
+       ``sample_posterior(engine="auto")`` at n = 10^6 and 256 chains
+       (20 + 20 iterations), gated on the dispatch, the launches and
+       finite draws.
+    c. ``benchmarks/bench_statespace_fused.py``'s collapsed AR(1)+noise
+       model (T = 100, ``lgssm``) at 131,072 chains through
+       ``sample_posterior`` with ``engine="hmc_fused"`` (K1) and
+       ``"auto"`` (K3); gates 0.05 sd, 6% against
+       ``_verify.ar1_quadrature`` (121 points per axis), split-R-hat < 1.01
+       from the returned summary.
+9. Numbers (printed after phase 10): per kernel its time, its plain
+   version's time, its bound, the library call's time where there is one
+   and launches on the main path, as one JSON line (K2c and K2b per
+   gradient of the staged-code kernel); then the card; then the result
+   line.
 
 Each main path is driven with the kernels' launch counts set to 0 just
 before it and read just after. The script imports neither JAX nor gen_tpu.
@@ -129,8 +157,8 @@ SCHOOL_ADDRS = ("mu", "log_tau", "theta_std")
 SMC_N = 131072         # benchmarks/workloads.py::bench_smc_genealogy
 SMC_N_BIG = 1048576    # benchmarks/RESULTS.md's second SMC row
 SMC_T = 32
-SMC_SEEDS = 5          # seeds per path for the Kalman gates
-OTHER_SEEDS = 3        # seeds for multinomial and residual resampling
+SMC_SEEDS = 20         # seeds per path for the Kalman gates
+OTHER_SEEDS = 20       # seeds for multinomial and residual resampling
 K4_NS = (1, 1000, 4096, 32768, SMC_N, SMC_N_BIG)
 K4_US = (0.0, 0.5, 1.0 - 2.0 ** -24)
 K4_REPS = 100
@@ -1101,13 +1129,14 @@ def phase_smc_gates(torch, tt, dev, tag):
         lmls = [float(r[0]) for r in res]
         mom = np.array([weighted_moments(torch, r[2], r[1]) for r in res])
         d_lml = float(np.mean(lmls)) - lml_ex
+        se = float(np.std(lmls, ddof=1)) / math.sqrt(seeds)
         d_m = (mom[:, 0].mean() - m_ex) / math.sqrt(v_ex)
         d_v = mom[:, 1].mean() / v_ex - 1.0
         ok = abs(d_lml) < LML_TOL and (not moments or (
             abs(d_m) < MEAN_TOL and abs(d_v) < VAR_TOL))
         print(f"{tag} {label} ({method}, {seeds} seeds, {secs:.2f} s): "
               f"log-ML {np.mean(lmls):.4f} (Kalman {lml_ex:.4f}, diff "
-              f"{d_lml:+.4f}; per seed "
+              f"{d_lml:+.4f}, SE {se:.4f}, {d_lml / se:+.2f} SE; per seed "
               f"{', '.join(f'{v:.4f}' for v in lmls)}); filtered x_T-1 mean "
               f"diff {d_m:+.4f} sd, var {d_v:+.2%}; {steps} resampling "
               f"steps, {launches} K4 launches {'OK' if ok else 'FAIL'}")
@@ -1592,6 +1621,470 @@ def k5_entry(torch, dev, tag, decode_run, k5_err):
                 shapes={f"{n}x{k}": v for (n, k), v in rows.items()})
 
 
+# -- phase 10: the streamed likelihood (K2c) and the Kalman body (K2b) -----
+
+STREAM_N, STREAM_CHAINS = 10_000, 8192          # bench_stream.py main()
+STREAM_N_BIG, STREAM_CHAINS_BIG = 1_000_000, 1024
+STREAM_CHAINS_AUTO_BIG = 256      # the short sample_posterior call at 10^6
+STREAM_WARM_CHAINS = 128          # bench_stream.py:178-196's warmup subset
+STREAM_TICKS = 1600
+AR1_T, AR1_CHAINS = 100, 131072   # bench_statespace_fused.py
+ROBUST_ADDRS = ("slope", "intercept", "log_noise")
+AR1_ADDRS = ("phi", "log_q", "log_r")
+
+
+def stream_data(n, seed=0):
+    """benchmarks/bench_stream.py::make_data, with numpy."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-2.0, 2.0, n)
+    noise = 0.5 * rng.standard_t(4.0, n)
+    ys = 0.7 * xs + -0.4 + noise
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
+def stream_setup(torch, tt, dev, n):
+    """bench_stream.py's robust regression: slope, intercept, log_noise and
+    a student_t(4) likelihood over n points."""
+    xs_np, ys_np = stream_data(n)
+    xs = torch.tensor(xs_np, device=dev)
+
+    @tt.gen
+    def robust_reg():
+        slope = tt.normal(0.0, 2.0) @ "slope"
+        intercept = tt.normal(0.0, 2.0) @ "intercept"
+        log_noise = tt.normal(0.0, 1.0) @ "log_noise"
+        tt.student_t(4.0, slope * xs + intercept,
+                     torch.exp(log_noise)) @ "ys"
+
+    obs = tt.choicemap(ys=torch.tensor(ys_np, device=dev))
+    return robust_reg, (), obs, tt.select(*ROBUST_ADDRS), xs_np, ys_np
+
+
+def ar1_data(T=AR1_T, seed=0):
+    """benchmarks/bench_statespace_fused.py::make_dataset, with numpy."""
+    rng = np.random.default_rng(seed)
+    x, ys = 0.0, np.empty((T, 1), np.float32)
+    for t in range(T):
+        x = (0.8 * x if t else 0.0) + np.sqrt(0.3) * rng.standard_normal()
+        ys[t, 0] = x + np.sqrt(0.5) * rng.standard_normal()
+    return ys
+
+
+def ar1_setup(torch, tt, dev, T=AR1_T):
+    """bench_statespace_fused.py's collapsed AR(1)+noise model: priors on
+    (phi, log_q, log_r), the lgssm(T) Kalman likelihood, P0 = 2."""
+    from gen_tpu_torch.models import lgssm
+    like = lgssm(T)
+    eye1 = torch.eye(1, device=dev)
+    z1 = torch.zeros(1, device=dev)
+
+    @tt.gen
+    def ar1_model(cap):
+        phi = tt.normal(0.0, 1.0) @ "phi"
+        log_q = tt.normal(-1.0, 1.0) @ "log_q"
+        log_r = tt.normal(-1.0, 1.0) @ "log_r"
+        A = phi * eye1
+        Q = torch.exp(log_q) * eye1
+        R = torch.exp(log_r) * eye1
+        like(A, Q, eye1, R, z1, cap * eye1) @ "ys"
+        return phi
+
+    ys_np = ar1_data(T)
+    obs = tt.choicemap(ys=torch.tensor(ys_np, device=dev))
+    return (ar1_model, (torch.tensor(2.0, device=dev),), obs,
+            tt.select(*AR1_ADDRS), ys_np)
+
+
+def k2_setup(torch, tt, dev):
+    """Phase 1's part of phase 10: the three models, one FlatTarget each,
+    staged (timed) and their kernels' build jobs: K1, K3, K6 and the
+    staged-code kernel for the stream model (one source serves both data
+    sizes), K1, K3 and the staged-code kernel for the Kalman model."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import FlatTarget
+    from gen_tpu_torch.ops import hmc_fused, staged_eval
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    out, stage_s = {}, {}
+    for name, setup in (("stream", lambda: stream_setup(torch, tt, dev,
+                                                         STREAM_N)),
+                        ("stream_big", lambda: stream_setup(
+                            torch, tt, dev, STREAM_N_BIG)),
+                        ("ar1", lambda: ar1_setup(torch, tt, dev))):
+        s = setup()
+        target = FlatTarget(s[0].generate(random.PRNGKey(1, dev), s[1],
+                                          s[2])[0], s[3])
+        st, secs = timed(torch, lambda: hmc_fused.stage(target.logp, 3,
+                                                        dev))
+        out[name] = (s, target, st)
+        stage_s[name] = secs
+    st_s, st_k = out["stream"][2], out["ar1"][2]
+    jobs = [("K1 robust-t stream", st_s, hmc_fused.build_job(st_s)),
+            ("K3 robust-t stream", st_s, nf.build_job(st_s, 6, True)),
+            ("K6 robust-t stream", st_s, nf.build_job(st_s, 6, False)),
+            ("K2c staged stream", st_s, staged_eval.build_job(st_s)),
+            ("K1 AR(1) T=100", st_k, hmc_fused.build_job(st_k)),
+            ("K3 AR(1) T=100", st_k, nf.build_job(st_k, 8, True)),
+            ("K2b staged Kalman", st_k, staged_eval.build_job(st_k))]
+    for name, secs in stage_s.items():
+        st = out[name][2]
+        print(f"staging {name}: {secs:.2f} s, {st.n_instructions} "
+              f"instructions outside the stream loop, "
+              f"{st.n_point_instructions} per point, {len(st.sums)} "
+              f"data-sums, {st.n_res} residual constants"
+              + (f", stream table {tuple(st.stream_data.shape)}"
+                 if st.streams else ""))
+    return out, jobs, sum(stage_s.values())
+
+
+def stream_start(torch, xs, ys, n, dev, seed):
+    """Chains near the posterior for the kernel checks: the least-squares
+    fit (slope, intercept, log residual sd) in the flat order (intercept,
+    log_noise, slope), plus a little noise."""
+    A = np.stack([xs, np.ones_like(xs)], 1).astype(np.float64)
+    beta = np.linalg.lstsq(A, ys.astype(np.float64), rcond=None)[0]
+    ln = np.log(np.std(ys - A @ beta))
+    center = torch.tensor([beta[1], ln, beta[0]], dtype=torch.float32,
+                          device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    return center + 0.01 * torch.randn(n, 3, device=dev, generator=g)
+
+
+def compare_staged(torch, st, x, label):
+    """The staged-code kernel against the staged program's torch rendering
+    on the same points: bit for bit."""
+    from gen_tpu_torch.ops import staged_eval
+    lk, gk = staged_eval.staged_vag(st, x.T.contiguous())
+    lp, gp = st.vag(x.T.contiguous())
+    torch.cuda.synchronize()
+    err = max(float((lk - lp).abs().max()), float((gk - gp).abs().max()))
+    same = torch.equal(lk, lp) and torch.equal(gk, gp)
+    print(f"staged code {label}: max |kernel - plain| = {err:.3e} over "
+          f"{x.shape[0]} chains ({'bit for bit' if same else 'DIFFERENT'})")
+    check(same and bool(torch.isfinite(lk).all()),
+          f"staged code {label}: kernel and plain version differ")
+    return err
+
+
+def phase_compare_k2(torch, ctx, dev, rng):
+    """Phase 10a: the staged code alone, then K1, K3 and K6 with the stream
+    loop (n = 10,000 at 8,192 chains, n = 1,000,000 at 1,024) and K1 and
+    K3 with the unrolled Kalman body (T = 100, 131,072 chains), each
+    against its plain version under injected randomness. Returns the
+    largest differences per kernel."""
+    from gen_tpu_torch.ops import hmc_fused
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    errs = {"K1": [], "K3": [], "K6": [], "K2b": [], "K2c": []}
+    key = torch.zeros(2, dtype=torch.int64, device=dev)
+    for name, n, eps, steps in (("stream", STREAM_CHAINS, 0.004, 4),
+                                ("stream_big", STREAM_CHAINS_BIG, 0.0004,
+                                 2)):
+        (_, _, _, _, xs, ys), target, st = ctx["k2"][name]
+        v0 = stream_start(torch, xs, ys, n, dev, 3)
+        label = f"robust-t n={len(xs)} ({n} chains)"
+        errs["K2c"].append(compare_staged(torch, st, v0, label))
+        errs["K1"].append(compare_k1(
+            torch, hmc_fused.hmc_chains_fused,
+            hmc_fused.hmc_chains_fused_plain, key, target.logp, v0, steps,
+            3, eps, None, None, rng, label)[2])
+        for paired, k in ((True, "K3"), (False, "K6")):
+            errs[k].append(compare_nuts(
+                torch, nf, target.logp, v0, steps if paired else 2 * steps,
+                eps, 6, None, None, 1000.0, 5, label, paired)[1])
+    (_, _, _, _, _), target, st = ctx["k2"]["ar1"]
+    g = torch.Generator(dev).manual_seed(9)
+    v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
+          + 0.2 * torch.randn(AR1_CHAINS, 3, device=dev, generator=g))
+    label = f"AR(1) Kalman T={AR1_T} ({AR1_CHAINS} chains)"
+    errs["K2b"].append(compare_staged(torch, st, v0, label))
+    errs["K1"].append(compare_k1(
+        torch, hmc_fused.hmc_chains_fused, hmc_fused.hmc_chains_fused_plain,
+        key, target.logp, v0, 3, 2, 0.05, None, None, rng, label)[2])
+    errs["K3"].append(compare_nuts(torch, nf, target.logp, v0, 4, 0.05, 8,
+                                   0, None, 1000.0, 6, label, True)[1])
+    return {k: max(v) for k, v in errs.items()}
+
+
+def posterior_gate(torch, samples, summary, exact, tols, label):
+    """Each coordinate's mean within ``tols[0]`` sd and sd within
+    ``tols[1]`` of ``exact`` (name -> (mean, sd)) over all draws and
+    chains, split-R-hat from ``summary`` below ``tols[2]``; prints the
+    absolute errors too."""
+    worst = [0.0, 0.0, 0.0]
+    for name, (m_ex, s_ex) in exact.items():
+        arr = samples[name].double().reshape(-1)
+        m, s = float(arr.mean()), float(arr.std(correction=0))
+        rh = float(torch.as_tensor(summary[name]["rhat"]).max())
+        dm, ds = abs(m - m_ex) / s_ex, abs(s / s_ex - 1.0)
+        worst = [max(worst[0], dm), max(worst[1], ds), max(worst[2], rh)]
+        print(f"  {name:<10} mean {m:+.6f} (exact {m_ex:+.6f}, |d| "
+              f"{abs(m - m_ex):.3e} = {dm:.4f} sd)  sd {s:.6f} (exact "
+              f"{s_ex:.6f}, {s / s_ex - 1.0:+.2%})  split-R-hat {rh:.4f}")
+    ok = worst[0] < tols[0] and worst[1] < tols[1] and worst[2] < tols[2]
+    print(f"  gates (mean {tols[0]} sd, sd {tols[1]:.0%}, split-R-hat "
+          f"{tols[2]}): worst {worst[0]:.4f} sd, {worst[1]:.4f}, "
+          f"{worst[2]:.4f} {'OK' if ok else 'FAIL'}")
+    check(ok, f"{label} outside its gates")
+
+
+def launch_counts(nf, hmc):
+    from gen_tpu_torch.ops import scalarize, staged_eval
+    return dict(hmc_fused=hmc.launches, **nf.nuts_chains_fused.kernel_launches,
+                staged_eval=staged_eval.staged_vag.launches,
+                **{f"body_{k}": v for k, v in scalarize.body_launches.items()})
+
+
+def reset_counts(nf, hmc):
+    from gen_tpu_torch.ops import scalarize, staged_eval
+    hmc.launches = nf.nuts_chains_fused.launches = 0
+    nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+    staged_eval.staged_vag.launches = 0
+    scalarize.body_launches.update(stream=0, structured=0)
+
+
+def phase_stream(torch, tt, dev, tag, ctx):
+    """Phase 10b: the robust-t regression. (a) n = 10,000 at 8,192 chains
+    through ``sample_posterior(engine="auto")``, which must dispatch
+    ``nuts_fused`` with a stream; gates 0.05 sd, 6%, split-R-hat < 1.02
+    against the 3-D quadrature. (b) n = 1,000,000 at 1,024 chains: ChEES on
+    128 chains (the staged kernel evaluates the logp), tiled to 1,024, then
+    K3; gen_tpu's f32 floor for this row, 0.3 sd and 12%, split-R-hat <
+    1.02. (c) n = 10^6 through ``sample_posterior(engine="auto")`` at 256
+    chains, 20 + 20 iterations: the dispatch and the 8-warp variant under
+    the entry point, gated on the launches and finite draws. Returns
+    launches and times per path."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch._verify import robust_t_quadrature
+    from gen_tpu_torch.diagnostics import rhat
+    from gen_tpu_torch.inference import sample_posterior
+    from gen_tpu_torch.inference.chees import chees_warmup_flat
+    from gen_tpu_torch.ops import hmc_fused, staged_eval
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    res = {}
+    (model, args, obs, sel, xs, ys), _, _ = ctx["k2"]["stream"]
+    exact, q_s = timed(torch, lambda: robust_t_quadrature(xs, ys,
+                                                          device=dev))
+    print(f"robust-t n={STREAM_N}: quadrature {q_s:.2f} s: "
+          + ", ".join(f"{k} {m:+.5f} +- {s:.5f}"
+                      for k, (m, s) in exact.items()))
+    reset_counts(nf, hmc_fused.hmc_chains_fused)
+    out, total_s = timed(torch, lambda: sample_posterior(
+        random.PRNGKey(21, dev), model, args, obs,
+        num_chains=STREAM_CHAINS, engine="auto", num_warmup=200,
+        num_samples=200, num_ticks=STREAM_TICKS, max_depth=6))
+    launches = launch_counts(nf, hmc_fused.hmc_chains_fused)
+    info = out.info
+    print(f"{tag} robust-t n={STREAM_N}, {STREAM_CHAINS} chains: "
+          f"sample_posterior(auto) ran {info['engine']} "
+          f"({info.get('engine_reason')}); "
+          f"{out.samples['slope'].shape[0]} draws per chain in "
+          f"{total_s:.2f} s; launches {launches}")
+    check(info["engine"] == "nuts_fused" and "streams" in
+          info.get("engine_reason", ""), "auto did not dispatch the stream")
+    check(launches["nuts_pair"] >= 1 and launches["body_stream"] >= 1,
+          "the stream path did not launch K3 with the stream loop")
+    posterior_gate(torch, out.samples, out.summary, exact,
+                   (0.05, 0.06, 1.02), f"robust-t n={STREAM_N}")
+    res["a"] = dict(launches=launches["body_stream"],
+                    staged_launches=launches["staged_eval"], total_s=total_s)
+    del out
+
+    # (b) one million points
+    (model, args, obs, sel, xs, ys), target, st = ctx["k2"]["stream_big"]
+    exact, q_s = timed(torch, lambda: robust_t_quadrature(xs, ys,
+                                                          device=dev))
+    print(f"robust-t n={STREAM_N_BIG}: quadrature {q_s:.2f} s: "
+          + ", ".join(f"{k} {m:+.6f} +- {s:.6f}"
+                      for k, (m, s) in exact.items()))
+    paths, offsets = flat_layout(tt, target._trace, sel)
+    reset_counts(nf, hmc_fused.hmc_chains_fused)
+    k_init, k_warm, k_run, k_gate = random.split(random.PRNGKey(22, dev), 4)
+    t0 = time.perf_counter()
+    xs0 = init_values(torch, model, args, obs, sel,
+                      random.split(k_init, STREAM_WARM_CHAINS))
+
+    def batched(x):
+        lp, g = staged_eval.staged_vag(st, x.T)
+        return lp, g.T
+
+    (_, warm, winfo), warm_s = timed(torch, lambda: chees_warmup_flat(
+        k_warm, target.value_and_grad, xs0, num_warmup=250, num_samples=1,
+        batched_vag=batched))
+    reps = -(-STREAM_CHAINS_BIG // STREAM_WARM_CHAINS)
+    warm = warm.repeat(reps, 1)[:STREAM_CHAINS_BIG].contiguous()
+    eps = float(winfo["step_size"])
+    kw = dict(eps=eps, max_depth=6, inv_mass_diag=winfo["inv_mass"],
+              collect_idx=None, paired=True)
+    (values, _, _, _, _), burn_s = timed(torch, lambda: (
+        nf.nuts_chains_fused_chunked(k_run, target.logp, warm,
+                                     num_ticks=STREAM_TICKS, **kw)))
+    (values, hist, hcnt, cnt, stats), run_s = timed(torch, lambda: (
+        nf.nuts_chains_fused_chunked(k_gate, target.logp, values,
+                                     num_ticks=STREAM_TICKS, **kw)))
+    total_s = time.perf_counter() - t0
+    launches = launch_counts(nf, hmc_fused.hmc_chains_fused)
+    m = int(cnt.min())
+    print(f"{tag} robust-t n={STREAM_N_BIG}, {STREAM_CHAINS_BIG} chains: "
+          f"ChEES on {STREAM_WARM_CHAINS} chains {warm_s:.2f} s (eps "
+          f"{eps:.3e}), K3 burn {burn_s:.2f} s and {STREAM_TICKS} slots "
+          f"{run_s:.2f} s ({run_s / STREAM_TICKS * 1e3:.3f} ms per slot), "
+          f"mean depth {float(stats['mean_depth'].mean()):.2f}, accept "
+          f"{float(stats['mean_accept'].mean()):.3f}, slowest chain {m} "
+          f"draws; total {total_s:.2f} s; launches {launches}")
+    check(m >= 8 and launches["body_stream"] >= 1,
+          "the n=1M stream path did not run")
+    draws = nf.extract_completed_draws(hist, hcnt, m)[m // 4:]
+    samples, summary = {}, {}
+    for p, lo in zip(paths, offsets[:-1]):
+        col = draws[:, :, lo].contiguous()
+        samples[p[0]] = col
+        summary[p[0]] = {"rhat": rhat(col)}
+    posterior_gate(torch, samples, summary, exact, (0.3, 0.12, 1.02),
+                   f"robust-t n={STREAM_N_BIG}")
+    res["b"] = dict(launches=launches["body_stream"],
+                    staged_launches=launches["staged_eval"], total_s=total_s,
+                    slot_ms=run_s / STREAM_TICKS * 1e3)
+
+    # (c) the same data through the entry point, briefly: the dispatch and
+    # the 8-warp variant under sample_posterior
+    reset_counts(nf, hmc_fused.hmc_chains_fused)
+    out, total_s = timed(torch, lambda: sample_posterior(
+        random.PRNGKey(23, dev), model, args, obs,
+        num_chains=STREAM_CHAINS_AUTO_BIG, engine="auto", num_warmup=20,
+        num_samples=20, num_ticks=320, max_depth=6))
+    launches = launch_counts(nf, hmc_fused.hmc_chains_fused)
+    info = out.info
+    n_draws = out.samples["slope"].shape[0]
+    print(f"{tag} robust-t n={STREAM_N_BIG}, {STREAM_CHAINS_AUTO_BIG} "
+          f"chains: sample_posterior(auto) ran {info['engine']} "
+          f"({info.get('engine_reason')}); {n_draws} draws per chain in "
+          f"{total_s:.2f} s; launches {launches}")
+    check(info["engine"] == "nuts_fused" and "streams" in
+          info.get("engine_reason", ""), "auto did not dispatch the stream")
+    check(launches["nuts_pair"] >= 1 and launches["body_stream"] >= 1
+          and launches["staged_eval"] >= 1,
+          "the n=1M entry point did not launch the stream kernels")
+    check(n_draws >= 2 and all(bool(torch.isfinite(v).all())
+                               for v in out.samples.values()),
+          "the n=1M entry point returned no finite draws")
+    res["c"] = dict(launches=launches["body_stream"],
+                    staged_launches=launches["staged_eval"], total_s=total_s)
+    return res
+
+
+def phase_ar1(torch, tt, dev, tag, ctx):
+    """Phase 10c: the collapsed AR(1)+noise model (T = 100) at 131,072
+    chains through ``sample_posterior`` with ``engine="hmc_fused"`` (K1)
+    and ``engine="auto"`` (K3); gates 0.05 sd, 6% of the 3-D quadrature
+    (121 points per axis), split-R-hat < 1.01 from the returned summary."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch._verify import ar1_quadrature
+    from gen_tpu_torch.inference import sample_posterior
+    from gen_tpu_torch.ops import hmc_fused
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    (model, args, obs, sel, ys), _, _ = ctx["k2"]["ar1"]
+    exact, q_s = timed(torch, lambda: ar1_quadrature(ys, device=dev))
+    print(f"AR(1) T={AR1_T}: quadrature {q_s:.2f} s: "
+          + ", ".join(f"{k} {m:+.4f} +- {s:.4f}"
+                      for k, (m, s) in exact.items()))
+    res = {}
+    for engine, kw, kernel in (
+            ("hmc_fused", dict(num_warmup=400, num_samples=4000),
+             "hmc_fused"),
+            ("auto", dict(num_warmup=400, num_samples=500), "nuts_pair")):
+        reset_counts(nf, hmc_fused.hmc_chains_fused)
+        clock = PhaseClock(torch, [
+            ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
+            ("gen_tpu_torch.ops.hmc_fused", "stage")])
+        with clock:
+            out, total_s = timed(torch, lambda: sample_posterior(
+                random.PRNGKey(31, dev), model, args, obs,
+                num_chains=AR1_CHAINS, engine=engine, **kw))
+        launches = launch_counts(nf, hmc_fused.hmc_chains_fused)
+        info = out.info
+        warm = sum(clock.calls["chees_warmup_flat"])
+        stage_s = sum(clock.calls["stage"])
+        print(f"{tag} AR(1) T={AR1_T}, {AR1_CHAINS} chains: "
+              f"sample_posterior({engine!r}) ran {info['engine']}, "
+              f"{out.samples['phi'].shape[0]} draws per chain, "
+              f"{total_s:.2f} s (ChEES {warm:.2f} s, staging "
+              f"{stage_s:.2f} s); launches {launches}")
+        check(launches[kernel] >= 1 and launches["body_structured"] >= 1,
+              f"AR(1) {engine}: {kernel} with the Kalman body not launched")
+        posterior_gate(torch, out.samples, out.summary, exact,
+                       (0.05, 0.06, 1.01), f"AR(1) {engine}")
+        res[engine] = dict(launches=launches["body_structured"],
+                           staged_launches=launches["staged_eval"],
+                           total_s=total_s)
+        del out
+    return res
+
+
+def k2_ops(st, n_chains):
+    """Operations of one evaluation of the staged code for ``n_chains``
+    chains (conventions as :func:`k1_ops`): the straight-line part, and per
+    data point the loop body plus 4 per Kahan-compensated sum."""
+    per_chain = st.n_instructions + st.n_pts * (st.n_point_instructions
+                                                + 4 * len(st.sums))
+    return per_chain * n_chains
+
+
+def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
+    """The kernels-line entry of K2b or K2c: the staged-code kernel's time
+    per gradient (CUDA events), its plain version's (the torch rendering),
+    and the bound: the stream table read once, the chains' state read and
+    the value and gradient written once, or the operations. ``launches``
+    counts the code's launches on the main paths ``runs``: the K1, K3 and
+    K6 launches that embedded it and the staged-code kernel's (the ChEES
+    warmup evaluates the population through it)."""
+    from gen_tpu_torch.ops import staged_eval
+    xt = x.T.contiguous()
+    staged_eval.staged_vag(st, xt)
+    ms = gpu_ms(torch, lambda: staged_eval.staged_vag(st, xt), 5)
+    _, plain_s = timed(torch, lambda: st.vag(xt))
+    nbytes = 4 * (n_chains * (2 * st.d + 1) + st.n_res
+                  + (st.stream_data.numel() if st.streams else 0))
+    b_ms, b_by = bound_ms(k2_ops(st, n_chains), nbytes)
+    print(f"{label}: {ms:.4f} ms per gradient of {n_chains} chains "
+          f"(plain {plain_s * 1e3:.2f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{k2_ops(st, n_chains):.4e} operations)")
+    return dict(
+        name=kind, route="cuda",
+        source="gen_tpu_torch/ops/scalarize.py",
+        replaces=("gen_tpu/ops/scalarize.py:582" if kind.startswith("k2c")
+                  else "gen_tpu/ops/scalarize.py:957"),
+        per=f"gradient of {n_chains} chains ({label})",
+        launches=sum(r["launches"] + r["staged_launches"] for r in runs),
+        launches_in_fused=sum(r["launches"] for r in runs),
+        max_abs_err=err, ms=ms,
+        plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+
+
+def k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res):
+    """Phase 10d: K2c at n = 10,000 (8,192 chains) and 1,000,000 (1,024),
+    K2b at T = 100 (131,072 chains); launches are the K1/K3/K6 launches
+    whose body held that code on the phase's main paths."""
+    out = []
+    for name, n, run, kind in (
+            ("stream", STREAM_CHAINS, [stream_res["a"]], "k2c_stream_1e4"),
+            ("stream_big", STREAM_CHAINS_BIG,
+             [stream_res["b"], stream_res["c"]], "k2c_stream_1e6")):
+        (_, _, _, _, xs, ys), _, st = ctx["k2"][name]
+        x = stream_start(torch, xs, ys, n, dev, 4)
+        out.append(k2_entry(torch, dev, st, n, x, run, k2_err["K2c"],
+                            f"robust-t n={len(xs)}", kind))
+    _, _, st = ctx["k2"]["ar1"]
+    x = torch.tensor([0.6, -1.2, -0.7], device=dev).expand(AR1_CHAINS, 3)
+    out.append(k2_entry(torch, dev, st, AR1_CHAINS, x,
+                        list(ar1_res.values()), k2_err["K2b"],
+                        f"AR(1) Kalman T={AR1_T}", "k2b_kalman"))
+    return out
+
+
 def phase_build(torch, tt, dev, tag):
     """Phase 1 after the environment: the models, their staging and the
     parallel build of every kernel variant. Returns the models and staged
@@ -1632,11 +2125,13 @@ def phase_build(torch, tt, dev, tag):
     t_stage = time.perf_counter()
     mixed_builds = mixed_jobs(torch, tt, dev, mixed)
     stage_s += time.perf_counter() - t_stage
+    k2, k2_builds, k2_stage_s = k2_setup(torch, tt, dev)
+    stage_s += k2_stage_s
     builds = [("K1 regression", st_reg, hmc_fused.build_job(st_reg)),
               ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3)),
               ("K4 resample (float32, float64)", None, resample.build_job()),
               ("K5 categorical", None, categorical.build_job())]
-    builds += mixed_builds
+    builds += mixed_builds + k2_builds
     for paired, k in ((True, "K3"), (False, "K6")):
         builds += [
             (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
@@ -1659,7 +2154,7 @@ def phase_build(torch, tt, dev, tag):
                 s8=s8, s100=s100, school_targets=school_targets,
                 gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
                 st_102=st_102, stage_s=stage_s, build_s=build_s,
-                mixed=mixed)
+                mixed=mixed, k2=k2)
 
 
 def phase_compare(torch, ctx, dev, paired):
@@ -1754,14 +2249,20 @@ def main():
     decode_run = phase_decode(torch, dev, tag)
     phase_mixed(torch, tt, dev, tag, ctx["mixed"])
 
+    # -- phase 10: the streamed likelihood and the Kalman body ------------
+    k2_err = phase_compare_k2(torch, ctx, dev, rng)
+    stream_res = phase_stream(torch, tt, dev, tag, ctx)
+    ar1_res = phase_ar1(torch, tt, dev, tag, ctx)
+
     # -- phase 9: numbers ---------------------------------------------------
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
+    k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)
     print(json.dumps({"kernels": [
         k1_entry, dict(name="nuts_pair", **k3_10),
         dict(name="nuts_pair_d102", **k3_102),
         dict(name="nuts_tick", **k6_10), dict(name="nuts_tick_d102", **k6_102),
-        k4, k5]}))
+        k4, k5] + k2}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,12 @@ from .choice_map import ChoiceMap, choicemap
 from .combinators import (Map, Unfold, UnfoldArena, VectorChoiceMap,
                           smc_run, vector_choicemap)
 from .diff import IntDiff, NoChange, UnknownChange
-from .dists import (bernoulli, binom, categorical, dirac, gamma, geometric,
-                    labeled_categorical, multinomial, neg_binom, normal,
-                    normal_linear, poisson, uniform_discrete)
+from .dists import (bernoulli, beta, binom, broadcasted_normal,
+                    categorical, cauchy, dirac, exponential, gamma,
+                    geometric, inv_gamma, labeled_categorical, laplace,
+                    multinomial, mvnormal, neg_binom, normal, normal_linear,
+                    poisson, student_t, uniform, uniform_continuous,
+                    uniform_discrete)
 from .dynamic import gen, init_param, param, trace_at
 from .gfi import GenerativeFunction, Trace
 from .selection import complement, select
@@ -26,7 +29,10 @@ __all__ = [
     "VectorChoiceMap", "smc_run", "vector_choicemap", "IntDiff", "NoChange",
     "UnknownChange", "normal", "normal_linear", "gamma", "bernoulli",
     "categorical", "labeled_categorical", "uniform_discrete", "poisson",
-    "binom", "geometric", "neg_binom", "dirac", "multinomial", "gen",
+    "binom", "geometric", "neg_binom", "dirac", "multinomial",
+    "broadcasted_normal", "mvnormal", "uniform", "uniform_continuous",
+    "beta", "inv_gamma", "exponential", "cauchy", "laplace", "student_t",
+    "gen",
     "init_param", "param", "trace_at",
     "GenerativeFunction", "Trace", "complement", "select",
 ]

@@ -10,7 +10,7 @@ i's choices live under integer key i. Ported: the dense paths of
 ``project`` (a per-element loop where the selections differ), and
 structural ``__eq__``/``__hash__``.
 
-Not ported yet (ROADMAP queue 1 item 12), each raising
+Not ported yet (ROADMAP queue 1 item 5), each raising
 ``NotImplementedError`` where gen_tpu would take it: sparse (per-index)
 constraints, which gen_tpu lowers onto one masked dense vmap
 (``densify_masked``), and element-varying selections in ``regenerate``,
@@ -37,7 +37,7 @@ from ..selection import (AllSelection, EmptySelection, Selection,
 from ..utils import join_static, split_static
 from .vector import VectorChoiceMap, tree_index, try_densify
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 12)"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 5)"
 
 
 def _shared_selection(selection: Selection, length: int):

@@ -20,7 +20,7 @@ Where PyTorch forces a difference:
   a key at every masked address.
 - Per-step selections that differ are lowered by gen_tpu onto a masked
   selection; the port raises ``NotImplementedError`` there (``masked.py``,
-  ROADMAP queue 1 item 12). ALL, NONE and selections that are the same at
+  ROADMAP queue 1 item 5). ALL, NONE and selections that are the same at
   every step run the per-step loop with gen_tpu's keys.
 - The step index ``t`` and Python numbers in ``init_state`` become tensors
   on the key's device before the first step: torch's pytrees keep Python
@@ -152,7 +152,7 @@ def _step_selections(selection: Selection, length: int):
     raise NotImplementedError(
         "Unfold.regenerate with per-step selections that differ needs a "
         "masked selection, which comes with masked.py (ROADMAP queue 1 "
-        "item 12)")
+        "item 5)")
 
 
 class UnfoldCombinator(GenerativeFunction):

@@ -4,7 +4,7 @@ tensors.
 Counterpart: ``gen_tpu/combinators/vector.py``. A :class:`VectorChoiceMap`
 holds ONE inner choice map whose leaves carry a leading length-N axis, the
 form a vmapped or time-stacked trace produces. ``densify_masked`` and
-``sparsify_masked`` wait for ``masked.py`` (ROADMAP queue 1 item 12): the
+``sparsify_masked`` wait for ``masked.py`` (ROADMAP queue 1 item 5): the
 port's combinators run sparse per-index constraints as a per-step loop,
 which eager PyTorch runs as fast as a masked dense pass.
 """

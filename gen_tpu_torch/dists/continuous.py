@@ -1,13 +1,28 @@
-"""Continuous distributions: ``normal``, ``normal_linear`` and ``gamma``.
+"""Continuous distributions.
 
-Counterpart: ``gen_tpu/dists/continuous.py`` (``Normal``, ``NormalLinear``
-and ``Gamma``; the other distributions wait for later slices). The
-logpdfs are the same expressions in the same order. ``gamma`` draws by
-inverting its cdf (``torch.special.gammainc``) in float64, exact in
-distribution where gen_tpu runs ``jax.random.gamma``'s rejection loop,
-which ``torch.func.vmap`` cannot run. ``normal_linear`` keeps
-the Gram-matrix form: ``G = [X|v]^T [X|v]`` depends only on the data, which
-is what lets the staging pass hoist it out of the fused kernel.
+Counterpart: ``gen_tpu/dists/continuous.py``. Ported: ``normal``,
+``broadcasted_normal``, ``normal_linear``, ``mvnormal``, ``uniform``
+(``uniform_continuous``), ``beta``, ``gamma``, ``inv_gamma``,
+``exponential``, ``cauchy``, ``laplace`` and ``student_t``; ``dirichlet``,
+``beta_uniform``, ``piecewise_uniform`` and ``piecewise_poisson_process``
+wait for a later slice. The logpdfs are the same expressions in the same
+order.
+
+Samplers: ``normal``, ``uniform``, ``exponential``, ``cauchy`` and
+``laplace`` are ``jax.random``'s constructions on
+:mod:`gen_tpu_torch.random`'s bits. Where gen_tpu runs
+``jax.random.gamma``'s rejection loop (``gamma``, ``inv_gamma``, ``beta``,
+``student_t``), which ``torch.func.vmap`` cannot run, the port draws the
+gamma variates by inverting their cdf (``torch.special.gammainc``) in
+float64: exact in distribution, not equal to gen_tpu's draws. ``beta`` is
+``G1 / (G1 + G2)`` and ``student_t`` is ``Z / sqrt(2 G / nu)`` with
+``G ~ gamma(nu / 2)``. ``mvnormal`` draws ``jax.random.
+multivariate_normal``'s ``svd`` construction, ``mu + (U sqrt(s)) z``,
+whose factor's signs may differ from XLA's SVD.
+
+``normal_linear`` keeps the Gram-matrix form: ``G = [X|v]^T [X|v]``
+depends only on the data, which is what lets the staging pass hoist it
+out of the fused kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +40,8 @@ _HALF_LOG_2PI = 0.9189385332046727  # 0.5*log(2*pi)
 class Normal(Distribution):
     """normal(mu, std); logpdf sums elementwise over array-valued draws."""
 
+    arg_grads = (True, True)
+
     def sample(self, key, mu, std):
         mu, std = _f(mu), _f(std)
         shape = torch.broadcast_shapes(mu.shape, std.shape)
@@ -37,12 +54,199 @@ class Normal(Distribution):
         return torch.sum(-0.5 * z * z - torch.log(std) - _HALF_LOG_2PI)
 
 
+class BroadcastedNormal(Normal):
+    """Alias of :class:`Normal` (gen_tpu's ``broadcasted_normal``)."""
+
+
+class MvNormal(Distribution):
+    """mvnormal(mu, cov): the logpdf by Cholesky and ``cho_solve``."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, mu, cov):
+        mu, cov = _f(mu), _f(cov)
+        u, s, _ = torch.linalg.svd(cov)
+        factor = u * torch.sqrt(s)[..., None, :]
+        z = random.normal(key, mu.shape, mu.dtype)
+        return mu + torch.einsum("...ij,...j->...i", factor, z)
+
+    def logpdf(self, v, mu, cov):
+        v, mu, cov = _f(v), _f(mu), _f(cov)
+        d = v - mu
+        chol = torch.linalg.cholesky(cov)
+        alpha = torch.cholesky_solve(d[..., None], chol)[..., 0]
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+        k = mu.shape[-1]
+        return -0.5 * (torch.dot(d, alpha) + logdet + k * 2.0 * _HALF_LOG_2PI)
+
+
+class UniformContinuous(Distribution):
+    """uniform(low, high)."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, low, high):
+        low, high = _f(low), _f(high)
+        shape = torch.broadcast_shapes(low.shape, high.shape)
+        u = random.uniform(key, shape, torch.result_type(low, high))
+        return low + u * (high - low)
+
+    def logpdf(self, v, low, high):
+        v, low, high = _f(v), _f(low), _f(high)
+        inside = (v >= low) & (v <= high)
+        lp = -torch.log(high - low)
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+    def logpdf_grad(self, v, low, high):
+        # analytic, as gen_tpu: d/dv = 0 in the support
+        v, low, high = _f(v), _f(low), _f(high)
+        inv = 1.0 / (high - low)
+        return (torch.zeros_like(v), torch.sum(inv.expand(v.shape)),
+                -torch.sum(inv.expand(v.shape)))
+
+
+def _std_gamma(key, alpha, shape, dtype):
+    from .discrete import gamma_icdf
+    alpha = torch.as_tensor(alpha, dtype=torch.float64, device=key.device)
+    u = random.uniform(key, shape, torch.float64)
+    return gamma_icdf(alpha.expand(shape), u).to(dtype)
+
+
+class Beta(Distribution):
+    """beta(alpha, beta); draws ``G1 / (G1 + G2)`` from two gammas."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, alpha, beta):
+        alpha, beta = _f(alpha), _f(beta)
+        shape = tuple(torch.broadcast_shapes(alpha.shape, beta.shape))
+        dt = torch.result_type(alpha, beta)
+        ka, kb = random.split(key)
+        ga = _std_gamma(ka, alpha, shape, torch.float64)
+        gb = _std_gamma(kb, beta, shape, torch.float64)
+        return (ga / (ga + gb)).to(dt)
+
+    def logpdf(self, v, alpha, beta):
+        v, alpha, beta = _f(v), _f(alpha), _f(beta)
+        inside = (v > 0) & (v < 1)
+        v_safe = torch.where(inside, v, 0.5)
+        lp = ((alpha - 1) * torch.log(v_safe)
+              + (beta - 1) * torch.log1p(-v_safe) - _betaln(alpha, beta))
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+
+def _betaln(a, b):
+    return torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+
+
+class InverseGamma(Distribution):
+    """inv_gamma(shape, scale)."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, shape, scale):
+        shape, scale = _f(shape), _f(scale)
+        size = tuple(torch.broadcast_shapes(shape.shape, scale.shape))
+        g = _std_gamma(key, shape, size, torch.result_type(shape, scale))
+        return scale / g
+
+    def logpdf(self, v, shape, scale):
+        v, shape, scale = _f(v), _f(shape), _f(scale)
+        inside = v > 0
+        v_safe = torch.where(inside, v, 1.0)
+        lp = (shape * torch.log(scale) - (shape + 1) * torch.log(v_safe)
+              - scale / v_safe - torch.lgamma(shape))
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+
+class Exponential(Distribution):
+    """exponential(rate)."""
+
+    arg_grads = (True,)
+
+    def sample(self, key, rate):
+        rate = _f(rate)
+        return random.exponential(key, rate.shape, rate.dtype) / rate
+
+    def logpdf(self, v, rate):
+        v, rate = _f(v), _f(rate)
+        inside = v >= 0
+        lp = torch.log(rate) - rate * torch.where(inside, v, 0.0)
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+
+class Cauchy(Distribution):
+    """cauchy(x0, gamma)."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, x0, gamma):
+        x0, gamma = _f(x0), _f(gamma)
+        shape = torch.broadcast_shapes(x0.shape, gamma.shape)
+        dt = torch.result_type(x0, gamma)
+        u = random.uniform(key, shape, dt, torch.finfo(dt).eps, 1.0)
+        return x0 + gamma * torch.tan(math.pi * (u - 0.5))
+
+    def logpdf(self, v, x0, gamma):
+        v, x0, gamma = _f(v), _f(x0), _f(gamma)
+        z = (v - x0) / gamma
+        return torch.sum(-math.log(math.pi) - torch.log(gamma)
+                         - torch.log1p(z * z))
+
+
+class Laplace(Distribution):
+    """laplace(loc, scale)."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, loc, scale):
+        loc, scale = _f(loc), _f(scale)
+        shape = torch.broadcast_shapes(loc.shape, scale.shape)
+        dt = torch.result_type(loc, scale)
+        # JAX's lower bound is -1 + epsneg, half of eps for binary floats
+        u = random.uniform(key, shape, dt, -1.0 + torch.finfo(dt).eps / 2,
+                           1.0)
+        return loc + scale * (torch.sign(u) * torch.log1p(-torch.abs(u)))
+
+    def logpdf(self, v, loc, scale):
+        v, loc, scale = _f(v), _f(loc), _f(scale)
+        return torch.sum(-torch.abs(v - loc) / scale - torch.log(2 * scale))
+
+
+class StudentT(Distribution):
+    """student_t(nu, loc, scale); draws ``Z / sqrt(2 G / nu)`` with ``G ~
+    gamma(nu / 2)``."""
+
+    arg_grads = (True, True, True)
+
+    def sample(self, key, nu, loc, scale):
+        nu, loc, scale = _f(nu), _f(loc), _f(scale)
+        shape = tuple(torch.broadcast_shapes(nu.shape, loc.shape,
+                                             scale.shape))
+        dt = torch.promote_types(torch.result_type(nu, loc), scale.dtype)
+        kz, kg = random.split(key)
+        z = random.normal(kz, shape, torch.float64)
+        g = _std_gamma(kg, nu.double() / 2.0, shape, torch.float64)
+        t = z / torch.sqrt(2.0 * g / nu.double())
+        return loc + scale * t.to(dt)
+
+    def logpdf(self, v, nu, loc, scale):
+        v, nu, loc, scale = _f(v), _f(nu), _f(loc), _f(scale)
+        z = (v - loc) / scale
+        lp = (torch.lgamma((nu + 1) / 2) - torch.lgamma(nu / 2)
+              - 0.5 * torch.log(nu * math.pi) - torch.log(scale)
+              - (nu + 1) / 2 * torch.log1p(z ** 2 / nu))
+        return torch.sum(lp)
+
+
 class NormalLinear(Distribution):
     """normal_linear(X, beta, sigma): n iid normal observations with mean
     ``X @ beta`` and shared scale ``sigma``. The residual sum of squares is
     ``u^T G u`` with ``u = [beta; -1]`` and the data-only Gram matrix
     ``G = [X|v]^T [X|v]``. In float32 keep the data at O(1) scale: the Gram
     form subtracts large squares."""
+
+    arg_grads = (True, True, True)
 
     def sample(self, key, X, beta_, sigma):
         X, beta_, sigma = _f(X), _f(beta_), _f(sigma)
@@ -64,6 +268,8 @@ class NormalLinear(Distribution):
 class Gamma(Distribution):
     """gamma(shape, scale), the shape/scale parameterization."""
 
+    arg_grads = (True, True)
+
     def sample(self, key, shape, scale):
         from .discrete import gamma_icdf
         shape, scale = _f(shape), _f(scale)
@@ -81,5 +287,15 @@ class Gamma(Distribution):
 
 
 normal = Normal()
+broadcasted_normal = BroadcastedNormal()
 normal_linear = NormalLinear()
+mvnormal = MvNormal()
+uniform = UniformContinuous()
+uniform_continuous = uniform
+beta = Beta()
 gamma = Gamma()
+inv_gamma = InverseGamma()
+exponential = Exponential()
+cauchy = Cauchy()
+laplace = Laplace()
+student_t = StudentT()

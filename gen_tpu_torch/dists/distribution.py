@@ -4,9 +4,9 @@ Counterpart: ``gen_tpu/dists/distribution.py``. ``logpdf`` is plain torch
 code, traced by ``torch.func`` transforms and by the staging pass in
 :mod:`gen_tpu_torch.ops.scalarize`. The gradient metadata
 (``is_discrete``, ``has_output_grad``, ``arg_grads``) and
-``enumerate_support`` are gen_tpu's. Left out until a slice needs them:
-``logpdf_grad`` (gradients come from ``torch.func.grad`` of ``assess``),
-``get_return_type`` and ``logsumexp2``.
+``enumerate_support`` are gen_tpu's, and so are ``logpdf_grad`` (here
+``torch.func.grad`` of the summed logpdf) and ``get_return_type``. Left out
+until a slice needs it: ``logsumexp2``.
 
 Where PyTorch forced a difference: gen_tpu's supports refuse JAX tracers.
 Here a support bound must be a concrete value: a Python number or a plain
@@ -49,6 +49,31 @@ class Distribution(GenerativeFunction):
             "addresses drawn from it cannot be moved by exact Gibbs — "
             "pass explicit discrete_supports= (if a finite truncation is "
             "acceptable) or marginalize the address out of the model")
+
+    def logpdf_grad(self, v, *args):
+        """``(output_grad_or_None, *arg_grads_or_None)``: the gradient of
+        the summed logpdf with respect to the value (when
+        ``has_output_grad``) and each argument whose ``arg_grads`` entry is
+        true; None elsewhere."""
+        diff_wrt = ([0] if self.has_output_grad else []) + [
+            i + 1 for i, g in enumerate(self.arg_grads) if g]
+        if not diff_wrt:
+            return (None,) * (len(args) + 1)
+        fargs = (_f(v) if self.has_output_grad else v,) + tuple(
+            _f(a) if i + 1 in diff_wrt else a for i, a in enumerate(args))
+
+        def f(*all_args):
+            return torch.sum(self.logpdf(*all_args))
+
+        grads = torch.func.grad(f, argnums=tuple(diff_wrt))(*fargs)
+        out = [None] * (len(args) + 1)
+        for idx, g in zip(diff_wrt, grads):
+            out[idx] = g
+        return tuple(out)
+
+    def get_return_type(self):
+        """float32 for continuous, int32 for discrete distributions."""
+        return torch.int32 if self.is_discrete else torch.float32
 
     def __repr__(self):
         return f"{type(self).__name__.lower()}"

@@ -8,7 +8,7 @@ bits). Ported: ``Simulate``, ``Generate``, ``Assess``, ``Update`` and
 ``Regenerate``, and the distribution-call recorder
 (:class:`record_dist_calls`) that ``inference/mixed.py`` discovers discrete
 supports with. Masked constraint values and masked selections (gen_tpu's
-``masked.py``, ROADMAP queue 1 item 12) raise ``NotImplementedError``.
+``masked.py``, ROADMAP queue 1 item 5) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def refuse_masked(x, what: str):
     ``masked.py``."""
     if hasattr(x, "flag") or hasattr(x, "flag_at"):
         raise NotImplementedError(
-            f"masked {what} come with masked.py (ROADMAP queue 1 item 12)")
+            f"masked {what} come with masked.py (ROADMAP queue 1 item 5)")
 
 
 def _zero():

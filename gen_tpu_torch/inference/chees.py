@@ -92,17 +92,21 @@ def chees_warmup_flat(key, vag, xs0,
                       adam_lr: float = 0.025,
                       adapt_mass: bool = True,
                       mass_ema_decay: Optional[float] = None,
-                      free_mask=None):
+                      free_mask=None, batched_vag=None):
     """Flat-coordinate core of :func:`chees_hmc_warmup_and_sample`:
     ``vag(x) -> (logp, grad)`` on a ``(d,)`` vector, ``xs0`` the
     ``(chains, d)`` initial population. ``free_mask``: optional ``(d,)``
     0/1 array; zero entries are frozen (inverse mass 0) and disable the
-    warmup teleport, since each chain then has its own target."""
+    warmup teleport, since each chain then has its own target.
+    ``batched_vag`` (not in gen_tpu, where XLA compiles the vmapped
+    ``vag``): the same function on the whole ``(chains, d)`` population at
+    once, used in place of ``vmap(vag)`` (the fused engines pass the staged
+    program's kernel)."""
     n_chains, dim = xs0.shape
     dt, dev = xs0.dtype, xs0.device
     fdt = torch.get_default_dtype()
     key = key.to(dev)
-    vg = vmap(vag)
+    vg = vmap(vag) if batched_vag is None else batched_vag
     logps, grads = vg(xs0)
 
     mass_floor = 1e-12

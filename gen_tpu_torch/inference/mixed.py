@@ -384,6 +384,25 @@ def extended_layout(one_trace, observations: ChoiceMap):
     return sel, torch.cat(mask_parts)
 
 
+def stitch_chunks(chunks):
+    """``[(hist (steps, n, d), hist_counts (steps, n), counts (n,)), ...]``
+    of consecutive K3 calls, each with its own completed-trajectory counts,
+    -> ``(draws (m, n, d), totals (n,))``: each chain's first ``m`` completed
+    draws of the concatenated chunks, ``m`` the smallest total. A chain may
+    complete no draw in some chunk (gen_tpu keeps a chunk's draws only if
+    every chain completed one in it; at 16,384 GMM chains no chunk did)."""
+    from ..ops.nuts_fused import extract_completed_draws
+    hists, hcnts = [], []
+    total = torch.zeros_like(chunks[0][2])
+    for hist, hcnt, cnt in chunks:
+        hists.append(hist)
+        hcnts.append(hcnt + total[None, :])
+        total = total + cnt
+    m = int(torch.min(total))
+    return (extract_completed_draws(torch.cat(hists), torch.cat(hcnts), m),
+            total)
+
+
 def mixed_fused_sample(key, traces, one_trace, sites, *, observations,
                        num_warmup=400, num_samples=1000, max_depth=8,
                        target_accept=0.8, num_outer=None,
@@ -395,8 +414,7 @@ def mixed_fused_sample(key, traces, one_trace, sites, *, observations,
     the frozen discrete coordinates, each chunk's rows carrying that
     chunk's per-chain discrete values. ``observations`` is required (it
     fixes the extended layout)."""
-    from ..ops.nuts_fused import (extract_completed_draws,
-                                  nuts_chains_fused_chunked)
+    from ..ops.nuts_fused import nuts_chains_fused_chunked
     from .chees import chees_hmc_warmup_and_sample
     from .target import FlatTarget
 
@@ -455,22 +473,15 @@ def mixed_fused_sample(key, traces, one_trace, sites, *, observations,
 
     for _ in range(n_burn_outer):
         run_chunk(0)
-    # every chunk's history, its completed counts made cumulative per chain
-    hists, hcnts, stats = [], [], None
-    total = torch.zeros((n_chains,), dtype=torch.int32,
-                        device=warm_flat.device)
-    for _ in range(num_outer):
-        _, hist, hcnt, cnt, stats = run_chunk(None)
-        hists.append(hist)
-        hcnts.append(hcnt + total[None, :])
-        total = total + cnt
+    chunks = [run_chunk(None) for _ in range(num_outer)]
+    stats = chunks[-1][4]
+    draws, total = stitch_chunks([c[1:4] for c in chunks])
+    del chunks
     m = int(torch.min(total))
     if m < 2:
         raise ValueError(
             "fused mixed driver completed too few trajectories; raise "
             "num_samples (the tick budget is 8*num_samples)")
-    draws = extract_completed_draws(torch.cat(hists), torch.cat(hcnts), m)
-    del hists, hcnts
     info = dict(step_size=eps, inv_mass=winfo["inv_mass"],
                 mean_depth=stats["mean_depth"],
                 num_divergent=stats["num_divergent"])

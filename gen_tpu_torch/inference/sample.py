@@ -28,8 +28,16 @@ Where PyTorch forced differences:
   refusal lands in ``info["engine_reason"]``. gen_tpu ignores ``mass``,
   ``num_ticks`` and ``mesh`` there without a word; the port raises
   ``ValueError`` naming the argument (ROADMAP queue 3).
+- On the card, the fused engines' ChEES warmup evaluates a float32
+  population's value and gradient through the staged program's kernel
+  (:mod:`gen_tpu_torch.ops.staged_eval`, one launch per evaluation) where
+  gen_tpu's XLA compiles the vmapped logp: eager ``vmap`` dispatches every
+  op of the logp per evaluation (``warmup_timing.py`` times both ways).
+  On the CPU, and for a float64 population, it vmaps the torch logp.
+  ``engine="auto"`` stages once: the fused engine reuses the probed
+  target. Its reason says when the likelihood streams.
 - Not ported yet, and refused with ``NotImplementedError`` naming the slice
-  that brings it: ``mesh=`` (the parallel slice, ROADMAP queue 1 item 17).
+  that brings it: ``mesh=`` (the parallel slice, ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -143,36 +151,53 @@ def _auto_engine(one_trace, observations, selection,
     Returns ``(engine, reason)``: the reason lands in
     ``info["engine_reason"]`` and, on a fallback, in a one-line warning (a
     silent fallback would be a silent cliff of orders of magnitude)."""
+    engine, _, reason = _auto_dispatch(one_trace, observations, selection,
+                                       num_chains)
+    return engine, reason
+
+
+def _auto_dispatch(one_trace, observations, selection, num_chains):
+    """:func:`_auto_engine` with the probed ``FlatTarget`` (None unless
+    the fused engine was chosen): ``(engine, target, reason)``. The fused
+    engine reuses the target, whose staging is cached with its logp."""
     if num_chains < 2:
-        return "nuts", ("num_chains < 2: the fused engine warms up with "
-                        "cross-chain ChEES statistics")
+        return "nuts", None, ("num_chains < 2: the fused engine warms up "
+                              "with cross-chain ChEES statistics")
     try:
         full_sel, _ = _default_selection(one_trace, observations)
     except ValueError as e:
-        return "nuts", f"flat-universe layout unavailable: {e}"
+        return "nuts", None, f"flat-universe layout unavailable: {e}"
     from .target import FlatTarget
     target = FlatTarget(one_trace, full_sel)
-    refusal = _staging_refusal(target)
+    staged, refusal = _probe_staging(target)
     if refusal is not None:
-        return "nuts", ("the model's assess-logp does not stage through "
-                        f"ops.scalarize: {refusal}")
-    return "nuts_fused", "scalarization probe passed"
+        return "nuts", None, ("the model's assess-logp does not stage "
+                              f"through ops.scalarize: {refusal}")
+    if staged.streams:
+        rows, n_pts = staged.stream_data.shape
+        return "nuts_fused", target, (
+            "scalarization probe passed; the likelihood streams "
+            f"{n_pts} data points ({rows} rows) through the kernel's "
+            "data loop")
+    return "nuts_fused", target, "scalarization probe passed"
 
 
-def _staging_refusal(target):
-    """None when ``target.logp`` stages through ops.scalarize and the
-    staged program evaluates; else the reason, ``"Error: first line"``.
-    Staging raises on an op outside the table or oversized residual
-    constants; evaluating the program (value and gradient) on a tiny batch
-    catches what only shows there."""
-    from ..ops.scalarize import stage_scalarized
+def _probe_staging(target):
+    """``(staged, None)`` when ``target.logp`` stages through ops.scalarize
+    and the staged program evaluates (with its stream table, if the
+    likelihood streams); else ``(None, reason)``, the reason ``"Error:
+    first line"``. Staging raises on an op outside the table, oversized
+    residual constants or a data-sum that re-enters per-point arithmetic;
+    evaluating the program (value and gradient) on a tiny batch catches
+    what only shows there."""
+    from ..ops.hmc_fused import stage
     d, dev = target.dim, target.flat0.device
     try:
-        staged = stage_scalarized(target.logp, d, dev)
+        staged = stage(target.logp, d, dev)
         staged.vag(torch.zeros((d, 8), dtype=torch.float32, device=dev))
     except Exception as e:  # noqa: BLE001 - any failure means "no fusion"
-        return f"{type(e).__name__}: {str(e).partition(chr(10))[0]}"
-    return None
+        return None, f"{type(e).__name__}: {str(e).partition(chr(10))[0]}"
+    return staged, None
 
 
 def _value_and_grad(logp):
@@ -241,22 +266,50 @@ def _dense_rewarmup(logp_w, ys0, key, num_warmup, target_accept,
         free_mask=free_mask)
 
 
+def _staged_population_vag(target, dtype):
+    """For a float32 population on a CUDA target, the model's value and
+    gradient over the ``(chains, d)`` population through the staged
+    program's kernel (:func:`gen_tpu_torch.ops.staged_eval.staged_vag`,
+    one launch per evaluation; the staging is cached with the logp, which
+    the fused kernels then reuse). None otherwise: on the CPU, and for a
+    float64 population, which the float32 kernel would round, the warmup
+    vmaps the torch logp as gen_tpu vmaps its jnp logp."""
+    if target.flat0.device.type != "cuda" or dtype != torch.float32:
+        return None
+    from ..ops import hmc_fused, staged_eval
+    staged = hmc_fused.stage(target.logp, target.dim, target.flat0.device)
+
+    def vag(xs):
+        lp, g = staged_eval.staged_vag(staged, xs.T)
+        return lp, g.T
+
+    return vag
+
+
 def _fused_warmup(traces, one_trace, full_sel, k_warm, num_warmup,
-                  target_accept, adapt_mass, layout, mass, mass_rank):
+                  target_accept, adapt_mass, layout, mass, mass_rank,
+                  target=None):
     """Phase 1 of the fused engines: ChEES warmup (one shared step size
     and trajectory length, diagonal mass from cross-chain variance), then
     the structured metric and, when one is used, a short re-warmup of the
     whitened population. ``layout`` is ``(free_mask, sel_idx, partial)``
-    of :func:`_free_mask_layout`. Returns ``(logp, inv_mass, to_x,
-    warm_flat, winfo, winfo2_or_None)``."""
-    from .chees import chees_hmc_warmup_and_sample
+    of :func:`_free_mask_layout`; ``target`` a ``FlatTarget`` over
+    ``full_sel`` already built (and staged) by the ``auto`` probe.
+    Returns ``(logp, inv_mass, to_x, warm_flat, winfo,
+    winfo2_or_None)``."""
+    from .chees import chees_warmup_flat
     from .target import FlatTarget
     free_mask, sel_idx, partial = layout
     fm = free_mask if partial else None
-    _, warm_flat, winfo = chees_hmc_warmup_and_sample(
-        k_warm, traces, full_sel, num_warmup=num_warmup, num_samples=1,
-        target_accept=target_accept, adapt_mass=adapt_mass, free_mask=fm)
-    target = FlatTarget(one_trace, full_sel)
+    if target is None:
+        target = FlatTarget(one_trace, full_sel)
+    xs0 = vmap(lambda tr: tr.get_choices().filter(full_sel).to_array())(
+        traces)
+    _, warm_flat, winfo = chees_warmup_flat(
+        k_warm, target.value_and_grad, xs0, num_warmup=num_warmup,
+        num_samples=1, target_accept=target_accept, adapt_mass=adapt_mass,
+        free_mask=fm,
+        batched_vag=_staged_population_vag(target, xs0.dtype))
     logp_use, inv_mass_use, to_x, warm_flat = _maybe_dense(
         mass, target, warm_flat, winfo, k_warm, num_warmup, target_accept,
         mass_rank, sel_idx=np_idx(sel_idx) if partial else None,
@@ -279,7 +332,7 @@ def _probe_fused_mixed(one_trace, observations):
     from .mixed import extended_layout
     from .target import FlatTarget
     sel_ext, _ = extended_layout(one_trace, observations)
-    return _staging_refusal(FlatTarget(one_trace, sel_ext))
+    return _probe_staging(FlatTarget(one_trace, sel_ext))[1]
 
 
 def _summarize_each(samples):
@@ -500,7 +553,7 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
     if mesh is not None:
         raise NotImplementedError(
             "sample_posterior(mesh=...) shards the chains over devices; the "
-            "parallel slice (ROADMAP queue 1 item 17, torch.distributed) is "
+            "parallel slice (ROADMAP queue 1 item 12, torch.distributed) is "
             "not ported yet")
     # flat layout (sorted-address to_array order) for unflattening
     values_chm = one_trace.get_choices().filter(selection)
@@ -508,10 +561,10 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
               for path, v in values_chm.leaf_items()]
 
     requested_engine = engine
-    auto_reason = None
+    auto_reason = probed = None
     if engine == "auto":
-        engine, auto_reason = _auto_engine(one_trace, observations,
-                                           selection, num_chains)
+        engine, probed, auto_reason = _auto_dispatch(
+            one_trace, observations, selection, num_chains)
         if engine == "nuts":
             warnings.warn(
                 "engine='auto' fell back to the per-chain 'nuts' engine: "
@@ -555,7 +608,8 @@ def sample_posterior(key, model: GenerativeFunction, args: Tuple,
         logp_use, inv_mass_use, to_x, warm_flat, winfo, winfo2 = \
             _fused_warmup(traces, one_trace, full_sel, k_warm, num_warmup,
                           target_accept, adapt_mass,
-                          (free_mask, sel_idx, partial), mass, mass_rank)
+                          (free_mask, sel_idx, partial), mass, mass_rank,
+                          target=probed)
         w = winfo if winfo2 is None else winfo2
         eps_adapted = float(w["step_size"])
         if engine == "hmc_fused":

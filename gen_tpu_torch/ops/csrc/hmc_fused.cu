@@ -9,6 +9,11 @@
 //   and gradient live in registers (D is a compile-time constant) for all
 //   n_steps x L leapfrogs; device memory sees one read of the state, the
 //   per-step history write and the final write.
+// - A streamed likelihood (a loop over the data table sd, (rows, n_pts))
+//   gets a warp per chain instead (HMC_LANES 32): the 32 lanes run the
+//   chain's HMC bookkeeping on the same values, and inside staged_vag each
+//   lane sums every 32nd point, Kahan-compensated, before a shuffle tree
+//   gives every lane the same sums. All lanes store the same values.
 // - The model's value and gradient is the straight-line __device__ function
 //   staged_vag, generated by gen_tpu_torch/ops/scalarize.py and spliced in
 //   below; the data-only part of the model was evaluated once outside and
@@ -87,6 +92,8 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
     float* __restrict__ acc_out,         // (n,)
     const float* __restrict__ res,       // (R,)
     const float* __restrict__ inv_mass,  // (D,)
+    const float* __restrict__ sd,        // (rows, n_pts) stream table
+    int n_pts,
     int n, int n_steps, int L, float eps, float eps_jitter, int collect_idx,
     uint32_t seed0, uint32_t seed1,
     const float* __restrict__ inj_eps,   // (n_steps,)
@@ -95,7 +102,8 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
   __shared__ float r[HMC_R];
   for (int k = threadIdx.x; k < HMC_R; k += blockDim.x) r[k] = res[k];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x)
+                      / HMC_LANES);
   if (i >= n) return;
   const size_t N = (size_t)n;
   const uint2 key = make_uint2(seed0, seed1);
@@ -108,7 +116,7 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
     v[k] = v0[k * N + i];
   }
   float lp;
-  staged_vag(v, r, lp, g);
+  staged_vag(v, r, lp, g, sd, n_pts);
   float acc = 0.0f;
 
   for (int s = 0; s < n_steps; ++s) {
@@ -148,7 +156,7 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
         m[k] = m[k] + half * gn[k];
         vn[k] = vn[k] + eps_s * (inv[k] * m[k]);
       }
-      staged_vag(vn, r, lpn, gn);
+      staged_vag(vn, r, lpn, gn, sd, n_pts);
 #pragma unroll
       for (int k = 0; k < HMC_D; ++k) m[k] = m[k] + half * gn[k];
     }
@@ -192,17 +200,20 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
 // that is refused never runs, and a later synchronize would not report it.
 extern "C" int hmc_fused_launch(
     const float* v0, float* vout, float* hist, float* acc_out,
-    const float* res, const float* inv_mass, int n, int n_steps, int L,
+    const float* res, const float* inv_mass, const float* sd, int n_pts,
+    int n, int n_steps, int L,
     float eps, float eps_jitter, int collect_idx, unsigned int seed0,
     unsigned int seed1, const float* inj_eps, const float* inj_z,
     const float* inj_u, void* stream) {
-  const dim3 grid((n + HMC_BLOCK - 1) / HMC_BLOCK);
+  const dim3 grid((unsigned)(((size_t)n * HMC_LANES + HMC_BLOCK - 1)
+                             / HMC_BLOCK));
   const dim3 block(HMC_BLOCK);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool injected = inj_eps != nullptr;
   const bool all = collect_idx < 0;
-#define HMC_ARGS v0, vout, hist, acc_out, res, inv_mass, n, n_steps, L, eps, \
-    eps_jitter, collect_idx, seed0, seed1, inj_eps, inj_z, inj_u
+#define HMC_ARGS v0, vout, hist, acc_out, res, inv_mass, sd, n_pts, n, \
+    n_steps, L, eps, eps_jitter, collect_idx, seed0, seed1, inj_eps, inj_z, \
+    inj_u
   if (injected && all)
     hmc_fused_kernel<true, true><<<grid, block, 0, st>>>(HMC_ARGS);
   else if (injected)

@@ -21,8 +21,9 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 
 #ifdef NUTS_D
 __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
-                                    float& lp, float* g) {
-  staged_vag(x, r, lp, g);
+                                    float& lp, float* g,
+                                    const float* __restrict__ sd, int n_pts) {
+  staged_vag(x, r, lp, g, sd, n_pts);
 }
 #endif
 

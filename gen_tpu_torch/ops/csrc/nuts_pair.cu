@@ -27,6 +27,11 @@
 // - The scalar carry (counts, energies, log weights, depth, sums) lives in
 //   registers. The inverse mass, momentum scale and the staged residual
 //   constants are in shared memory.
+// - A streamed likelihood (a loop over the data table sd, (rows, n_pts))
+//   gets a warp per chain (NUTS_LANES 32): the 32 lanes run the chain's
+//   NUTS bookkeeping on the same values, and inside staged_vag each lane
+//   sums every 32nd point, Kahan-compensated, before a shuffle tree gives
+//   every lane the same sums. All lanes store the same values.
 // - The model's value and gradient is staged_vag, generated by
 //   gen_tpu_torch/ops/scalarize.py and spliced in below. For small d it is
 //   inlined at its three call sites; for large d it is one non-inlined
@@ -82,7 +87,8 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
     const float* __restrict__ res,       // (R,)
     const float* __restrict__ inv_mass,  // (D,)
     const float* __restrict__ mom_scale, // (D,) sqrt_mass_safe(inv_mass)
-    int n, int num_pairs, float eps, float div_threshold, int collect_idx,
+    const float* __restrict__ sd,        // (rows, n_pts) stream table
+    int n_pts, int n, int num_pairs, float eps, float div_threshold, int collect_idx,
     uint32_t seed0, uint32_t seed1,
     const float* __restrict__ inj_z,     // (P, D, n)
     const float* __restrict__ inj_u) {   // (P, 7, n)
@@ -95,7 +101,8 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
     msc[k] = mom_scale[k];
   }
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x)
+                      / NUTS_LANES);
   if (i >= n) return;
   const size_t N = (size_t)n;
   const uint2 key = make_uint2(seed0, seed1);
@@ -110,7 +117,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) cur[k] = v0[k * N + i];
   float lp;
-  vag(cur, r, lp, g);
+  vag(cur, r, lp, g, sd, n_pts);
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) {
     lt[k] = rt[k] = ct[k] = ptv[k] = cs[k] = cur[k];
@@ -174,7 +181,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
       rn[k] = pr[k] + half * pg[k];
       th[k] = ptv[k] + de * (inv[k] * rn[k]);
     }
-    vag(th, r, lp, g);
+    vag(th, r, lp, g, sd, n_pts);
     NUTS_UNROLL
     for (int k = 0; k < NUTS_D; ++k) rn[k] = rn[k] + half * g[k];
     // checkpoint writes (block starts live only at even positions); rs is
@@ -258,7 +265,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
         rn[k] = pr[k] + half * pg[k];
         th[k] = ptv[k] + de * (inv[k] * rn[k]);
       }
-      vag(th, r, lp, g);
+      vag(th, r, lp, g, sd, n_pts);
       NUTS_UNROLL
       for (int k = 0; k < NUTS_D; ++k) rn[k] = rn[k] + half * g[k];
       float delta2 = (lp - kinetic(inv, rn)) - energy0;
@@ -361,18 +368,19 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
 extern "C" int nuts_pair_launch(
     const float* v0, float* vout, float* hist, int* hist_cnt, int* cnt_out,
     float* stats, const float* res, const float* inv_mass,
-    const float* mom_scale, int n, int num_pairs, float eps,
-    float div_threshold, int collect_idx, unsigned int seed0,
+    const float* mom_scale, const float* sd, int n_pts, int n, int num_pairs,
+    float eps, float div_threshold, int collect_idx, unsigned int seed0,
     unsigned int seed1, const float* inj_z, const float* inj_u,
     void* stream) {
-  const dim3 grid((n + NUTS_BLOCK - 1) / NUTS_BLOCK);
+  const dim3 grid((unsigned)(((size_t)n * NUTS_LANES + NUTS_BLOCK - 1)
+                             / NUTS_BLOCK));
   const dim3 block(NUTS_BLOCK);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool injected = inj_z != nullptr;
   const bool all = collect_idx < 0;
 #define NUTS_ARGS v0, vout, hist, hist_cnt, cnt_out, stats, res, inv_mass, \
-    mom_scale, n, num_pairs, eps, div_threshold, collect_idx, seed0, seed1, \
-    inj_z, inj_u
+    mom_scale, sd, n_pts, n, num_pairs, eps, div_threshold, collect_idx, \
+    seed0, seed1, inj_z, inj_u
   if (injected && all)
     nuts_pair_kernel<true, true><<<grid, block, 0, st>>>(NUTS_ARGS);
   else if (injected)

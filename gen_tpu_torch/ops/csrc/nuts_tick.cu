@@ -78,7 +78,8 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
     const float* __restrict__ res,       // (R,)
     const float* __restrict__ inv_mass,  // (D,)
     const float* __restrict__ mom_scale, // (D,) sqrt_mass_safe(inv_mass)
-    int n, int num_ticks, float eps, float div_threshold, int collect_idx,
+    const float* __restrict__ sd,        // (rows, n_pts) stream table
+    int n_pts, int n, int num_ticks, float eps, float div_threshold, int collect_idx,
     uint32_t seed0, uint32_t seed1,
     const float* __restrict__ inj_z,     // (T, D, n)
     const float* __restrict__ inj_u) {   // (T, 4, n)
@@ -91,7 +92,8 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
     msc[k] = mom_scale[k];
   }
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x)
+                      / NUTS_LANES);
   if (i >= n) return;
   const size_t N = (size_t)n;
   const uint2 key = make_uint2(seed0, seed1);
@@ -107,7 +109,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) cur[k] = v0[k * N + i];
   float lp;
-  vag(cur, r, lp, cg);
+  vag(cur, r, lp, cg, sd, n_pts);
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) {
     lt[k] = rt[k] = ct[k] = ptv[k] = cs[k] = cur[k];
@@ -170,7 +172,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
       pr[k] = pr[k] + half * pg[k];
       ptv[k] = ptv[k] + de * (inv[k] * pr[k]);
     }
-    vag(ptv, r, lp, pg);
+    vag(ptv, r, lp, pg, sd, n_pts);
     NUTS_UNROLL
     for (int k = 0; k < NUTS_D; ++k) pr[k] = pr[k] + half * pg[k];
     // checkpoint writes at every level whose block starts here; rs is
@@ -282,18 +284,19 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
 extern "C" int nuts_tick_launch(
     const float* v0, float* vout, float* hist, int* hist_cnt, int* cnt_out,
     float* stats, const float* res, const float* inv_mass,
-    const float* mom_scale, int n, int num_ticks, float eps,
-    float div_threshold, int collect_idx, unsigned int seed0,
+    const float* mom_scale, const float* sd, int n_pts, int n, int num_ticks,
+    float eps, float div_threshold, int collect_idx, unsigned int seed0,
     unsigned int seed1, const float* inj_z, const float* inj_u,
     void* stream) {
-  const dim3 grid((n + NUTS_BLOCK - 1) / NUTS_BLOCK);
+  const dim3 grid((unsigned)(((size_t)n * NUTS_LANES + NUTS_BLOCK - 1)
+                             / NUTS_BLOCK));
   const dim3 block(NUTS_BLOCK);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool injected = inj_z != nullptr;
   const bool all = collect_idx < 0;
 #define NUTS_ARGS v0, vout, hist, hist_cnt, cnt_out, stats, res, inv_mass, \
-    mom_scale, n, num_ticks, eps, div_threshold, collect_idx, seed0, seed1, \
-    inj_z, inj_u
+    mom_scale, sd, n_pts, n, num_ticks, eps, div_threshold, collect_idx, \
+    seed0, seed1, inj_z, inj_u
   if (injected && all)
     nuts_tick_kernel<true, true><<<grid, block, 0, st>>>(NUTS_ARGS);
   else if (injected)

@@ -1,0 +1,55 @@
+// One evaluation of a staged model's value and gradient per chain: the
+// body that gen_tpu_torch/ops/scalarize.py writes into K1, K3 and K6, on
+// its own. It times the staged code (the streamed likelihood's loop of
+// part c, the unrolled Kalman recursion of part b) per gradient, and holds
+// it to its torch rendering without any sampler around it.
+//
+// Launch shape: one thread per chain, or a warp per chain for a streamed
+// likelihood (SE_LANES 32; every lane returns the same sums and stores the
+// same values). Built with -fmad=false, as the kernels that embed it.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// @@DEFINES@@
+
+// @@STAGED_VAG@@
+
+namespace {
+
+__global__ void __launch_bounds__(SE_BLOCK) staged_eval_kernel(
+    const float* __restrict__ x,      // (D, n)
+    float* __restrict__ lp_out,       // (n,)
+    float* __restrict__ g_out,        // (D, n)
+    const float* __restrict__ res,    // (R,)
+    const float* __restrict__ sd,     // (rows, n_pts)
+    int n_pts, int n) {
+  __shared__ float r[SE_R];
+  for (int k = threadIdx.x; k < SE_R; k += blockDim.x) r[k] = res[k];
+  __syncthreads();
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x)
+                      / SE_LANES);
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  float v[SE_D], g[SE_D], lp;
+#pragma unroll
+  for (int k = 0; k < SE_D; ++k) v[k] = x[k * N + i];
+  staged_vag(v, r, lp, g, sd, n_pts);
+  lp_out[i] = lp;
+#pragma unroll
+  for (int k = 0; k < SE_D; ++k) g_out[k * N + i] = g[k];
+}
+
+}  // namespace
+
+extern "C" int staged_eval_launch(const float* x, float* lp_out,
+                                  float* g_out, const float* res,
+                                  const float* sd, int n_pts, int n,
+                                  void* stream) {
+  const dim3 grid((unsigned)(((size_t)n * SE_LANES + SE_BLOCK - 1)
+                             / SE_BLOCK));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  staged_eval_kernel<<<grid, SE_BLOCK, 0, st>>>(x, lp_out, g_out, res, sd,
+                                                n_pts, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -27,6 +27,14 @@ Where PyTorch and Hopper forced differences:
 - The kernel's PRNG is Philox seeded from the key's two words, so its
   draws differ from the twin's (which uses :mod:`gen_tpu_torch.random`);
   with ``injected_rng`` both consume the same numbers and agree.
+- A streamed likelihood (``StagedLogp.stream_data``) runs a warp per chain
+  (``StagedLogp.lanes``; a block of up to 8 warps per chain above 65,536
+  points per warp): the kernel's stream loop (staging part c) strides the
+  lanes over the data points. gen_tpu's ``has_stream``/``stream_hbm``
+  kernel variants (the table in SMEM, or DMA'd from HBM in tiles) are one
+  loop over device memory here, and its ``use_pallas=None`` dispatch
+  (stream models to the XLA twin below a TPU-measured crossover) is not
+  ported: on CUDA the kernel runs.
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ import torch
 
 from .. import random
 from ..utils import sqrt_mass_safe
-from . import _cuda_build
-from .scalarize import StagedLogp, stage_scalarized
+from . import _cuda_build, scalarize
+from .scalarize import StagedLogp, block_size, stage_scalarized
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
@@ -64,14 +72,16 @@ def stage(logp: Callable, d: int, device) -> StagedLogp:
 def kernel_source(staged: StagedLogp) -> str:
     """The kernel's CUDA source with the staged program spliced in."""
     defines = (f"#define HMC_D {staged.d}\n#define HMC_R {staged.n_res}\n"
-               f"#define HMC_BLOCK {BLOCK}")
+               f"#define HMC_BLOCK {block_size(staged, BLOCK)}\n"
+               f"#define HMC_LANES {staged.lanes}")
     return (_CSRC.read_text().replace("// @@DEFINES@@", defines)
             .replace("// @@STAGED_VAG@@", staged.cuda_source()))
 
 
 _SIGNATURES = {"hmc_fused_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p]}
@@ -83,8 +93,11 @@ def build_job(staged: StagedLogp):
 
 
 def build(staged: StagedLogp) -> ctypes.CDLL:
-    """Compile (once per generated source) and load the kernel library."""
-    return _cuda_build.build(*build_job(staged))
+    """Compile (once per generated source) and load the kernel library;
+    kept with ``staged``, so that a launch renders no source."""
+    if "hmc_fused" not in staged.libs:
+        staged.libs["hmc_fused"] = _cuda_build.build(*build_job(staged))
+    return staged.libs["hmc_fused"]
 
 
 def _prepare(logp, values0, inv_mass_diag, injected_rng, n_steps,
@@ -159,15 +172,19 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
         acc = torch.empty((n,), dtype=torch.float32, device=vt.device)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
         res = staged.res_consts.contiguous()
+        sd = scalarize.stream_table(staged, vt.device)
         stream = torch.cuda.current_stream(vt.device).cuda_stream
         rc = lib.hmc_fused_launch(
             vt.data_ptr(), vout.data_ptr(), hist.data_ptr(), acc.data_ptr(),
-            res.data_ptr(), inv.data_ptr(), n, n_steps, L, float(eps),
+            res.data_ptr(), inv.data_ptr(),
+            None if sd is None else sd.data_ptr(), staged.n_pts, n,
+            n_steps, L, float(eps),
             float(eps_jitter), -1 if collect_idx is None else collect_idx,
             seed0, seed1, *([t.data_ptr() for t in inj] if inj is not None
                             else [None, None, None]), stream)
     _cuda_build.check_launch(rc, "hmc_fused")
     hmc_chains_fused.launches += 1
+    scalarize.count_body_launch(staged)
     return _outputs(vout, hist, acc, collect_idx)
 
 

@@ -14,8 +14,14 @@ Where PyTorch and Hopper forced differences:
 - Dispatch is by the device of ``values0``: a CUDA tensor launches the
   kernel (a failed build or launch raises; nothing falls back), a CPU
   tensor runs :func:`nuts_chains_fused_plain`. There is no ``use_pallas``,
-  ``interpret`` or ``tile``, and no stream-vs-batched dispatch (streamed
-  likelihoods are not staged yet).
+  ``interpret`` or ``tile``. gen_tpu's ``use_pallas=None`` dispatch sent
+  stream models to its XLA twin below a crossover measured on the TPU;
+  that dispatch is not ported: on CUDA the kernel runs.
+- A streamed likelihood (``StagedLogp.stream_data``) runs a warp per chain
+  (``StagedLogp.lanes``; a block of up to 8 warps per chain above 65,536
+  points per warp): the kernel's stream loop (staging part c) strides the
+  lanes over the data points. gen_tpu's ``has_stream``/``stream_hbm``
+  variants (SMEM table, or HBM DMA tiles) are one loop over device memory.
 - The plain versions are :func:`gen_tpu_torch.inference.nuts_fsm.run_ticks`
   (K6) and :func:`~gen_tpu_torch.inference.nuts_fsm.run_pairs` (K3), the
   port's ``nuts_fsm`` and ``nuts_fsm_paired`` loops, driven by the torch
@@ -43,9 +49,9 @@ from .. import random
 from ..inference.nuts_fsm import (injected_draws, key_draws, run_pairs,
                                   run_ticks, summary_stats)
 from ..utils import sqrt_mass_safe
-from . import _cuda_build
+from . import _cuda_build, scalarize
 from .hmc_fused import stage
-from .scalarize import StagedLogp
+from .scalarize import StagedLogp, block_size
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
@@ -53,7 +59,8 @@ _CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 # paired -> (kernel name, source, injected uniforms per step)
@@ -89,7 +96,8 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
     the staged program spliced in (the build hashes this whole text)."""
     defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {staged.n_res}\n"
                f"#define NUTS_MD {int(max_depth)}\n"
-               f"#define NUTS_BLOCK {BLOCK}")
+               f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
+               f"#define NUTS_LANES {staged.lanes}")
     src = (_CSRC_DIR / _KERNELS[paired][1]).read_text()
     return (src.replace("// @@DEFINES@@", defines)
             .replace("// @@STAGED_VAG@@", staged.cuda_source())
@@ -105,8 +113,13 @@ def build_job(staged: StagedLogp, max_depth: int, paired: bool):
 
 
 def build(staged: StagedLogp, max_depth: int, paired: bool) -> ctypes.CDLL:
-    """Compile (once per generated source) and load the kernel library."""
-    return _cuda_build.build(*build_job(staged, max_depth, paired))
+    """Compile (once per generated source) and load the kernel library;
+    kept with ``staged``, so that a launch renders no source."""
+    key = (_KERNELS[paired][0], int(max_depth))
+    if key not in staged.libs:
+        staged.libs[key] = _cuda_build.build(*build_job(staged, max_depth,
+                                                        paired))
+    return staged.libs[key]
 
 
 def _prepare(logp, values0, inv_mass_diag, collect_idx):
@@ -193,17 +206,20 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
         stats = torch.empty((5, n), dtype=torch.float32, device=dev)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
         res = staged.res_consts.contiguous()
+        sd = scalarize.stream_table(staged, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
             vt.data_ptr(), vout.data_ptr(), hist.data_ptr(),
             hist_cnt.data_ptr(), counts.data_ptr(), stats.data_ptr(),
-            res.data_ptr(), inv.data_ptr(), msc.data_ptr(), n, steps,
+            res.data_ptr(), inv.data_ptr(), msc.data_ptr(),
+            None if sd is None else sd.data_ptr(), staged.n_pts, n, steps,
             float(eps), float(divergence_threshold),
             -1 if collect_idx is None else collect_idx, seed0, seed1,
             *[None if t is None else t.data_ptr() for t in inj], stream)
     _cuda_build.check_launch(rc, name)
     nuts_chains_fused.launches += 1
     nuts_chains_fused.kernel_launches[name] += 1
+    scalarize.count_body_launch(staged)
     # accept sum, depth sum, divergences, in-flight alpha sum and leapfrogs
     five = (stats[0], stats[1], stats[2].to(torch.int32), stats[3],
             stats[4].to(torch.int32))

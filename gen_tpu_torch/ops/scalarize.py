@@ -1,48 +1,74 @@
 """Staging: turn a ``logp: (d,) -> scalar`` into straight-line per-chain code.
 
-Counterpart: ``gen_tpu/ops/scalarize.py::stage_scalarized`` (part a: a
-straight-line residual). On the TPU the pass had two jobs: avoid vmap's
-tiny minor axes, which wasted the (8, 128) vector tile, and hoist the data
-work out of the kernel. The first does not exist on Hopper; the second
-does, and it is what lets an arbitrary ``@gen`` model run inside a
-hand-written kernel at all.
+Counterpart: ``gen_tpu/ops/scalarize.py::stage_scalarized``, all three
+parts. On the TPU the pass had two jobs: avoid vmap's tiny minor axes,
+which wasted the (8, 128) vector tile, and hoist the data work out of the
+kernel. The first does not exist on Hopper; the second does, and it is
+what lets an arbitrary ``@gen`` model run inside a hand-written kernel at
+all.
 
 The pass:
 
 - **Trace** ``torch.func.grad_and_value(logp)`` with ``make_fx`` at a
-  ``(d,)`` float32 input into a functionalized aten graph. The joint graph already holds
-  the reverse-mode gradient, so the pass needs forward semantics only and
-  never differentiates anything itself (gen_tpu's ``plane_vag`` takes a
-  vjp of the scalarized program instead).
+  ``(d,)`` float32 input into a functionalized aten graph. The joint graph
+  already holds the reverse-mode gradient, so the pass needs forward
+  semantics only and never differentiates anything itself (gen_tpu's
+  ``plane_vag`` takes a vjp of the scalarized program, and assembles the
+  stream gradients by hand).
 - **Partial-evaluate**: every node that does not depend on ``x`` runs once,
   in torch, on the target device. The results that the rest of the graph
   reads become ``res_consts``, one float32 vector; for ``normal_linear``
   that is the Gram matrix, so the kernel never sees the data points.
-- **Scalarize the residual**: every remaining value is a
+- **Scalarize the residual** (part a): every remaining value is a
   :class:`ScalarArray` (its shape plus a flat list of elements); an element
   is a Python constant or a symbol ``x[i]``, ``r[k]`` or ``t<j>``. Array
   ops become Python loops over elements; each arithmetic element op
-  appends one instruction to a straight-line program over ``x[0..d-1]`` and
-  ``r[0..R-1]`` whose outputs are ``lp`` and ``g[0..d-1]``. Identical
-  instructions are emitted once; operations on constants fold.
+  appends one instruction to a straight-line program whose outputs are
+  ``lp`` and ``g[0..d-1]``. Identical instructions are emitted once;
+  operations on constants fold.
+- **Unroll the structured ops** (part b): ``linalg_cholesky_ex`` becomes
+  gen_tpu's Cholesky-Banachiewicz, ``linalg_solve_triangular`` and
+  ``cholesky_solve`` its forward and back substitutions, ``tril``,
+  ``diagonal`` and their backward ops index arithmetic, each element plain
+  arithmetic. gen_tpu's ``scan`` is a Python loop in the port's models
+  (``models/lgssm.py``), so ``make_fx`` unrolls it already; its ``cond``
+  is ``torch.where`` over both branches, which part a stages.
+- **Stream the data** (part c): a known float (or bool) array with one
+  axis of at least ``stream_threshold`` points becomes a row of the stream
+  table ``StagedLogp.stream_data``, and a value along that axis a
+  :class:`StreamArray`: its per-point element is an instruction of a
+  second, per-point program (``p<j>``, reading data rows ``d<i>`` and
+  per-chain values). Every sum over the data axis (the logp's and each
+  gradient coordinate's, which the joint graph holds as reductions)
+  becomes one accumulator ``s<k>`` of a loop over the points,
+  Kahan-compensated as gen_tpu's ``_blocked_accumulate``. A data-sum may
+  not flow back into per-point arithmetic: a non-additive use of the
+  likelihood shows in the joint graph as its derivative re-entering the
+  loop, and is refused naming the data-sum, as gen_tpu refuses it.
+  gen_tpu's SMEM and HBM-tile loops (``_stream_loop``,
+  ``_stream_loop_hbm``, ``STREAM_TILE``, ``max_stream_bytes``) are one
+  loop over device memory here.
 - **Render twice**: as a CUDA C++ ``__device__`` function that the fused
-  kernel inlines (:meth:`StagedLogp.cuda_source`), and as torch ops on
+  kernels inline (:meth:`StagedLogp.cuda_source`), and as torch ops on
   ``(n_chains,)`` tensors (:meth:`StagedLogp.vag`), the CPU and reference
-  twin. Both run the same arithmetic in the same order.
+  twin. Both run the same arithmetic in the same order, the stream loop
+  included: 32 lanes per chain (a warp; more warps per chain above
+  ``POINTS_PER_WARP`` points per warp) each sum every 32nd point, then a
+  fixed butterfly of shuffles, and the warps' totals in warp order.
 
 A cast between float32 and bool becomes ``x != 0`` or ``b ? 1 : 0``, and
 ``xlogy``/``xlog1py`` are written out as torch computes them: the mixed
 driver stages a model's discrete values as float coordinates. An aten op
 outside the table raises ``ValueError`` naming it; nothing falls back
-silently. gen_tpu's structured pieces (``scan``, ``cond``,
-``cholesky``, ``triangular_solve``: part b) and streamed likelihoods
-(``StreamArray`` and the in-kernel data loops: part c) are not ported yet.
+silently. ``while_loop``-style data-dependent recursions have no static
+unrolling, in gen_tpu as here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+import operator
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +79,9 @@ aten = torch.ops.aten
 
 class Sym:
     """A program symbol: ``x[i]`` (chain coordinate), ``r[i]`` (staged
-    residual constant) or ``t<i>`` (instruction result)."""
+    residual constant), ``t<i>`` (instruction result), ``s<i>`` (a data-sum,
+    the stream loop's result), ``p<i>`` (a per-point instruction of the
+    stream loop) or ``d<i>`` (data row i at the loop's current point)."""
 
     __slots__ = ("kind", "idx", "dtype")
 
@@ -65,6 +93,10 @@ class Sym:
 
     def __repr__(self):
         return f"{self.kind}{self.idx}"
+
+
+def _per_point(e) -> bool:
+    return isinstance(e, Sym) and e.kind in "pd"
 
 
 class ScalarArray:
@@ -91,6 +123,28 @@ class ScalarArray:
 
     def __repr__(self):
         return f"ScalarArray(shape={self.shape}, n={self.size})"
+
+
+class StreamArray:
+    """A per-point value over the data axis (part c; gen_tpu's
+    ``StreamArray``): ``shape`` holds the data axis (length ``n_pts``, the
+    only axis longer than 1) and ``elem`` is the value at one point: a
+    constant, a scalar symbol (the same at every point) or a per-point
+    symbol of the stream loop. The data axis is never unrolled; a sum over
+    it becomes one of the loop's accumulators."""
+
+    __slots__ = ("shape", "elem")
+
+    def __init__(self, shape, elem):
+        self.shape = tuple(int(s) for s in shape)
+        self.elem = elem
+
+    @property
+    def size(self):
+        return math.prod(self.shape)
+
+    def __repr__(self):
+        return f"StreamArray(shape={self.shape})"
 
 
 def _dtype_of(e) -> str:
@@ -161,13 +215,32 @@ __device__ __forceinline__ float _sgn(float a) {
 }
 """
 
+_CUDA_KAHAN = """\
+__device__ __forceinline__ void _kahan(float& a, float& c, float v) {
+  const float y_ = v - c;
+  const float s_ = a + y_;
+  c = (s_ - a) - y_;
+  a = s_;
+}
+"""
+
+# exponents that torch's pow kernel computes by another op (so both
+# renderings compute them that way)
+_POW_AS = {1.0: None, 0.5: "sqrt", -0.5: "rsqrt", -1.0: "reciprocal"}
+
 
 class Program:
-    """A straight-line program over ``x[0..d-1]`` and ``r[0..R-1]``."""
+    """A straight-line program. The main program runs over ``x[0..d-1]``,
+    ``r[0..R-1]`` and the data-sums ``s<k>``; ``after`` maps each of its
+    instructions that reads a data-sum (directly or not) to that sum, so
+    that it can run after the stream loop. A per-point program (``kind
+    "p"``) is the stream loop's body."""
 
-    def __init__(self):
+    def __init__(self, kind: str = "t"):
+        self.kind = kind
         self.instrs: List[Tuple[str, Tuple]] = []   # (op, args)
         self.dtypes: List[str] = []
+        self.after: Dict[int, int] = {}
         self._memo: Dict[Tuple, Sym] = {}
 
     def emit(self, op: str, *args):
@@ -207,25 +280,114 @@ class Program:
         if op == "div" and isinstance(args[0], float):
             return self.emit("mul", self.emit("reciprocal", args[1]),
                              args[0])
-        if op == "pow" and isinstance(args[1], float) \
-                and args[1] in (2.0, 3.0):
-            # torch's pow kernel special-cases these as products
-            y = self.emit("mul", args[0], args[0])
-            return y if args[1] == 2.0 else self.emit("mul", y, args[0])
+        if op == "pow" and isinstance(args[1], float):
+            # torch's pow kernel special-cases these exponents
+            if args[1] in (2.0, 3.0, -2.0):
+                y = self.emit("mul", args[0], args[0])
+                if args[1] == 3.0:
+                    return self.emit("mul", y, args[0])
+                return y if args[1] == 2.0 else self.emit("reciprocal", y)
+            if args[1] in _POW_AS:
+                as_op = _POW_AS[args[1]]
+                return args[0] if as_op is None else self.emit(as_op,
+                                                               args[0])
         key = (op,) + tuple(a.key() if isinstance(a, Sym)
                             else (type(a).__name__, a) for a in args)
         if key in self._memo:
             return self._memo[key]
-        sym = Sym("t", len(self.instrs), out_dt)
+        sym = Sym(self.kind, len(self.instrs), out_dt)
+        for a in args:
+            if isinstance(a, Sym) and a.kind == "s":
+                self.after[sym.idx] = a.idx
+            elif isinstance(a, Sym) and a.kind == "t" and a.idx in self.after:
+                self.after[sym.idx] = self.after[a.idx]
         self.instrs.append((op, args))
         self.dtypes.append(out_dt)
         self._memo[key] = sym
         return sym
 
 
+class _Stager:
+    """The programs being built, and the stream loop's state: the data rows
+    (``d<i>``), the data length ``n_pts`` and the data-sums (``s<k>``, each
+    the sum over the points of one per-point element)."""
+
+    def __init__(self, threshold: Optional[int]):
+        self.prog = Program("t")
+        self.pprog = Program("p")
+        self.threshold = threshold
+        self.n_pts: Optional[int] = None
+        self.rows: List[torch.Tensor] = []
+        self._row_of: Dict[Tuple, int] = {}
+        self.sums: List[Any] = []
+        self.sum_names: List[str] = []
+        self._sum_of: Dict[Tuple, Sym] = {}
+        self.node_name = ""
+        self.structured = False     # a part-b op was unrolled
+
+    def emit(self, op: str, *args):
+        if not any(_per_point(a) for a in args):
+            return self.prog.emit(op, *args)
+        for a in args:
+            if isinstance(a, Sym) and a.kind in "st":
+                k = a.idx if a.kind == "s" else self.prog.after.get(a.idx)
+                if k is not None:
+                    raise ValueError(
+                        f"scalarize: the data-sum '{self.sum_names[k]}' "
+                        f"re-enters per-point arithmetic at "
+                        f"'{self.node_name}' (a data-sum combined "
+                        "non-additively, or a second pass over the data); "
+                        "a streamed likelihood must enter logp additively")
+        return self.pprog.emit(op, *args)
+
+    def set_length(self, n: int):
+        if self.n_pts is None:
+            self.n_pts = n
+        elif self.n_pts != n:
+            raise ValueError(f"scalarize: data arrays of lengths "
+                             f"{self.n_pts} and {n} in one streamed "
+                             "likelihood are not supported")
+
+    def is_stream_shape(self, shape) -> bool:
+        n = math.prod(shape)
+        return (self.threshold is not None and n >= self.threshold
+                and sum(s > 1 for s in shape) == 1)
+
+    def data_leaf(self, v: torch.Tensor) -> "StreamArray":
+        """A known array along the data axis: a constant if every element
+        is equal, else a row of the data table."""
+        self.set_length(int(v.numel()))
+        flat = v.detach().reshape(-1)
+        if bool((flat == flat[0]).all()):
+            e = flat[0].item()
+            return StreamArray(v.shape, bool(e) if v.dtype == torch.bool
+                               else _f32(e))
+        key = (flat.data_ptr(), flat.dtype, int(flat.numel()),
+               flat.stride(0))
+        if key not in self._row_of:
+            self._row_of[key] = len(self.rows)
+            self.rows.append(flat.to(torch.float32))
+        d = Sym("d", self._row_of[key])
+        return StreamArray(v.shape, self.emit("ne", d, 0.0)
+                           if v.dtype == torch.bool else d)
+
+    def data_sum(self, e):
+        """The sum of ``e`` over the ``n_pts`` points."""
+        if not _per_point(e):
+            # the same value at every point: n times it, one rounding
+            if isinstance(e, Sym):
+                return self.prog.emit("mul", e, float(self.n_pts))
+            return _f32(np.float64(e) * self.n_pts)
+        if e.key() not in self._sum_of:
+            self._sum_of[e.key()] = Sym("s", len(self.sums))
+            self.sums.append(e)
+            self.sum_names.append(self.node_name)
+        return self._sum_of[e.key()]
+
+
 def _cuda_lit(e) -> str:
     if isinstance(e, Sym):
-        return f"{e.kind}[{e.idx}]" if e.kind in "xr" else f"t{e.idx}"
+        return f"{e.kind}[{e.idx}]" if e.kind in "xr" else f"{e.kind}{e.idx}"
     if isinstance(e, (bool, np.bool_)):
         return "true" if e else "false"
     if math.isnan(e):
@@ -236,9 +398,15 @@ def _cuda_lit(e) -> str:
     return float(e).hex() + "f"
 
 
-def _torch_lit(e) -> str:
+def _torch_lit(e, scalar_prefix: str = "") -> str:
+    """``scalar_prefix`` renames the per-chain symbols read inside the
+    stream loop's body to their broadcastable copies."""
     if isinstance(e, Sym):
-        return f"{e.kind}[{e.idx}]" if e.kind in "xr" else f"t{e.idx}"
+        if e.kind in "pd":
+            return f"{e.kind}{e.idx}"
+        if scalar_prefix:
+            return f"{scalar_prefix}{e.kind}{e.idx}"
+        return f"{e.kind}[{e.idx}]" if e.kind in "xr" else f"{e.kind}{e.idx}"
     if isinstance(e, (bool, np.bool_)):
         return repr(bool(e))
     if math.isnan(e):
@@ -248,59 +416,289 @@ def _torch_lit(e) -> str:
     return repr(float(e))
 
 
+def _torch_expr(op, args, prefix=""):
+    lits = [_torch_lit(a, prefix) for a in args]
+    if op in ("maximum", "minimum") and not all(
+            isinstance(a, Sym) for a in args):
+        # torch.maximum takes tensors only; clamp has the same NaN
+        # propagation
+        t, c = (lits if isinstance(args[0], Sym) else lits[::-1])
+        bound = "min" if op == "maximum" else "max"
+        return f"torch.clamp({t}, {bound}={c})"
+    return _OPS[op][3].format(*lits)
+
+
+# above this many instructions the CUDA rendering is not inlined
+INLINE_MAX_INSTRUCTIONS = 2000
+# device memory the plain rendering of a stream loop may hold for one chunk
+# of points (all per-point intermediates of all chains)
+PLAIN_STREAM_BYTES = 256 << 20
+LANES = 32     # a warp: the stream loop's lanes per chain, at least
+# a stream loop over more than POINTS_PER_WARP points per warp gets more
+# warps per chain, up to MAX_STREAM_WARPS (a block per chain)
+POINTS_PER_WARP = 1 << 16
+MAX_STREAM_WARPS = 8
+
+
+def stream_lanes(n_pts: int) -> int:
+    """Lanes that sum one chain's stream loop: a warp, doubled while each
+    warp would have more than ``POINTS_PER_WARP`` points, up to
+    ``MAX_STREAM_WARPS`` warps."""
+    w = 1
+    while w < MAX_STREAM_WARPS and n_pts > w * POINTS_PER_WARP:
+        w *= 2
+    return LANES * w
+
+
+def block_size(staged: "StagedLogp", chains_block: int) -> int:
+    """Threads per block of a kernel that embeds ``staged``:
+    ``chains_block`` chains' worth of warps, or one chain per block when a
+    chain takes more than a warp (its warps then combine their sums through
+    shared memory between two ``__syncthreads``)."""
+    return chains_block if staged.lanes <= LANES else staged.lanes
+
+
+def _pt(v):
+    """A per-chain value, shaped to broadcast against ``(steps, LANES)``
+    point blocks."""
+    return v.reshape(v.shape + (1, 1)) if isinstance(v, torch.Tensor) \
+        and v.dim() else v
+
+
+def _stream_sums(point, sd: torch.Tensor, n_sums: int, batch, n_instr: int,
+                 lanes: int):
+    """The plain version of the kernels' stream loop: each of ``lanes``
+    lanes sums the points ``lane, lane + lanes, ...`` of every data-sum in
+    order, Kahan-compensated; each warp's 32 totals (``acc - comp``) are
+    combined by the butterfly ``v + v[lane ^ off]``, ``off = 16, 8, 4, 2,
+    1`` (``__shfl_xor_sync`` in the kernel), which leaves every lane with
+    the same bits, and the warps' totals are added in warp order (through
+    shared memory in the kernel). ``point(rows)`` evaluates the per-point
+    values of a block of points; blocks are sized so that its
+    intermediates stay within ``PLAIN_STREAM_BYTES``."""
+    n_pts = int(sd.shape[1])
+    steps = -(-n_pts // lanes)
+    chains = math.prod(batch)
+    per_step = 4 * lanes * max(chains, 1) * (n_instr + int(sd.shape[0])
+                                             + 3 * n_sums + 1)
+    block = max(1, min(steps, PLAIN_STREAM_BYTES // per_step))
+    acc = torch.zeros((n_sums,) + tuple(batch) + (lanes,), dtype=sd.dtype,
+                      device=sd.device)
+    comp = torch.zeros_like(acc)
+    lane = torch.arange(lanes, device=sd.device)
+    for b0 in range(0, steps, block):
+        b1 = min(steps, b0 + block)
+        idx = torch.clamp(torch.arange(b0 * lanes, b1 * lanes,
+                                       device=sd.device), max=n_pts - 1)
+        rows = [row[idx].reshape(b1 - b0, lanes) for row in sd]
+        vals = torch.stack([torch.broadcast_to(
+            torch.as_tensor(v, dtype=sd.dtype, device=sd.device),
+            tuple(batch) + (b1 - b0, lanes)) for v in point(rows)])
+        for j in range(b1 - b0):
+            v = vals[..., j, :]
+            y = v - comp
+            t = acc + y
+            c = (t - acc) - y
+            live = (b0 + j) * lanes + lane < n_pts
+            if not bool(live.all()):
+                t, c = torch.where(live, t, acc), torch.where(live, c, comp)
+            acc, comp = t, c
+    tot = (acc - comp).reshape(acc.shape[:-1] + (lanes // LANES, LANES))
+    in_warp = torch.arange(LANES, device=sd.device)
+    for off in (16, 8, 4, 2, 1):
+        tot = tot + tot[..., in_warp ^ off]
+    out = tot[..., 0, 0]
+    for w in range(1, lanes // LANES):
+        out = out + tot[..., w, 0]
+    return list(out)
+
+
+# launches of K1, K3 and K6 whose body held a stream loop (part c) or
+# unrolled structured ops (part b); the wrappers count them
+body_launches = {"stream": 0, "structured": 0}
+
+
+def count_body_launch(staged: "StagedLogp") -> None:
+    """Called by a kernel wrapper where it launches a kernel with
+    ``staged`` spliced in."""
+    if staged.streams:
+        body_launches["stream"] += 1
+    if staged.structured:
+        body_launches["structured"] += 1
+
+
+def stream_table(staged: "StagedLogp", device):
+    """The stream table on ``device`` (contiguous float32), or None."""
+    if staged.stream_data is None:
+        return None
+    return staged.stream_data.to(device=device,
+                                 dtype=torch.float32).contiguous()
+
+
 class StagedLogp:
     """Result of :func:`stage_scalarized`.
 
     - ``res_consts``: float32 ``(R,)`` tensor of staged residual constants,
       on the device the logp was staged for.
+    - ``stream_data``: float32 ``(rows, n_pts)`` data table of a streamed
+      likelihood (part c), or None when the model collapses to residual
+      constants.
     - ``vag(x)``: the torch rendering; ``x`` is ``(d, n)``, returns
       ``(lp (n,), grad (d, n))``.
     - ``cuda_source()``: the CUDA C++ rendering, a ``__device__`` function
-      ``staged_vag(const float* x, const float* r, float& lp, float* g)``.
+      ``staged_vag(const float* x, const float* r, float& lp, float* g,
+      const float* sd, int n_pts)``. A streamed likelihood's function must
+      be called by all 32 lanes of a warp with the same ``x``: each lane
+      sums every 32nd point and the lanes combine their sums by shuffles,
+      so every lane returns the same bits.
     """
 
-    def __init__(self, d: int, prog: Program, lp, grads, res_consts):
+    def __init__(self, d: int, st: "_Stager", lp, grads, res_consts):
         self.d = d
-        self.prog = prog
+        self.prog = st.prog
+        self.pprog = st.pprog
+        self.sums = list(st.sums)
         self.lp = lp
         self.grads = list(grads)
         self.res_consts = res_consts
         self.n_res = int(res_consts.shape[0])
+        self.stream_data = (torch.stack(st.rows).to(res_consts.device)
+                            .contiguous() if self.sums else None)
+        self.n_pts = int(st.n_pts) if self.sums else 0
+        self.lanes = stream_lanes(self.n_pts) if self.sums else 1
+        self.structured = st.structured
+        self.libs: Dict[Any, Any] = {}      # built kernels, per variant
+        self._cuda_src: Optional[str] = None
         self.torch_source = self._render_torch()
-        namespace = {"torch": torch, "inf": math.inf, "nan": math.nan}
+        namespace = {"torch": torch, "inf": math.inf, "nan": math.nan,
+                     "_pt": _pt, "_stream_sums": _stream_sums}
         exec(compile(self.torch_source, "<staged_vag>", "exec"), namespace)
         self._torch_fn = namespace["staged_vag"]
 
     @property
     def n_instructions(self) -> int:
+        """Instructions of the straight-line part (outside the loop)."""
         return len(self.prog.instrs)
 
+    @property
+    def n_point_instructions(self) -> int:
+        """Instructions of the stream loop's body, per point."""
+        return len(self.pprog.instrs)
+
+    @property
+    def streams(self) -> bool:
+        return self.stream_data is not None
+
+    def _split(self):
+        """The main program's instructions before the stream loop (they
+        read no data-sum) and after it, each in program order."""
+        after = self.prog.after
+        pre = [j for j in range(len(self.prog.instrs)) if j not in after]
+        return pre, sorted(after)
+
+    def _loop_inputs(self):
+        seen, out = set(), []
+        for _, args in self.pprog.instrs:
+            for a in args:
+                if isinstance(a, Sym) and a.kind in "xrt" \
+                        and a.key() not in seen:
+                    seen.add(a.key())
+                    out.append(a)
+        return out
+
     def _render_torch(self) -> str:
-        lines = ["def staged_vag(x, r):"]
-        for j, (op, args) in enumerate(self.prog.instrs):
-            lits = [_torch_lit(a) for a in args]
-            if op in ("maximum", "minimum") and not all(
-                    isinstance(a, Sym) for a in args):
-                # torch.maximum takes tensors only; clamp has the same
-                # NaN propagation
-                t, c = (lits if isinstance(args[0], Sym) else lits[::-1])
-                bound = "min" if op == "maximum" else "max"
-                expr = f"torch.clamp({t}, {bound}={c})"
-            else:
-                expr = _OPS[op][3].format(*lits)
-            lines.append(f"    t{j} = {expr}")
+        lines = ["def staged_vag(x, r, sd):"]
+        pre, post = self._split()
+
+        def instr(j):
+            op, args = self.prog.instrs[j]
+            lines.append(f"    t{j} = {_torch_expr(op, args)}")
+
+        for j in pre:
+            instr(j)
+        if self.sums:
+            for a in self._loop_inputs():
+                lines.append(f"    b_{a.kind}{a.idx} = _pt({_torch_lit(a)})")
+            rows = ", ".join(f"d{i}" for i in range(len(self.stream_data)))
+            lines.append("    def point(rows):")
+            lines.append(f"        {rows}, = rows")
+            for j, (op, args) in enumerate(self.pprog.instrs):
+                lines.append(f"        p{j} = {_torch_expr(op, args, 'b_')}")
+            lines.append("        return [" + ", ".join(
+                _torch_lit(e) for e in self.sums) + "]")
+            names = ", ".join(f"s{k}" for k in range(len(self.sums)))
+            lines.append(f"    {names}, = _stream_sums(point, sd, "
+                         f"{len(self.sums)}, x[0].shape, "
+                         f"{len(self.pprog.instrs)}, {self.lanes})")
+        for j in post:
+            instr(j)
         outs = ", ".join(_torch_lit(g) for g in self.grads)
         lines.append(f"    return {_torch_lit(self.lp)}, [{outs}]")
         return "\n".join(lines) + "\n"
 
+    def _qualifier(self) -> str:
+        """Inlined at every call site unless the program is long (an
+        unrolled recursion): then one function, compiled once."""
+        n = self.n_instructions + self.n_point_instructions
+        return "__forceinline__" if n <= INLINE_MAX_INSTRUCTIONS \
+            else "__noinline__"
+
     def cuda_source(self) -> str:
-        lines = [_CUDA_HELPERS,
-                 "__device__ __forceinline__ void staged_vag("
-                 "const float* x, const float* r, float& lp, float* g) {"]
-        for j, (op, args) in enumerate(self.prog.instrs):
-            ctype = "bool" if self.prog.dtypes[j] == "b" else "float"
+        if self._cuda_src is None:
+            self._cuda_src = self._render_cuda()
+        return self._cuda_src
+
+    def _render_cuda(self) -> str:
+        lines = [_CUDA_HELPERS + (_CUDA_KAHAN if self.sums else ""),
+                 f"__device__ {self._qualifier()} void staged_vag("
+                 "const float* x, const float* r, float& lp, float* g, "
+                 "const float* __restrict__ sd, int n_pts) {"]
+        pre, post = self._split()
+
+        def instr(j, prog, indent):
+            op, args = prog.instrs[j]
+            ctype = "bool" if prog.dtypes[j] == "b" else "float"
             expr = _OPS[op][2].format(*[_cuda_lit(a) for a in args])
-            lines.append(f"  const {ctype} t{j} = {expr};")
+            lines.append(f"{indent}const {ctype} {prog.kind}{j} = {expr};")
+
+        for j in pre:
+            instr(j, self.prog, "  ")
+        if self.sums:
+            k = len(self.sums)
+            lines.append("  " + " ".join(f"float sa{i} = 0.0f, sc{i} = 0.0f;"
+                                         for i in range(k)))
+            lines.append(f"  for (int i = (int)(threadIdx.x & "
+                         f"{self.lanes - 1}u); i < n_pts; "
+                         f"i += {self.lanes}) {{")
+            for row in range(len(self.stream_data)):
+                lines.append(f"    const float d{row} = "
+                             f"sd[(size_t){row} * n_pts + i];")
+            for j in range(len(self.pprog.instrs)):
+                instr(j, self.pprog, "    ")
+            for i, e in enumerate(self.sums):
+                lines.append(f"    _kahan(sa{i}, sc{i}, {_cuda_lit(e)});")
+            lines.append("  }")
+            for i in range(k):
+                lines.append(f"  float s{i} = sa{i} - sc{i};")
+                for off in (16, 8, 4, 2, 1):
+                    lines.append(f"  s{i} = s{i} + __shfl_xor_sync("
+                                 f"0xffffffffu, s{i}, {off});")
+            warps = self.lanes // LANES
+            if warps > 1:
+                # one chain per block: its warps' sums, added in warp order
+                lines.append(f"  __shared__ float _red[{k}][{warps}];")
+                lines.append("  __syncthreads();")
+                lines.append("  if ((threadIdx.x & 31u) == 0) {")
+                for i in range(k):
+                    lines.append(f"    _red[{i}][threadIdx.x >> 5] = s{i};")
+                lines.append("  }")
+                lines.append("  __syncthreads();")
+                for i in range(k):
+                    lines.append(f"  s{i} = _red[{i}][0];")
+                    for w in range(1, warps):
+                        lines.append(f"  s{i} = s{i} + _red[{i}][{w}];")
+        for j in post:
+            instr(j, self.prog, "  ")
         lines.append(f"  lp = {_cuda_lit(self.lp)};")
         for i, g in enumerate(self.grads):
             lines.append(f"  g[{i}] = {_cuda_lit(g)};")
@@ -310,7 +708,11 @@ class StagedLogp:
     def vag(self, x: torch.Tensor):
         """Value and gradient at ``x`` of shape ``(d, n)`` through the torch
         rendering: ``(lp (n,), grad (d, n))``."""
-        lp, gs = self._torch_fn(list(x), list(self.res_consts))
+        sd = None
+        if self.stream_data is not None:
+            sd = self.stream_data.to(x.device)
+        lp, gs = self._torch_fn(list(x), list(self.res_consts.to(x.device)),
+                                sd)
         shape = x.shape[1:]
 
         def full(v):
@@ -366,8 +768,9 @@ _FILL_ATEN = {
 }
 # staged constants the kernel keeps in shared memory (gen_tpu's cap)
 MAX_RESIDUAL_SCALARS = 1024
-_DEFERRED = ("cond", "scan", "while_loop", "cholesky", "triangular_solve",
-             "solve_triangular")
+# a known float array at least this long, along one axis, becomes a row of
+# the stream table (gen_tpu's default)
+STREAM_THRESHOLD = 2048
 
 
 def _as_sa(v) -> ScalarArray:
@@ -377,7 +780,14 @@ def _as_sa(v) -> ScalarArray:
         return ScalarArray((), [bool(v)])
     if isinstance(v, (int, float)):
         return ScalarArray((), [_f32(v)])
+    if isinstance(v, StreamArray):
+        raise ValueError("scalarize: a per-point (data-axis) value where an "
+                         "unrolled array is needed")
     raise ValueError(f"scalarize: unexpected operand {type(v).__name__}")
+
+
+def _shape_of(v):
+    return v.shape if isinstance(v, (ScalarArray, StreamArray)) else ()
 
 
 def _broadcast(*args):
@@ -389,9 +799,33 @@ def _broadcast(*args):
     return shape, zip(*cols)
 
 
-def _elementwise(prog: Program, op: str, *args) -> ScalarArray:
-    shape, rows = _broadcast(*args)
-    return ScalarArray(shape, [prog.emit(op, *xs) for xs in rows])
+def _map_elems(prog, fn, *args):
+    """``fn`` applied elementwise under broadcasting. With a per-point
+    operand the result is per-point: every other operand must hold one
+    element, the same at every point."""
+    if not any(isinstance(a, StreamArray) for a in args):
+        shape, rows = _broadcast(*args)
+        return ScalarArray(shape, [fn(*xs) for xs in rows])
+    shape = tuple(np.broadcast_shapes(*[_shape_of(a) for a in args]))
+    if math.prod(shape) != prog.n_pts:
+        raise ValueError(f"scalarize: a per-point (data-axis) value "
+                         f"broadcast to shape {shape}")
+    elems = []
+    for a in args:
+        if isinstance(a, StreamArray):
+            elems.append(a.elem)
+            continue
+        a = _as_sa(a)
+        if a.size != 1:
+            raise ValueError(f"scalarize: a per-point (data-axis) value "
+                             f"combined with an unrolled array of shape "
+                             f"{a.shape}")
+        elems.append(a.elems[0])
+    return StreamArray(shape, fn(*elems))
+
+
+def _elementwise(prog, op: str, *args):
+    return _map_elems(prog, lambda *xs: prog.emit(op, *xs), *args)
 
 
 def _sum_elems(prog, elems):
@@ -401,11 +835,19 @@ def _sum_elems(prog, elems):
     return acc
 
 
-def _reduce_sum(prog, a: ScalarArray, dims, keepdim=False):
+def _reduce_sum(prog, a, dims, keepdim=False):
     nd = len(a.shape)
     dims = sorted({d % nd for d in dims}) if dims else list(range(nd))
     keep = [i for i in range(nd) if i not in dims]
     out_shape = tuple(a.shape[i] for i in keep)
+    if isinstance(a, StreamArray):
+        summed = any(a.shape[i] > 1 for i in dims)
+        if keepdim:
+            out_shape = tuple(1 if i in dims else s
+                              for i, s in enumerate(a.shape))
+        if not summed:
+            return StreamArray(out_shape, a.elem)
+        return ScalarArray(out_shape, [prog.data_sum(a.elem)])
     idx = np.transpose(a.index_array(), keep + dims).reshape(
         math.prod(out_shape), -1)
     elems = [_sum_elems(prog, [a.elems[i] for i in row]) for row in idx]
@@ -451,7 +893,7 @@ def _scatter_zeros(grad: ScalarArray, sizes, dst_index):
     return ScalarArray(tuple(sizes), out)
 
 
-def _cast_elem(prog: Program, e, dt: str):
+def _cast_elem(prog, e, dt: str):
     if _dtype_of(e) == dt:
         return e
     if dt == "b":
@@ -459,15 +901,14 @@ def _cast_elem(prog: Program, e, dt: str):
     return prog.emit("where", e, 1.0, 0.0)
 
 
-def _cast(prog: Program, a, dt: str) -> ScalarArray:
+def _cast(prog, a, dt: str):
     """Elementwise cast between float32 and bool: a float becomes ``x !=
     0``, a bool 1.0 or 0.0, so that a cast value carries the cast's
     semantics into whatever reads it."""
-    a = _as_sa(a)
-    return ScalarArray(a.shape, [_cast_elem(prog, e, dt) for e in a.elems])
+    return _map_elems(prog, lambda e: _cast_elem(prog, e, dt), a)
 
 
-def _xlogy(prog: Program, log_op: str, x, y) -> ScalarArray:
+def _xlogy(prog, log_op: str, x, y):
     """torch's ``xlogy``/``xlog1py``: NaN where y is NaN, else 0 where x
     is 0, else x * log(y) (log1p(y))."""
     def one(a, b):
@@ -475,12 +916,233 @@ def _xlogy(prog: Program, log_op: str, x, y) -> ScalarArray:
                         prog.emit("mul", a, prog.emit(log_op, b)))
         return prog.emit("where", prog.emit("isnan", b), math.nan, out)
 
-    shape, rows = _broadcast(x, y)
-    return ScalarArray(shape, [one(a, b) for a, b in rows])
+    return _map_elems(prog, one, x, y)
 
 
-def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
+def _filled(prog, shape, value):
+    if prog.is_stream_shape(shape):
+        prog.set_length(math.prod(shape))
+        return StreamArray(shape, value)
+    return ScalarArray(shape, [value] * math.prod(shape))
+
+
+def _expand_shape(src_shape, shape):
+    shape = list(shape)
+    off = len(shape) - len(src_shape)
+    return tuple(src_shape[i - off] if s == -1 else s
+                 for i, s in enumerate(shape))
+
+
+def _apply_stream(prog, target, args, kwargs):
+    """The shape ops and reductions of a per-point value; None for the
+    elementwise ops, which :func:`_apply` routes through
+    :func:`_map_elems`."""
     name = getattr(target, "__name__", str(target))
+    a = args[0]
+
+    def reshaped(shape):
+        shape = tuple(shape)
+        if math.prod(shape) != prog.n_pts or \
+                sum(s > 1 for s in shape) != 1:
+            raise ValueError(f"scalarize: '{name}' moves a per-point "
+                             f"(data-axis) value to shape {shape}")
+        return StreamArray(shape, a.elem)
+
+    if not isinstance(a, StreamArray):
+        if target in (aten.cat.default, aten.stack.default):
+            raise ValueError(f"scalarize: aten op '{name}' on a per-point "
+                             "(data-axis) value is not supported")
+        return None
+    if target in (aten.view.default, aten._unsafe_view.default,
+                  aten.reshape.default):
+        return reshaped(_view_shape(args[1], a.size))
+    if target in (aten.squeeze.default, aten.squeeze.dim,
+                  aten.squeeze.dims):
+        return reshaped([s for s in a.shape if s > 1])
+    if target is aten.unsqueeze.default:
+        shape = list(a.shape)
+        shape.insert(args[1] % (len(shape) + 1), 1)
+        return reshaped(shape)
+    if target is aten.expand.default:
+        return reshaped(_expand_shape(a.shape, args[1]))
+    if target is aten.permute.default:
+        return reshaped([a.shape[i] for i in args[1]])
+    if target in (aten.t.default, aten.transpose.int):
+        shape = list(a.shape)
+        i, j = (0, -1) if target is aten.t.default else args[1:3]
+        shape[i], shape[j] = shape[j], shape[i]
+        return reshaped(shape)
+    if target is aten.sum.default:
+        return _reduce_sum(prog, a, None)
+    if target is aten.sum.dim_IntList:
+        dims = args[1] if len(args) > 1 else kwargs.get("dim")
+        keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+        return _reduce_sum(prog, a, dims, keep)
+    elementwise = (set(_UNARY_ATEN) | set(_BINARY_ATEN) | set(_XLOGY_ATEN)
+                   | _IDENTITY_ATEN | set(_FILL_ATEN) | {
+                       aten.add.Tensor, aten.add.Scalar, aten.sub.Tensor,
+                       aten.sub.Scalar, aten.rsub.Scalar, aten.rsub.Tensor,
+                       aten.where.self, aten.sigmoid_backward.default,
+                       aten.tanh_backward.default, aten.masked_fill.Scalar,
+                       aten.masked_fill.Tensor, aten.clamp.default,
+                       aten.clamp_min.default, aten.clamp_max.default,
+                       aten._to_copy.default, aten.full_like.default})
+    if target in elementwise:
+        return None
+    raise ValueError(f"scalarize: aten op '{name}' on a per-point "
+                     "(data-axis) value is not supported")
+
+
+# -- part b: the structured ops, unrolled into straight-line arithmetic ------
+
+def _mats(a: ScalarArray):
+    """The matrices of a (..., n, m) array as nested element lists, with
+    the batch shape."""
+    *batch, n, m = a.shape
+    idx = a.index_array().reshape(-1, n, m)
+    return tuple(batch), [[[a.elems[idx[b, i, j]] for j in range(m)]
+                           for i in range(n)] for b in range(idx.shape[0])]
+
+
+def _from_mats(batch, mats) -> ScalarArray:
+    n, m = len(mats[0]), len(mats[0][0])
+    return ScalarArray(tuple(batch) + (n, m),
+                       [e for M in mats for row in M for e in row])
+
+
+def _transpose(M):
+    return [list(col) for col in zip(*M)]
+
+
+def _chol(prog, A):
+    """Cholesky-Banachiewicz on the lower triangle, gen_tpu's order:
+    ``s = A[i][j] - L[i][0] L[j][0] - ...``, then ``sqrt(s)`` on the
+    diagonal and ``s / L[j][j]`` below it."""
+    n = len(A)
+    L = [[0.0] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            acc = A[i][j]
+            for k in range(j):
+                acc = prog.emit("sub", acc, prog.emit("mul", L[i][k],
+                                                      L[j][k]))
+            L[i][j] = prog.emit("sqrt", acc) if i == j else \
+                prog.emit("div", acc, L[j][j])
+    return L
+
+
+def _trisolve(prog, A, B, lower: bool, unit: bool = False):
+    """``A X = B`` for a triangular ``A`` by forward (``lower``) or back
+    substitution, as gen_tpu's unrolled ``triangular_solve``."""
+    n, m = len(A), len(B[0])
+    X = [[None] * m for _ in range(n)]
+    for i in (range(n) if lower else range(n - 1, -1, -1)):
+        for c in range(m):
+            acc = B[i][c]
+            for k in (range(i) if lower else range(i + 1, n)):
+                acc = prog.emit("sub", acc, prog.emit("mul", A[i][k],
+                                                      X[k][c]))
+            X[i][c] = acc if unit else prog.emit("div", acc, A[i][i])
+    return X
+
+
+def _pairs(a: ScalarArray, b: ScalarArray):
+    """Matrix pairs of two batched arrays (equal batches, or a 2-D ``a``)."""
+    ba, ma = _mats(a)
+    bb, mb = _mats(b)
+    if len(ma) != len(mb) and len(ma) != 1:
+        raise ValueError(f"scalarize: batch shapes {ba} and {bb} of a "
+                         "structured op are not supported")
+    return bb, [(ma[k if len(ma) > 1 else 0], mb[k]) for k in range(len(mb))]
+
+
+def _cholesky_ex(prog, a, upper=False, check_errors=False):
+    batch, mats = _mats(a)
+    out = []
+    for A in mats:
+        L = _chol(prog, _transpose(A) if upper else A)
+        out.append(_transpose(L) if upper else L)
+    info = ScalarArray(batch, [0.0] * math.prod(batch))
+    return _from_mats(batch, out), info
+
+
+def _solve_triangular(prog, a, b, *, upper, left=True, unitriangular=False):
+    batch, pairs = _pairs(a, b)
+    out = []
+    for A, B in pairs:
+        if left:
+            out.append(_trisolve(prog, A, B, not upper, unitriangular))
+        else:        # X A = B  <=>  A^T X^T = B^T
+            out.append(_transpose(_trisolve(prog, _transpose(A),
+                                            _transpose(B), upper,
+                                            unitriangular)))
+    return _from_mats(batch, out)
+
+
+def _cholesky_solve(prog, b, l, upper=False):
+    """``(L L^T) X = B`` (``U^T U`` when ``upper``): two substitutions."""
+    batch, pairs = _pairs(l, b)
+    out = []
+    for L, B in pairs:
+        low = _transpose(L) if upper else L
+        y = _trisolve(prog, low, B, lower=True)
+        out.append(_trisolve(prog, _transpose(low), y, lower=False))
+    return _from_mats(batch, out)
+
+
+def _cholesky_inverse(prog, l, upper=False):
+    n = l.shape[-1]
+    eye = ScalarArray((n, n), [1.0 if i == j else 0.0 for i in range(n)
+                               for j in range(n)])
+    return _cholesky_solve(prog, eye, l, upper)
+
+
+def _tri_mask(prog, a, diagonal=0, lower=True):
+    batch, mats = _mats(a)
+    keep = (lambda i, j: j - i <= diagonal) if lower else \
+        (lambda i, j: j - i >= diagonal)
+    return _from_mats(batch, [[[e if keep(i, j) else 0.0
+                                for j, e in enumerate(row)]
+                               for i, row in enumerate(M)] for M in mats])
+
+
+def _diagonal(prog, a, offset=0, dim1=0, dim2=1):
+    return a.take(np.diagonal(a.index_array(), offset, dim1, dim2))
+
+
+def _diagonal_backward(prog, grad, sizes, offset, dim1, dim2):
+    ids = np.arange(math.prod(sizes)).reshape(sizes)
+    return _scatter_zeros(grad, sizes, np.diagonal(ids, offset, dim1, dim2))
+
+
+_STRUCTURED = {
+    aten.linalg_cholesky_ex.default: _cholesky_ex,
+    aten._linalg_check_errors.default: lambda prog, *a, **k: None,
+    aten.linalg_solve_triangular.default: _solve_triangular,
+    aten.cholesky_solve.default: _cholesky_solve,
+    aten.cholesky_inverse.default: _cholesky_inverse,
+    aten.tril.default: lambda prog, a, diagonal=0: _tri_mask(
+        prog, a, diagonal, True),
+    aten.triu.default: lambda prog, a, diagonal=0: _tri_mask(
+        prog, a, diagonal, False),
+    aten.diagonal.default: _diagonal,
+    aten.diagonal_backward.default: _diagonal_backward,
+}
+
+
+def _apply(prog, target, args, kwargs):
+    name = getattr(target, "__name__", str(target))
+    flat = []
+    torch.fx.node.map_aggregate((args, kwargs), flat.append)
+    if any(isinstance(a, StreamArray) for a in flat):
+        out = _apply_stream(prog, target, args, kwargs)
+        if out is not None:
+            return out
+    elif target in _STRUCTURED:
+        prog.structured = True
+        return _STRUCTURED[target](prog, *args, **kwargs)
+    if target is operator.getitem:
+        return args[0][args[1]]
     if target in _UNARY_ATEN:
         return _elementwise(prog, _UNARY_ATEN[target], args[0])
     if target in _BINARY_ATEN:
@@ -538,14 +1200,15 @@ def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
         return _xlogy(prog, _XLOGY_ATEN[target], args[0], args[1])
     if target in _FILL_ATEN:
         src = args[0]
-        shape = src.shape if isinstance(src, ScalarArray) else tuple(src)
+        shape = _shape_of(src) if isinstance(
+            src, (ScalarArray, StreamArray)) else tuple(src)
         if target in (aten.new_zeros.default, aten.new_ones.default):
             shape = tuple(args[1])
-        return ScalarArray(shape, [_FILL_ATEN[target]] * math.prod(shape))
+        return _filled(prog, shape, _FILL_ATEN[target])
     if target in (aten.full.default, aten.full_like.default):
         shape = tuple(args[0]) if target is aten.full.default \
-            else args[0].shape
-        return ScalarArray(shape, [_f32(args[1])] * math.prod(shape))
+            else _shape_of(args[0])
+        return _filled(prog, shape, _f32(args[1]))
     if target is aten.scalar_tensor.default:
         return _as_sa(args[0])
     if target in (aten.view.default, aten._unsafe_view.default,
@@ -568,10 +1231,12 @@ def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
         return ScalarArray(shape, a.elems)
     if target is aten.expand.default:
         a = args[0]
-        shape = list(args[1])
-        off = len(shape) - len(a.shape)
-        shape = [a.shape[i - off] if s == -1 else s
-                 for i, s in enumerate(shape)]
+        shape = _expand_shape(a.shape, args[1])
+        if a.size == 1 and prog.is_stream_shape(shape):
+            # a per-chain value broadcast along the data axis (e.g. the
+            # cotangent of a data-sum)
+            prog.set_length(math.prod(shape))
+            return StreamArray(shape, a.elems[0])
         return a.take(np.broadcast_to(a.index_array(), shape))
     if target is aten.permute.default:
         a = args[0]
@@ -631,37 +1296,71 @@ def _apply(prog: Program, target, args, kwargs) -> ScalarArray:
         return _reduce_sum(prog, args[0], dims, keep)
     if target in (aten.mm.default, aten.mv.default, aten.dot.default):
         return _matmul(prog, args[0], args[1])
-    if any(k in name for k in _DEFERRED):
-        raise ValueError(
-            f"scalarize: op '{name}' is not supported: staging of "
-            "scan/cond/cholesky/triangular_solve is not ported yet")
+    if target is aten.bmm.default:
+        (ba, ma), (_, mb) = _mats(args[0]), _mats(args[1])
+        out = [_matmul(prog, _from_mats((), [x]), _from_mats((), [y]))
+               for x, y in zip(ma, mb)]
+        return _from_mats(ba, [_mats(o)[1][0] for o in out])
     raise ValueError(f"scalarize: aten op '{name}' is not supported in the "
                      "x-dependent part of logp")
 
 
-def _to_elements(v, res_vals: List[torch.Tensor]):
+def _to_elements(v, res_vals: List[torch.Tensor], staged: Dict):
     """A known (partially evaluated) value as program elements: tensors
-    become staged residual constants, Python numbers stay literals."""
+    become staged residual constants, Python numbers stay literals. A
+    tensor equal to one staged already (the same constant read again, as
+    the unrolled steps of a recursion do) reuses its constants."""
     if isinstance(v, torch.Tensor):
         if v.dtype == torch.bool or not torch.is_floating_point(v):
             vals = v.detach().cpu().reshape(-1).tolist()
             return ScalarArray(v.shape, [bool(e) if v.dtype == torch.bool
                                          else _f32(e) for e in vals])
-        base = sum(int(t.numel()) for t in res_vals)
-        res_vals.append(v.detach().reshape(-1))
-        return ScalarArray(v.shape, [Sym("r", base + i)
-                                     for i in range(v.numel())])
+        flat = v.detach().reshape(-1).to(torch.float32)
+        key = (tuple(v.shape), flat.cpu().numpy().tobytes())
+        if key not in staged:
+            base = sum(int(t.numel()) for t in res_vals)
+            res_vals.append(flat)
+            staged[key] = ScalarArray(v.shape, [Sym("r", base + i)
+                                                for i in range(v.numel())])
+        return staged[key]
     return v
 
 
-def stage_scalarized(logp, d: int, device=None) -> StagedLogp:
+def _joint_graph(logp, x0):
+    """``make_fx`` of ``grad_and_value(logp)`` at ``x0``, functionalized so
+    that in-place ops from autograd's backward formulas (e.g. clamp's
+    ``masked_fill_``) arrive as pure ops. Tracing records each node's value
+    as a fake tensor; one fake mode for the whole trace (a tracing context)
+    spares building a new one, stack trace and all, per node, which is most
+    of the time of an unrolled recursion's trace."""
+    from torch._guards import TracingContext, tracing
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fn = make_fx(torch.func.functionalize(torch.func.grad_and_value(logp),
+                                          remove="mutations"))
+    if TracingContext.try_get() is not None:
+        return fn(x0)
+    with tracing(TracingContext(FakeTensorMode(allow_fallback_kernels=True))):
+        return fn(x0)
+
+
+def stage_scalarized(logp, d: int, device=None,
+                     max_residual_scalars: int = MAX_RESIDUAL_SCALARS,
+                     stream_threshold: int = STREAM_THRESHOLD,
+                     allow_stream: bool = True) -> StagedLogp:
     """Stage ``logp`` for per-chain evaluation; see :class:`StagedLogp`.
-    The data-only part runs once, here, on ``device``."""
-    x0 = torch.zeros((d,), dtype=torch.float32, device=device)
-    # functionalized, so that in-place ops from autograd's backward
-    # formulas (e.g. clamp's masked_fill_) arrive as pure ops
-    gm = make_fx(torch.func.functionalize(torch.func.grad_and_value(logp),
-                                          remove="mutations"))(x0)
+    The data-only part runs once, here, on ``device``.
+
+    A known float (or bool) array with one axis of at least
+    ``stream_threshold`` elements that the x-dependent part reads becomes a
+    row of the stream table instead of residual constants, and every sum
+    over that axis one accumulator of the stream loop (part c). With
+    ``allow_stream=False`` such an array counts against
+    ``max_residual_scalars`` like any other, as in gen_tpu. gen_tpu's
+    ``max_stream_bytes`` (its SMEM budget, above which it streamed from
+    HBM in DMA tiles) has no counterpart: the kernels read the table from
+    device memory in one loop whatever its size."""
+    gm = _joint_graph(logp, torch.zeros((d,), dtype=torch.float32,
+                                        device=device))
 
     known: Dict[Any, Any] = {}
     residual = {}
@@ -669,9 +1368,10 @@ def stage_scalarized(logp, d: int, device=None) -> StagedLogp:
     # follows from them): their elements become literals, not residual
     # constants, so they fold; the generated source stays data-independent
     literal_nodes = set()
-    as_elements: Dict[Any, ScalarArray] = {}
-    prog = Program()
+    as_elements: Dict[Any, Any] = {}
+    st = _Stager(stream_threshold if allow_stream else None)
     res_vals: List[torch.Tensor] = []
+    staged_res: Dict = {}
     out_node = None
 
     def is_res(a):
@@ -690,16 +1390,21 @@ def stage_scalarized(logp, d: int, device=None) -> StagedLogp:
                     as_elements[n] = ScalarArray(v.shape, [
                         _f32(e) for e in v.detach().cpu().reshape(-1)
                         .tolist()])
+                elif isinstance(v, torch.Tensor) and \
+                        st.is_stream_shape(v.shape) and \
+                        (torch.is_floating_point(v) or v.dtype == torch.bool):
+                    as_elements[n] = st.data_leaf(v)
                 else:
-                    as_elements[n] = _to_elements(v, res_vals)
+                    as_elements[n] = _to_elements(v, res_vals, staged_res)
                     total = sum(int(t.numel()) for t in res_vals)
-                    if total > MAX_RESIDUAL_SCALARS:
+                    if total > max_residual_scalars:
                         raise ValueError(
                             f"scalarized residual needs {total} staged "
-                            f"scalars (> {MAX_RESIDUAL_SCALARS}): the "
+                            f"scalars (> {max_residual_scalars}): the "
                             "x-dependent part of this logp touches large "
-                            "arrays (non-sufficient-statistic likelihood?); "
-                            "streamed likelihoods are not ported yet")
+                            "arrays that do not stream (one data axis of "
+                            f">= {stream_threshold} points streams; "
+                            f"allow_stream={allow_stream})")
             return as_elements[n]
         return torch.fx.node.map_arg(a, conv)
 
@@ -721,12 +1426,14 @@ def stage_scalarized(logp, d: int, device=None) -> StagedLogp:
                         and val.numel() <= 64
                         and (node.target in _FILL_ATEN
                              or node.target in (aten.full.default,
-                                                aten.scalar_tensor.default)
+                                                aten.scalar_tensor.default,
+                                                aten.eye.default)
                              or (deps and all(a in literal_nodes
                                               for a in deps)))):
                     literal_nodes.add(node)
             else:
-                residual[node] = _apply(prog, node.target,
+                st.node_name = node.name
+                residual[node] = _apply(st, node.target,
                                         sa_val(node.args),
                                         sa_val(node.kwargs))
         elif node.op == "output":
@@ -744,4 +1451,4 @@ def stage_scalarized(logp, d: int, device=None) -> StagedLogp:
                          for t in res_vals])
     else:
         res = torch.zeros((1,), dtype=torch.float32, device=device)
-    return StagedLogp(d, prog, val_out.elems[0], grad_out.elems, res)
+    return StagedLogp(d, st, val_out.elems[0], grad_out.elems, res)

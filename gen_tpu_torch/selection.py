@@ -5,7 +5,7 @@ hold no tensors, so the classes carry over unchanged.
 ``selection_signature`` and ``static_leaf_paths`` tell Unfold's
 ``regenerate`` when gen_tpu would lower per-step selections onto a masked
 selection; ``batch_selections`` itself waits for ``masked.py`` (ROADMAP
-queue 1 item 12).
+queue 1 item 5).
 """
 
 from __future__ import annotations

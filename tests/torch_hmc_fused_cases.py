@@ -111,20 +111,24 @@ def test_staged_value_and_grad_elementwise_ops():
                                atol=1e-5)
 
 
-def _cholesky_logp(x):
+def _eigh_logp(x):
     a = torch.stack([torch.stack([2.0 + x[0] ** 2, x[1]]),
                      torch.stack([x[1], 2.0 + x[2] ** 2])])
-    return torch.linalg.cholesky(a).sum()
+    return torch.linalg.eigvalsh(a).sum()
 
 
 _DATA = torch.linspace(-1.0, 1.0, 4096)
+_DATA2 = torch.linspace(-1.0, 1.0, 3000)
 
 
 @pytest.mark.parametrize("logp,name", [
     (lambda x: torch.cumsum(x, 0).sum(), "cumsum"),
-    (_cholesky_logp, "cholesky"),
-    # a per-point likelihood that does not collapse: streaming (part c)
-    (lambda x: -torch.sum(torch.log1p((_DATA - x[0]) ** 2)), "staged"),
+    # cholesky and per-point likelihoods stage now (parts b and c,
+    # tests/test_torch_staging_*.py); an eigendecomposition does not
+    (_eigh_logp, "eigh"),
+    # two data axes of different lengths in one streamed likelihood
+    (lambda x: -torch.sum(torch.log1p((_DATA - x[0]) ** 2))
+     - torch.sum(torch.log1p((_DATA2 - x[1]) ** 2)), "lengths"),
 ])
 def test_unsupported_op_raises_with_its_name(logp, name):
     with pytest.raises(ValueError, match=name):

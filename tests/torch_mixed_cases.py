@@ -206,3 +206,31 @@ def test_mixed_fused_sample_requires_observations():
     with pytest.raises(ValueError, match="observations"):
         tmixed.mixed_fused_sample(random.PRNGKey(0, "cpu"), ttrs, one,
                                   sites, observations=None)
+
+
+def test_stitched_chunks_are_each_chains_first_completed_draws():
+    """The fused mixed driver's chunk stitching (``stitch_chunks``): each
+    chain's first m completed draws of the concatenated K3 chunks, m the
+    smallest total, with chains that complete no draw in some chunk (where
+    gen_tpu's per-chunk ``min(cnt)`` would drop the whole chunk)."""
+    rng = np.random.default_rng(0)
+    n, d, steps = 5, 2, 6
+    chunks, expected = [], [[] for _ in range(n)]
+    for c in range(3):
+        inc = rng.integers(0, 2, size=(steps, n))
+        inc[:, c] = 0            # chain c completes nothing in chunk c
+        hcnt = np.cumsum(inc, axis=0).astype(np.int32)
+        hist = (100 * c + 10 * np.arange(steps)[:, None, None]
+                + np.arange(n)[None, :, None] + 0.5 * np.arange(d))
+        for j in range(n):
+            expected[j] += [hist[s, j] for s in range(steps) if inc[s, j]]
+        chunks.append((torch.tensor(hist, dtype=torch.float32),
+                       torch.from_numpy(hcnt),
+                       torch.from_numpy(hcnt[-1].copy())))
+    draws, totals = tmixed.stitch_chunks(chunks)
+    assert totals.tolist() == [len(e) for e in expected]
+    m = min(len(e) for e in expected)
+    assert draws.shape == (m, n, d) and m >= 2
+    for j in range(n):
+        np.testing.assert_array_equal(draws[:, j].numpy(),
+                                      np.asarray(expected[j][:m]))

@@ -251,3 +251,65 @@ def same_choices(jtr, ttr, rtol=1e-8):
         np.testing.assert_allclose(np.asarray(b.numpy(), np.float64),
                                    np.asarray(a, np.float64), rtol=rtol,
                                    err_msg=str(p))
+
+
+# -- the phase-10 models: the streamed robust regression
+# (benchmarks/bench_stream.py) and the collapsed Kalman logp
+# (tests/test_hmc_fused.py::_kalman_logp) -----------------------------------
+
+ROBUST_ADDRS = ("slope", "intercept", "log_noise")
+
+
+def robust_data(n, seed=0):
+    """benchmarks/bench_stream.py::make_data, as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-2.0, 2.0, n)
+    ys = 0.7 * xs + -0.4 + 0.5 * rng.standard_t(4.0, n)
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
+def robust_models(n, seed=0):
+    """(gen_tpu model, port model, ys) of bench_stream's robust-t
+    regression over ``robust_data(n, seed)``."""
+    xs, ys = robust_data(n, seed)
+    jxs, txs = jnp.asarray(xs), torch.from_numpy(xs)
+
+    @gt.gen
+    def jax_robust():
+        slope = gt.normal(0.0, 2.0) @ "slope"
+        intercept = gt.normal(0.0, 2.0) @ "intercept"
+        log_noise = gt.normal(0.0, 1.0) @ "log_noise"
+        gt.student_t(4.0, slope * jxs + intercept,
+                     jnp.exp(log_noise)) @ "ys"
+
+    @tt.gen
+    def torch_robust():
+        slope = tt.normal(0.0, 2.0) @ "slope"
+        intercept = tt.normal(0.0, 2.0) @ "intercept"
+        log_noise = tt.normal(0.0, 1.0) @ "log_noise"
+        tt.student_t(4.0, slope * txs + intercept,
+                     torch.exp(log_noise)) @ "ys"
+
+    return jax_robust, torch_robust, ys
+
+
+def torch_kalman_logp(T=6, seed=0):
+    """The port's counterpart of tests/test_hmc_fused.py::_kalman_logp:
+    priors on (phi, log_q, log_r) and the exact Kalman marginal of a
+    2-state model, float32."""
+    from gen_tpu_torch.models import LGSSMParams, kalman_filter
+    ys = torch.tensor(np.random.default_rng(seed).standard_normal((T, 1)),
+                      dtype=torch.float32)
+    I2 = torch.eye(2)
+
+    def logp(x):
+        phi, log_q, log_r = x[0], x[1], x[2]
+        A = torch.tensor([[0.0, 1.0], [0.0, 0.0]]) + phi * I2
+        Q = torch.exp(log_q) * I2
+        C = torch.tensor([[1.0, 0.0]])
+        R = torch.exp(log_r) * torch.eye(1)
+        params = LGSSMParams(A, Q, C, R, torch.zeros(2), I2)
+        return (kalman_filter(params, ys).log_ml
+                - 0.5 * (phi ** 2 + log_q ** 2 + log_r ** 2))
+
+    return logp

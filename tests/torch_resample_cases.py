@@ -42,9 +42,21 @@ def _log_weights(n, case, rng):
     return lw
 
 
-@pytest.mark.parametrize("n", [1, 1000, 4096, 32768, 65536])
+@pytest.mark.parametrize("n", [1, 1000, 4096])
 @pytest.mark.parametrize("case", ["random", "zero_runs", "dominant"])
 def test_parents_equal_gen_tpu(n, case):
+    _parents_equal_gen_tpu(n, case)
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("case", ["random", "zero_runs", "dominant"])
+def test_parents_equal_gen_tpu_large(n, case):
+    """As :func:`test_parents_equal_gen_tpu`, at and above gen_tpu's
+    32,768-particle switch to the rank merge."""
+    _parents_equal_gen_tpu(n, case)
+
+
+def _parents_equal_gen_tpu(n, case):
     lw = _log_weights(n, case, np.random.default_rng(n))
     lw_j, lw_t = jnp.asarray(lw), torch.tensor(lw)
     zero = np.flatnonzero(np.isneginf(lw))

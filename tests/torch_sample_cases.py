@@ -199,7 +199,7 @@ def _run(model, obs, **kw):
 
 
 REFUSALS = {
-    "mesh": (NotImplementedError, "item 17",
+    "mesh": (NotImplementedError, "item 12",
              lambda: _run(t_vec, tt.choicemap(ys=torch.from_numpy(YS)),
                           mesh=object())),
     "mixed_nuts": (ValueError, "no unobserved continuous",

@@ -164,7 +164,7 @@ def test_masked_constraints_raise():
 
     _, ttr = _dynamic_traces()
     with float64_default():
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             ttr.update(tkey(0), tt.choicemap(a=Masked()))
 
 
@@ -302,7 +302,7 @@ def test_unfold_regenerate(sel):
 def test_unfold_regenerate_per_step_selection_raises():
     _, ttr = _unfold_traces(T=4)
     with float64_default():
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             T_UNFOLD.regenerate(tkey(6), ttr, (4, 0.0), (tt.NoChange,) * 2,
                                 tt.select((1, "x")))
 
