@@ -9,23 +9,30 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (three K1, six K3, four K6,
+   variant from ``gen_tpu_torch/ops/csrc`` (four K1, nine K3, six K6,
    two staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
    per source, all at once), with registers, spills and stack from
-   ptxas.
+   ptxas. K3 and K6 above 32 coordinates (the 100-school model, the d=33
+   and d=40 Gaussians, the mixed regression's extended logp) run one warp
+   per chain; for those the split program's largest per-lane instruction
+   count, hubs and classes are printed beside the serial count.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
      3-d Gaussian with one frozen coordinate. Accept counts equal, values
      and histories within 2e-4.
-   - K3 (pair-scheduled NUTS) and K6 (one leapfrog per tick), each on five
-     configurations at the same leapfrog slots: eight_schools d=10 at
-     8,192 chains (all coordinates) and at 131,072 chains, the 100-school
-     model (d=102) at 32,768 chains, a 4-d Gaussian (8,000 chains, a
-     ragged last block) at eps 0.9 with divergence threshold 4 (the
-     divergence paths) and the same Gaussian with one frozen coordinate,
-     which must never move. Completed and history counts equal, values,
-     histories and stats within 1e-5.
+   - K3 (pair-scheduled NUTS) and K6 (one leapfrog per tick), each on
+     seven configurations at the same leapfrog slots: eight_schools d=10
+     at 8,192 chains (all coordinates) and at 131,072 chains, the
+     100-school model (d=102, one warp per chain) at 32,768 chains, a 4-d
+     Gaussian (8,000 chains, a ragged last block) at eps 0.9 with
+     divergence threshold 4 (the divergence paths), the same Gaussian
+     with one frozen coordinate, which must never move, and in the
+     warp-per-chain layout a d=33 Gaussian (lane 8 owns one coordinate)
+     coupling coordinates 0 and 32 across lanes, and a d=40 one whose
+     coordinate 7 is frozen (8,000 chains each). Completed and history
+     counts equal, values, histories and stats within 1e-5; each line
+     says whether the comparison was bit for bit.
    - K5 (batched categorical) against its plain version with injected
      uniforms (with exact zeros, a row of ties and a NaN row): index
      equality at (300, 37), decode's (432, 27) and (4,672, 27), (16,384,
@@ -48,13 +55,17 @@ nonzero and no result line is printed):
    draws on each of 4,096 chains (``nuts_collect_draws``, all
    coordinates), a 25% burn, every coordinate within 0.05 sd (mean) and 6%
    (sd) of the exact quadrature, split-R-hat below 1.01 on 2,048 chains.
+   At d=102 both kernels must launch in the warp-per-chain layout.
 5. The one-call sampler ``sample_posterior`` on eight_schools through every
    engine (``SAMPLE_RUNS``): ``auto`` (must dispatch to ``nuts_fused`` and
    launch K3) and ``hmc_fused`` (K1) at 131,072 chains, ``nuts_fused`` with
    ``mass="dense"`` (K3 on the whitened logp) at 32,768 chains, and the
    torch-op engines ``nuts_fsm``, ``chees`` and ``nuts`` at 4,096 chains;
-   each call's wall time split into generate, warmup and sampling; gates
-   on the returned samples and summary.
+   then ``nuts_fused`` on the 100-school model at 32,768 chains
+   (``WIDE_RUN``), whose K3 launches must all be warp-per-chain (the
+   kernel's ``layout_launches``); each call's wall time split into
+   generate, warmup and sampling; gates on the returned samples and
+   summary.
 6. The SMC slice, every resampling ``systematic`` (K4) unless named,
    K4's launch count set to 0 before each path and read after:
    a. ``smc_genealogy`` on ``benchmarks/workloads.py::
@@ -109,8 +120,9 @@ nonzero and no result line is printed):
        must pick ``nuts_fused`` and stream; gates 0.05 sd, 6% against
        ``_verify.robust_t_quadrature``, split-R-hat < 1.02. Then n = 10^6
        at 1,024 chains: ChEES on 128 chains (bench_stream.py:178-196),
-       tiled, then K3; gen_tpu's f32 floor for this row (0.3 sd, 12%),
-       split-R-hat < 1.02, the absolute errors printed. Then a short
+       tiled, then K3; the house gate (0.05 sd, 6%; gen_tpu's float32
+       floor for this row was 0.3 sd, 12%), split-R-hat < 1.02, the
+       absolute errors printed. Then a short
        ``sample_posterior(engine="auto")`` at n = 10^6 and 256 chains
        (20 + 20 iterations), gated on the dispatch, the launches and
        finite draws.
@@ -151,6 +163,7 @@ NUTS_WARMUP = 400
 GATE_DRAWS = 1536   # completed draws per chain for the gates
 PLAIN_PAIRS = 10    # the NUTS plain versions are timed over 20 slots
 GAUSS_SDS = [1.0, 3.0, 0.5, 2.0]
+WARP_DS = (33, 40)  # Gaussians for the warp-per-chain layout's edge cases
 YS_8 = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
 SIGMAS_8 = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
 SCHOOL_ADDRS = ("mu", "log_tau", "theta_std")
@@ -389,7 +402,12 @@ def compare_nuts(torch, nf, logp, values0, steps, eps, max_depth,
     errs += [float((sk[s].float() - sp[s].float()).abs().max()) for s in sk]
     n_diff = int((ck != cp).sum()) + int((hck != hcp).any(dim=0).sum())
     ndiv = int(sk["num_divergent"].sum())
-    print(f"{kname} {label}: max |kernel - plain| = {max(errs):.3e}, counts "
+    bitwise = torch.equal(vk, vp) and torch.equal(hk, hp) and all(
+        torch.equal(sk[s], sp[s]) for s in sk)
+    layout = nf.kernel_layout(nf.stage(logp, d, values0.device))
+    print(f"{kname} {label} ({layout} layout): "
+          f"{'bit for bit' if bitwise else 'not bit for bit'}, "
+          f"max |kernel - plain| = {max(errs):.3e}, counts "
           f"differ in {n_diff} of {n} chains, {int(ck.sum())} completed "
           f"trajectories, {ndiv} divergent, mean depth "
           f"{float(sk['mean_depth'].mean()):.2f}")
@@ -605,6 +623,8 @@ def nuts_kernel_path(torch, run, paired, k_err):
 
     hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
     nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+    nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0)
+    layout = nf.kernel_layout(staged)
     (values, hist, _, _, _), first_s = timed(
         torch, lambda: call(run["values"], k_run))
     del hist
@@ -615,10 +635,13 @@ def nuts_kernel_path(torch, run, paired, k_err):
         times.append(t)
     launches = nf.nuts_chains_fused.kernel_launches[kernel]
     other = nf.nuts_chains_fused.launches - launches
-    print(f"{label} {kname}: {launches} launches of {kname}, {other} of the "
-          f"other NUTS kernel, {hmc_chains_fused.launches} of K1")
-    check(launches >= 1 and other == 0,
-          f"{label}: the {kname} path did not run through {kname} alone")
+    in_layout = nf.nuts_chains_fused.layout_launches[layout]
+    print(f"{label} {kname}: {launches} launches of {kname} ({in_layout} in "
+          f"the {layout} layout), {other} of the other NUTS kernel, "
+          f"{hmc_chains_fused.launches} of K1")
+    check(launches >= 1 and other == 0 and in_layout == launches,
+          f"{label}: the {kname} path did not run through {kname} alone, "
+          f"in the {layout} layout")
     _, hist_t, _, cnt_t, stats = out
     check(hist_t.shape == (steps, n_chains)
           and bool(torch.isfinite(hist_t).all()), f"{label}: bad history")
@@ -675,7 +698,7 @@ def nuts_kernel_path(torch, run, paired, k_err):
           f"{accept:.3f}, divergent {ndiv}, completed {completed}; ESS on "
           f"the card {ess_s:.2f} s")
     slots_per_step = 2 if paired else 1
-    return dict(route="cuda",
+    return dict(route="cuda", layout=layout,
                 source="gen_tpu_torch/ops/csrc/" + ("nuts_pair.cu" if paired
                                                     else "nuts_tick.cu"),
                 replaces="gen_tpu/ops/nuts_fused.py:"
@@ -737,6 +760,17 @@ SAMPLE_RUNS = [
     ("nuts", 4096, dict(num_warmup=40, num_samples=30, max_depth=6), LOOSE,
      None),
 ]
+# the same entry point at d=102 (the 100-school model of metric 3), where K3
+# runs one warp per chain. The engine keeps every slot's whole state, so
+# 200 samples (1,600 slots: ~11 GB of history at 102 coordinates and 32,768
+# chains) is what the card holds twice over; the slowest chain then
+# completes ~97 draws. The moments take the strict gate; split-R-hat on
+# half-chains of ~48 autocorrelated draws carries the (tau - 1) / n bias of
+# the short torch-op runs (1.054 on an H100, moments within 0.0012 sd), so
+# it takes their 1.1. Phase 4 holds the d=102 kernels to split-R-hat < 1.01
+# on 1,536 draws per chain.
+WIDE_RUN = ("nuts_fused", 32768, dict(num_warmup=400, num_samples=200),
+            (0.05, 0.06, 1.1), "nuts_pair")
 
 
 class PhaseClock:
@@ -775,21 +809,25 @@ class PhaseClock:
         return False
 
 
-def phase_sample(torch, tt, dev, tag, s8):
-    """The one-call sampler on eight_schools through every engine, each
-    call with the kernels' launch counts set to 0 just before it and read
-    just after; gates on the returned samples and summary. Returns the
-    launches per kernel over all calls."""
+def phase_sample(torch, tt, dev, tag, s8, s100):
+    """The one-call sampler on eight_schools through every engine, then
+    (``WIDE_RUN``) ``nuts_fused`` on the 100-school model, where K3 runs
+    one warp per chain; each call with the kernels' launch counts set to 0
+    just before it and read just after; gates on the returned samples and
+    summary. Returns the launches per kernel over all calls."""
     from gen_tpu_torch import random
     from gen_tpu_torch._verify import schools_exact
     from gen_tpu_torch.inference import sample_posterior
     from gen_tpu_torch.ops import nuts_fused as nf
     from gen_tpu_torch.ops.hmc_fused import hmc_chains_fused
 
-    (model, args, obs, _), ys, sigmas = s8
-    exact = schools_exact(ys, sigmas)
     totals = dict(hmc_fused=0, nuts_pair=0, nuts_tick=0)
-    for engine, chains, kw, (t_mean, t_sd, t_rhat), kernel in SAMPLE_RUNS:
+    runs = [(s8, r) for r in SAMPLE_RUNS] + [(s100, WIDE_RUN)]
+    for (model_args, ys, sigmas), (engine, chains, kw, (t_mean, t_sd, t_rhat),
+                                   kernel) in runs:
+        model, args, obs, _ = model_args
+        exact = schools_exact(ys, sigmas)
+        d = 2 + len(ys)
         key = random.PRNGKey(5, dev)
         k_init = random.split(key)[0]
         _, gen_s = timed(torch, lambda: torch.func.vmap(
@@ -797,6 +835,7 @@ def phase_sample(torch, tt, dev, tag, s8):
             random.split(k_init, chains)))
         hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
         nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
+        nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0)
         clock = PhaseClock(torch, [
             ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
             ("gen_tpu_torch.inference.nuts_fsm", "nuts_fsm"),
@@ -807,6 +846,7 @@ def phase_sample(torch, tt, dev, tag, s8):
                 **kw))
         launches = dict(hmc_fused=hmc_chains_fused.launches,
                         **nf.nuts_chains_fused.kernel_launches)
+        layouts = dict(nf.nuts_chains_fused.layout_launches)
         for k_, v_ in launches.items():
             totals[k_] += v_
         c = clock.calls
@@ -821,14 +861,14 @@ def phase_sample(torch, tt, dev, tag, s8):
         warm = total_s - gen_s - (0.0 if math.isnan(sampling) else sampling)
         info = out.info
         n_draws = out.samples["mu"].shape[0]
-        print(f"{tag} sample_posterior(engine={engine!r}, {chains} chains"
-              f"{', mass=' + kw['mass'] if 'mass' in kw else ''}): ran "
+        print(f"{tag} sample_posterior(engine={engine!r}, d={d}, {chains} "
+              f"chains{', mass=' + kw['mass'] if 'mass' in kw else ''}): ran "
               f"{info['engine']}, {n_draws} draws per chain; {total_s:.2f} "
               f"s = generate {gen_s:.2f} s + warmup "
               + (f"{warm:.2f} s + sampling {sampling:.2f} s"
                  if not math.isnan(sampling) else
                  f"and sampling {warm:.2f} s (one function)")
-              + f"; launches {launches}")
+              + f"; launches {launches}, by layout {layouts}")
         if engine == "auto":
             check(info["engine"] == "nuts_fused"
                   and info["engine_reason"] == "scalarization probe passed",
@@ -839,6 +879,9 @@ def phase_sample(torch, tt, dev, tag, s8):
         else:
             check(launches[kernel] >= 1,
                   f"{engine}: the path did not launch {kernel}")
+        if d > 32 and kernel in ("nuts_pair", "nuts_tick"):
+            check(layouts["warp"] >= 1 and layouts["thread"] == 0,
+                  f"{engine} at d={d}: K3/K6 did not run one warp per chain")
         check(n_draws >= 2 and all(bool(torch.isfinite(v).all())
                                    for v in out.samples.values()),
               f"{engine}: bad samples")
@@ -1849,11 +1892,12 @@ def phase_stream(torch, tt, dev, tag, ctx):
     ``nuts_fused`` with a stream; gates 0.05 sd, 6%, split-R-hat < 1.02
     against the 3-D quadrature. (b) n = 1,000,000 at 1,024 chains: ChEES on
     128 chains (the staged kernel evaluates the logp), tiled to 1,024, then
-    K3; gen_tpu's f32 floor for this row, 0.3 sd and 12%, split-R-hat <
-    1.02. (c) n = 10^6 through ``sample_posterior(engine="auto")`` at 256
-    chains, 20 + 20 iterations: the dispatch and the 8-warp variant under
-    the entry point, gated on the launches and finite draws. Returns
-    launches and times per path."""
+    K3; the house gate, 0.05 sd and 6% (gen_tpu needed a 0.3 sd, 12% floor
+    for this row in float32; the per-lane Kahan sums meet the house gate),
+    split-R-hat < 1.02. (c) n = 10^6 through
+    ``sample_posterior(engine="auto")`` at 256 chains, 20 + 20 iterations:
+    the dispatch and the 8-warp variant under the entry point, gated on the
+    launches and finite draws. Returns launches and times per path."""
     from gen_tpu_torch import random
     from gen_tpu_torch._verify import robust_t_quadrature
     from gen_tpu_torch.diagnostics import rhat
@@ -1941,7 +1985,7 @@ def phase_stream(torch, tt, dev, tag, ctx):
         col = draws[:, :, lo].contiguous()
         samples[p[0]] = col
         summary[p[0]] = {"rhat": rhat(col)}
-    posterior_gate(torch, samples, summary, exact, (0.3, 0.12, 1.02),
+    posterior_gate(torch, samples, summary, exact, (0.05, 0.06, 1.02),
                    f"robust-t n={STREAM_N_BIG}")
     res["b"] = dict(launches=launches["body_stream"],
                     staged_launches=launches["staged_eval"], total_s=total_s,
@@ -2107,6 +2151,18 @@ def phase_build(torch, tt, dev, tag):
     def gauss4_logp(x):
         return -0.5 * torch.sum((x / gsds) ** 2) - 0.3 * x[0] * x[2]
 
+    # the warp-per-chain layout's edges: d=33 (lane 8 owns one coordinate)
+    # with a coupling across lanes, d=40 (a frozen coordinate in phase 2)
+    wsds = {d_: torch.tensor(np.random.default_rng(d_).uniform(
+        0.5, 2.0, d_).astype(np.float32), device=dev) for d_ in WARP_DS}
+
+    def wide_logp(d_):
+        def logp(x):
+            return (-0.5 * torch.sum((x / wsds[d_]) ** 2)
+                    - 0.3 * x[0] * x[d_ - 1])
+        return logp
+    wide_logps = {d_: wide_logp(d_) for d_ in WARP_DS}
+
     s8 = (schools_setup(torch, tt, YS_8, SIGMAS_8, dev), YS_8, SIGMAS_8)
     ys100, sig100 = make_schools(100, seed=0)
     s100 = (schools_setup(torch, tt, ys100, sig100, dev), ys100, sig100)
@@ -2121,6 +2177,7 @@ def phase_build(torch, tt, dev, tag):
         hmc_fused.stage(school_targets["d10"].logp, 10, dev),
         hmc_fused.stage(school_targets["d102"].logp, 102, dev),
         hmc_fused.stage(gauss4_logp, 4, dev)))
+    st_w = {d_: hmc_fused.stage(wide_logps[d_], d_, dev) for d_ in WARP_DS}
     mixed = mixed_setup(torch, tt, dev)
     t_stage = time.perf_counter()
     mixed_builds = mixed_jobs(torch, tt, dev, mixed)
@@ -2137,6 +2194,8 @@ def phase_build(torch, tt, dev, tag):
             (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
             (f"{k} schools d=102", st_102, nf.build_job(st_102, 8, paired)),
             (f"{k} gaussian d=4", st_g4, nf.build_job(st_g4, 5, paired))]
+        builds += [(f"{k} gaussian d={d_}", st_w[d_],
+                    nf.build_job(st_w[d_], 6, paired)) for d_ in WARP_DS]
     _, build_s = timed(torch, lambda: _cuda_build.build_all(
         [job for _, _, job in builds]))
     by_hash = {h: (secs, rep) for h, secs, rep in _cuda_build.BUILD_LOG}
@@ -2147,12 +2206,19 @@ def phase_build(torch, tt, dev, tag):
                 if "registers" in ln or "spill" in ln or "stack" in ln]
         staged = ("" if st is None else f"{st.n_instructions} staged "
                   f"instructions, {st.n_res} residual constants; ")
+        if name[:2] in ("K3", "K6") and nf.kernel_layout(st) == "warp":
+            split = st.warp_split()
+            staged += (f"warp per chain, split program: at most "
+                       f"{split.max_lane_instructions} instructions per "
+                       f"lane, {bin(split.hubs).count('1')} hubs, "
+                       f"{len(split.classes)} classes; ")
         print(f"{name}: {staged}nvcc {secs:.2f} s; " + " | ".join(regs))
     print(f"{tag} staging {stage_s:.3f} s, parallel nvcc build of "
           f"{len(builds)} sources {build_s:.2f} s")
     return dict(k1=(model, X, obs, sel, xs, ys, target, gauss_logp, sds),
                 s8=s8, s100=s100, school_targets=school_targets,
                 gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
+                wide_logps=wide_logps, wsds=wsds,
                 st_102=st_102, stage_s=stage_s, build_s=build_s,
                 mixed=mixed, k2=k2)
 
@@ -2200,6 +2266,25 @@ def phase_compare(torch, ctx, dev, paired):
     check(not torch.equal(vk[:, 0], g4[:, 0]),
           f"{k}: free coordinate never moved")
     print(f"{k} frozen coordinate: unchanged in every chain and step")
+    # the warp-per-chain layout: d=33 with a coupling across lanes, d=40
+    # with coordinate 7 frozen (a ragged last block of chains in both)
+    for d_ in WARP_DS:
+        logp_w, sd_w = ctx["wide_logps"][d_], ctx["wsds"][d_]
+        xw = torch.randn(8000, d_, device=dev) * sd_w
+        inv_w = sd_w ** 2
+        if d_ == 40:
+            inv_w = inv_w * (torch.arange(d_, device=dev) != 7).float()
+        (vk, hk, _, _, _), err = compare_nuts(
+            torch, nf, logp_w, xw, 30 * per, 0.5, 6, None if d_ == 40 else 32,
+            inv_w, 1000.0, 20 + d_, f"gaussian d={d_} (warp per chain)",
+            paired)
+        errs.append(err)
+        if d_ == 40:
+            check(torch.equal(vk[:, 7], xw[:, 7])
+                  and torch.equal(hk[:, :, 7], xw[:, 7].expand(30 * per, -1)),
+                  f"{k}: frozen coordinate moved (d=40)")
+            print(f"{k} d=40 frozen coordinate: unchanged in every chain and "
+                  "step")
     return max(errs)
 
 
@@ -2234,7 +2319,8 @@ def main():
     k3_102, k6_102 = phase_nuts_path(torch, tt, dev, "schools d=102",
                                      ctx["s100"], 32768, tag, errs,
                                      ctx["st_102"])
-    sample_launches = phase_sample(torch, tt, dev, tag, ctx["s8"])
+    sample_launches = phase_sample(torch, tt, dev, tag, ctx["s8"],
+                                   ctx["s100"])
     print(f"{tag} sample_posterior launches over all engines: "
           f"{sample_launches}")
     print(f"{tag} staging {ctx['stage_s']:.3f} s, nvcc build "

@@ -69,11 +69,31 @@ def _seqsum(p: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return acc
 
 
+def _warpsum(p: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over the coordinate axis ``dim`` as the warp-per-chain kernels
+    accumulate: lane l adds its coordinates ``WARP_CPL l ..`` in order (a
+    lane with none gives 0.0), then the butterfly over the 32 lanes."""
+    from ..ops.scalarize import LANES, WARP_CPL, butterfly
+    q = p.movedim(dim, -1)
+    d = q.shape[-1]
+    base = torch.arange(0, d, WARP_CPL, device=p.device)
+    acc = q[..., base]
+    for c in range(1, WARP_CPL):
+        idx = base + c
+        acc = torch.where(idx < d, acc + q[..., idx.clamp(max=d - 1)], acc)
+    pad = acc.new_zeros(acc.shape[:-1] + (LANES - base.shape[0],))
+    return butterfly(torch.cat([acc, pad], dim=-1))[..., 0]
+
+
+# layout -> the sum over coordinates of the kernels with that layout
+_SUMS = {"thread": _seqsum, "warp": _warpsum}
+
+
 def run_ticks(vag: Callable, theta: torch.Tensor, eps, num_ticks: int,
               max_depth: int, inv_mass: torch.Tensor,
               divergence_threshold: float, draw: Callable, collect_idx,
               ckpt_bf16: bool = True, num_sample_slots: int = 0,
-              track_positions: bool = False):
+              track_positions: bool = False, layout: str = "thread"):
     """The one-leapfrog-per-tick FSM-NUTS loop on the ``(d, n)`` state
     ``theta``: every chain does exactly one leapfrog per tick, and the
     subtree/trajectory bookkeeping runs masked around it.
@@ -84,7 +104,10 @@ def run_ticks(vag: Callable, theta: torch.Tensor, eps, num_ticks: int,
     ``(d, 1)`` or ``(d, n)``. ``num_sample_slots`` keeps the first B
     trajectory ends per chain, ``track_positions`` the Welford mean and
     variance of every leapfrog position (both only in ``nuts_fsm``; the
-    kernel K6 has neither). Returns ``(final state dict, hist, hist_cnt)``
+    kernel K6 has neither). ``layout`` orders every sum over coordinates as
+    K6 in that layout does: ``"thread"`` 0..d-1, ``"warp"`` by lanes then
+    the butterfly (:func:`gen_tpu_torch.ops.nuts_fused.kernel_layout`).
+    Returns ``(final state dict, hist, hist_cnt)``
     with ``hist`` ``(ticks, n)`` (coordinate ``collect_idx``) or ``(ticks,
     d, n)`` (``None`` or ``"all"``); ``collect_idx=False`` collects
     nothing and returns ``None`` for both."""
@@ -97,9 +120,10 @@ def run_ticks(vag: Callable, theta: torch.Tensor, eps, num_ticks: int,
     zd = torch.zeros_like(theta)
     ckround = bf16_round if ckpt_bf16 else (lambda x: x)
     levels = max(max_depth - 1, 0)     # checkpoint levels 1..md-1
+    _sum = _SUMS[layout]
 
     def dot_im(a, b):
-        return _seqsum((inv * a) * b)
+        return _sum((inv * a) * b)
 
     def kinetic(r):
         return 0.5 * dot_im(r, r)
@@ -194,8 +218,7 @@ def run_ticks(vag: Callable, theta: torch.Tensor, eps, num_ticks: int,
         # block-end U-turn checks inside the subtree, every level at once
         ends = ((sn + 1) & lvl_mask) == 0
         ib = inv * (rs - ck_s)
-        turning = (_seqsum(ib * ck_r, 1) <= 0.0) | (_seqsum(ib * r, 1)
-                                                     <= 0.0)
+        turning = (_sum(ib * ck_r, 1) <= 0.0) | (_sum(ib * r, 1) <= 0.0)
         turning_sub = torch.any(ends & turning, dim=0)
         sub_done = (sn + 1 >= nl) | turning_sub | dv
 
@@ -256,12 +279,14 @@ def run_ticks(vag: Callable, theta: torch.Tensor, eps, num_ticks: int,
 def run_pairs(vag: Callable, theta: torch.Tensor, eps: float,
               num_pairs: int, max_depth: int, inv_mass: torch.Tensor,
               divergence_threshold: float, draw: Callable, collect_idx,
-              ckpt_bf16: bool = True):
+              ckpt_bf16: bool = True, layout: str = "thread"):
     """The pair-scheduled FSM-NUTS loop on the ``(d, n)`` state ``theta``.
 
     ``vag(x (d, n)) -> (logp (n,), grad (d, n))``; ``draw(p)`` returns pair
     ``p``'s randomness ``(z (d, n), [u_dir0, u_take1, u_bias1, u_dir1,
-    u_take2, u_bias2, u_dir2])``. Returns ``(final state dict, hist,
+    u_take2, u_bias2, u_dir2])``; ``layout`` orders the sums over
+    coordinates as K3 in that layout does (see :func:`run_ticks`).
+    Returns ``(final state dict, hist,
     hist_cnt)``; ``hist`` is ``(pairs, n)`` (coordinate ``collect_idx``)
     or ``(pairs, d, n)`` (``collect_idx`` None or ``"all"``)."""
     d, n = theta.shape
@@ -273,9 +298,10 @@ def run_pairs(vag: Callable, theta: torch.Tensor, eps: float,
     zd = torch.zeros_like(theta)
     ckround = bf16_round if ckpt_bf16 else (lambda x: x)
     levels = max(max_depth - 1, 0)     # checkpoint levels 1..md-1
+    _sum = _SUMS[layout]
 
     def dot_im(a, b):
-        return _seqsum((inv * a) * b)
+        return _sum((inv * a) * b)
 
     def kinetic(r):
         return 0.5 * dot_im(r, r)

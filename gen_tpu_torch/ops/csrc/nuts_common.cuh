@@ -12,6 +12,15 @@
 // an edit here rebuilds every kernel that splices it). The NUTS kernels
 // define NUTS_D, NUTS_UNROLL, NUTS_VAG_INLINE and staged_vag first; the
 // helpers that need them exist only where NUTS_D is defined.
+//
+// The NUTS kernels have two layouts, and ops/nuts_fused.py keeps the lines
+// of one: those between a "LAYOUT thread" marker line and the next "LAYOUT
+// end" (one thread per chain: d <= 32, or a streamed likelihood) or those
+// between "LAYOUT warp" and "LAYOUT end" (one warp per chain, 32 < d <=
+// 128: lane l owns coordinates 4l .. 4l+3, in registers, and every sum over
+// coordinates is the lanes' partial sums, each in coordinate order, then a
+// fixed butterfly of shuffles). K5 splices the whole file; neither layout's
+// helpers exist there (it defines neither NUTS_D nor NUTS_CPL).
 
 namespace {
 
@@ -19,6 +28,7 @@ constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+// @@LAYOUT thread@@
 #ifdef NUTS_D
 __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
                                     float& lp, float* g,
@@ -26,6 +36,7 @@ __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
   staged_vag(x, r, lp, g, sd, n_pts);
 }
 #endif
+// @@LAYOUT end@@
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -57,6 +68,7 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
   z1 = r * s;
 }
 
+// @@LAYOUT thread@@
 #ifdef NUTS_D
 // NUTS_D standard normals from Philox counters (i, step, tag0 + c, 0),
 // c = 0..ceil(NUTS_D / 4) - 1
@@ -76,6 +88,7 @@ __device__ __forceinline__ void philox_normals(float* z, uint32_t i,
 }
 
 #endif  // NUTS_D
+// @@LAYOUT end@@
 
 // jnp.logaddexp's formula, as the twin writes it out
 __device__ __forceinline__ float logaddexp(float a, float b) {
@@ -102,6 +115,7 @@ __device__ __forceinline__ float unpack_lo(uint32_t p) {
   return __uint_as_float(p << 16);
 }
 
+// @@LAYOUT thread@@
 #ifdef NUTS_D
 // sum_j (inv_j a_j) b_j, j = 0..D-1 in order
 __device__ __forceinline__ float dot_im(const float* inv, const float* a,
@@ -143,5 +157,92 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
   for (int k = 0; k < NUTS_D; ++k) dst[k] = src[k];
 }
 #endif  // NUTS_D
+// @@LAYOUT end@@
+
+// @@LAYOUT warp@@
+#ifdef NUTS_CPL
+static_assert(NUTS_CPL == 4, "a lane's momentum normals are one Philox block");
+
+__device__ __forceinline__ void vag(const float* xv, const float* r,
+                                    float& lp, float* gv, int lane) {
+  staged_vag_warp(xv, r, lp, gv, lane);
+}
+
+// does the lane own slot c (coordinate NUTS_CPL lane + c < NUTS_D)?
+__device__ __forceinline__ bool owns(int lane, int c) {
+  return NUTS_CPL * lane + c < NUTS_D;
+}
+
+// the lane's four standard normals, coordinates 4 lane .. 4 lane + 3: the
+// Philox block (i, step, tag0 + lane, 0), as the one-thread layout's
+// philox_normals draws it for those coordinates
+__device__ __forceinline__ void lane_normals(float* z, uint32_t i,
+                                             uint32_t step, uint32_t tag0,
+                                             uint2 key, int lane) {
+  const uint4 b = philox4x32_10(make_uint4(i, step, tag0 + lane, 0u), key);
+  box_muller(b.x, b.y, z[0], z[1]);
+  box_muller(b.z, b.w, z[2], z[3]);
+}
+
+// the butterfly: every lane ends with the same bits (IEEE addition commutes)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// sum_j (inv_j a_j) b_j: each lane over its coordinates in order (0.0 on a
+// lane with none), then the butterfly
+__device__ __forceinline__ float dot_im(const float* inv, const float* a,
+                                        const float* b, int lane) {
+  float acc = 0.0f;
+  if (owns(lane, 0)) {
+    acc = (inv[0] * a[0]) * b[0];
+#pragma unroll
+    for (int c = 1; c < NUTS_CPL; ++c)
+      if (owns(lane, c)) acc = acc + (inv[c] * a[c]) * b[c];
+  }
+  return warp_sum(acc);
+}
+
+__device__ __forceinline__ float kinetic(const float* inv, const float* r,
+                                         int lane) {
+  return 0.5f * dot_im(inv, r, r, lane);
+}
+
+__device__ __forceinline__ bool uturn(const float* inv, const float* rho,
+                                      const float* ra, const float* rb,
+                                      int lane) {
+  // every lane holds the same sums, so the short cut is warp-uniform
+  return (dot_im(inv, rho, ra, lane) <= 0.0f)
+      || (dot_im(inv, rho, rb, lane) <= 0.0f);
+}
+
+// the U-turn test of a checkpoint block (see the one-thread version)
+__device__ __forceinline__ bool uturn_block(const float* inv, const float* rs,
+                                            const uint32_t* ck,
+                                            const float* rb, int lane) {
+  float a = 0.0f, b = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NUTS_CPL; ++c) {
+    if (!owns(lane, c)) continue;
+    const float br = rs[c] - unpack_lo(ck[c]);
+    const float ta = (inv[c] * br) * unpack_hi(ck[c]);
+    const float tb = (inv[c] * br) * rb[c];
+    a = c == 0 ? ta : a + ta;
+    b = c == 0 ? tb : b + tb;
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+  return a <= 0.0f || b <= 0.0f;
+}
+
+__device__ __forceinline__ void copy(float* dst, const float* src) {
+#pragma unroll
+  for (int c = 0; c < NUTS_CPL; ++c) dst[c] = src[c];
+}
+#endif  // NUTS_CPL
+// @@LAYOUT end@@
 
 }  // namespace

@@ -22,6 +22,14 @@ Where PyTorch and Hopper forced differences:
   points per warp): the kernel's stream loop (staging part c) strides the
   lanes over the data points. gen_tpu's ``has_stream``/``stream_hbm``
   variants (SMEM table, or HBM DMA tiles) are one loop over device memory.
+- Two layouts (:func:`kernel_layout`): one thread per chain holds the
+  chain's state where it fits (d <= 32, streams, and for now d > 128);
+  for 32 < d <= 128 a warp runs one chain, lane l holding coordinates
+  ``4l .. 4l+3`` in registers, every sum over coordinates split into lane
+  partials and a butterfly, the staged program split over the lanes
+  (:class:`~gen_tpu_torch.ops.scalarize.SplitProgram`). The plain version
+  follows the layout's order of sums (``run_pairs``/``run_ticks``
+  ``layout=``), so it stays the kernel's plain version at every d.
 - The plain versions are :func:`gen_tpu_torch.inference.nuts_fsm.run_ticks`
   (K6) and :func:`~gen_tpu_torch.inference.nuts_fsm.run_pairs` (K3), the
   port's ``nuts_fsm`` and ``nuts_fsm_paired`` loops, driven by the torch
@@ -51,7 +59,7 @@ from ..inference.nuts_fsm import (injected_draws, key_draws, run_pairs,
 from ..utils import sqrt_mass_safe
 from . import _cuda_build, scalarize
 from .hmc_fused import stage
-from .scalarize import StagedLogp, block_size
+from .scalarize import LANES, WARP_CPL, StagedLogp, block_size
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
@@ -91,18 +99,56 @@ def extract_completed_draws(hist, hist_cnt, m: int):
     return out.permute(1, 0, 2)
 
 
+def kernel_layout(staged: StagedLogp) -> str:
+    """``"warp"`` (one warp per chain, lane l holding coordinates ``4l ..
+    4l+3``) for ``32 < d <= 128`` without a stream loop; else
+    ``"thread"``: one thread per chain, or a warp (a block) per chain over
+    the data points of a streamed likelihood."""
+    if not staged.streams and LANES < staged.d <= LANES * WARP_CPL:
+        return "warp"
+    return "thread"
+
+
+def keep_layout(text: str, layout: str) -> str:
+    """``text`` without the marker lines ``// @@LAYOUT <name>@@`` and ``//
+    @@LAYOUT end@@``, and without the lines between them of every layout
+    other than ``layout``."""
+    out, keep = [], True
+    for line in text.splitlines(keepends=True):
+        if line.startswith("// @@LAYOUT "):
+            name = line.strip()[len("// @@LAYOUT "):-2]
+            keep = name in ("end", layout)
+            continue
+        if keep:
+            out.append(line)
+    return "".join(out)
+
+
 def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
-    """The CUDA source of K3 (``paired``) or K6 with the shared helpers and
-    the staged program spliced in (the build hashes this whole text)."""
-    defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {staged.n_res}\n"
-               f"#define NUTS_MD {int(max_depth)}\n"
-               f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
-               f"#define NUTS_LANES {staged.lanes}")
-    src = (_CSRC_DIR / _KERNELS[paired][1]).read_text()
+    """The CUDA source of K3 (``paired``) or K6 in the layout
+    :func:`kernel_layout` picks, with the shared helpers and the staged
+    program spliced in (the build hashes this whole text)."""
+    layout = kernel_layout(staged)
+    if layout == "thread":
+        defines = (f"#define NUTS_D {staged.d}\n"
+                   f"#define NUTS_R {staged.n_res}\n"
+                   f"#define NUTS_MD {int(max_depth)}\n"
+                   f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
+                   f"#define NUTS_LANES {staged.lanes}")
+        vag_src = staged.cuda_source()
+    else:
+        split = staged.warp_split()
+        defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {split.n_res}\n"
+                   f"#define NUTS_MD {int(max_depth)}\n"
+                   f"#define NUTS_BLOCK {BLOCK}\n"
+                   f"#define NUTS_LANES {LANES}\n"
+                   f"#define NUTS_CPL {WARP_CPL}")
+        vag_src = split.cuda_source()
+    src = keep_layout((_CSRC_DIR / _KERNELS[paired][1]).read_text(), layout)
+    common = keep_layout((_CSRC_DIR / "nuts_common.cuh").read_text(), layout)
     return (src.replace("// @@DEFINES@@", defines)
-            .replace("// @@STAGED_VAG@@", staged.cuda_source())
-            .replace("// @@NUTS_COMMON@@",
-                     (_CSRC_DIR / "nuts_common.cuh").read_text()))
+            .replace("// @@STAGED_VAG@@", vag_src)
+            .replace("// @@NUTS_COMMON@@", common))
 
 
 def build_job(staged: StagedLogp, max_depth: int, paired: bool):
@@ -205,7 +251,9 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
         counts = torch.empty((n,), dtype=torch.int32, device=dev)
         stats = torch.empty((5, n), dtype=torch.float32, device=dev)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
-        res = staged.res_consts.contiguous()
+        layout = kernel_layout(staged)
+        res = (staged.res_consts if layout == "thread"
+               else staged.warp_split().res_consts).contiguous()
         sd = scalarize.stream_table(staged, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
@@ -219,6 +267,7 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
     _cuda_build.check_launch(rc, name)
     nuts_chains_fused.launches += 1
     nuts_chains_fused.kernel_launches[name] += 1
+    nuts_chains_fused.layout_launches[layout] += 1
     scalarize.count_body_launch(staged)
     # accept sum, depth sum, divergences, in-flight alpha sum and leapfrogs
     five = (stats[0], stats[1], stats[2].to(torch.int32), stats[3],
@@ -226,9 +275,11 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
     return _outputs(vout, hist, hist_cnt, counts, five, collect_idx)
 
 
-# launches of either kernel, and of each (K3 "nuts_pair", K6 "nuts_tick")
+# launches of either kernel, of each (K3 "nuts_pair", K6 "nuts_tick") and
+# in each layout (kernel_layout: "thread" or "warp")
 nuts_chains_fused.launches = 0
 nuts_chains_fused.kernel_launches = {"nuts_pair": 0, "nuts_tick": 0}
+nuts_chains_fused.layout_launches = {"thread": 0, "warp": 0}
 
 
 def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
@@ -240,10 +291,13 @@ def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
     """The kernels' plain PyTorch version, on any device: the port's
     ``nuts_fsm`` loop (:func:`run_ticks`, K6) or ``nuts_fsm_paired`` loop
     (:func:`run_pairs`, K3) through the torch rendering of the staged
-    program, in float32 with the kernel's roundings and summation order.
-    Without ``injected_rng`` each chain draws from its own key,
-    ``random.split(key, n)``, as gen_tpu's XLA path does."""
+    program, in float32 with the kernel's roundings and summation order:
+    in the warp-per-chain layout the split program and the lanes' sums
+    (:func:`kernel_layout`). Without ``injected_rng`` each chain draws from
+    its own key, ``random.split(key, n)``, as gen_tpu's XLA path does."""
     staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx)
+    layout = kernel_layout(staged)
+    vag = staged.vag if layout == "thread" else staged.warp_split().vag
     d, n = vt.shape
     dev = vt.device
     n_u = _KERNELS[paired][2]
@@ -254,8 +308,9 @@ def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
             if injected_rng is None
             else injected_draws(injected_rng, n, d, torch.float32, dev, n_u))
     s, hist, hist_cnt = loop(
-        staged.vag, vt, float(eps), steps, max_depth, inv.reshape(d, 1),
-        divergence_threshold, draw, collect_idx, ckpt_bf16=True)
+        vag, vt, float(eps), steps, max_depth, inv.reshape(d, 1),
+        divergence_threshold, draw, collect_idx, ckpt_bf16=True,
+        layout=layout)
     five = (s["acc_sum"], s["depth_sum"], s["div"], s["asum"], s["nlf"])
     return _outputs(s["theta"], hist, hist_cnt, s["count"], five,
                     collect_idx)

@@ -55,6 +55,11 @@ The pass:
   included: 32 lanes per chain (a warp; more warps per chain above
   ``POINTS_PER_WARP`` points per warp) each sum every 32nd point, then a
   fixed butterfly of shuffles, and the warps' totals in warp order.
+- **Split over a warp** (:class:`SplitProgram`, no counterpart in gen_tpu):
+  for the warp-per-chain layout of K3 and K6 (32 < d <= 128) the same
+  instructions run on the lanes that own their coordinates, and each
+  reduction (recorded in ``Program.reductions``) becomes lane partials
+  plus the butterfly; rendered as CUDA and as torch in that order.
 
 A cast between float32 and bool becomes ``x != 0`` or ``b ? 1 : 0``, and
 ``xlogy``/``xlog1py`` are written out as torch computes them: the mixed
@@ -66,6 +71,7 @@ unrolling, in gen_tpu as here.
 
 from __future__ import annotations
 
+import heapq
 import math
 import operator
 from typing import Any, Dict, List, Optional, Tuple
@@ -234,13 +240,17 @@ class Program:
     ``r[0..R-1]`` and the data-sums ``s<k>``; ``after`` maps each of its
     instructions that reads a data-sum (directly or not) to that sum, so
     that it can run after the stream loop. A per-point program (``kind
-    "p"``) is the stream loop's body."""
+    "p"``) is the stream loop's body. ``reductions`` maps the last add of
+    each reduction's chain to the chain's operands (three or more, after
+    folding): the serial renderings write the chain, the warp-per-chain
+    rendering (:class:`SplitProgram`) one n-ary sum split over lanes."""
 
     def __init__(self, kind: str = "t"):
         self.kind = kind
         self.instrs: List[Tuple[str, Tuple]] = []   # (op, args)
         self.dtypes: List[str] = []
         self.after: Dict[int, int] = {}
+        self.reductions: Dict[int, Tuple] = {}
         self._memo: Dict[Tuple, Sym] = {}
 
     def emit(self, op: str, *args):
@@ -465,6 +475,16 @@ def _pt(v):
         and v.dim() else v
 
 
+def butterfly(tot: torch.Tensor) -> torch.Tensor:
+    """A warp's shuffle tree over the last axis (its 32 lanes): ``v + v[lane
+    ^ off]`` for ``off = 16, 8, 4, 2, 1`` (``__shfl_xor_sync`` in the
+    kernels), which leaves every lane with the same bits."""
+    lane = torch.arange(LANES, device=tot.device)
+    for off in (16, 8, 4, 2, 1):
+        tot = tot + tot[..., lane ^ off]
+    return tot
+
+
 def _stream_sums(point, sd: torch.Tensor, n_sums: int, batch, n_instr: int,
                  lanes: int):
     """The plain version of the kernels' stream loop: each of ``lanes``
@@ -503,10 +523,8 @@ def _stream_sums(point, sd: torch.Tensor, n_sums: int, batch, n_instr: int,
             if not bool(live.all()):
                 t, c = torch.where(live, t, acc), torch.where(live, c, comp)
             acc, comp = t, c
-    tot = (acc - comp).reshape(acc.shape[:-1] + (lanes // LANES, LANES))
-    in_warp = torch.arange(LANES, device=sd.device)
-    for off in (16, 8, 4, 2, 1):
-        tot = tot + tot[..., in_warp ^ off]
+    tot = butterfly((acc - comp).reshape(acc.shape[:-1]
+                                         + (lanes // LANES, LANES)))
     out = tot[..., 0, 0]
     for w in range(1, lanes // LANES):
         out = out + tot[..., w, 0]
@@ -569,6 +587,7 @@ class StagedLogp:
         self.structured = st.structured
         self.libs: Dict[Any, Any] = {}      # built kernels, per variant
         self._cuda_src: Optional[str] = None
+        self._warp: Optional["SplitProgram"] = None
         self.torch_source = self._render_torch()
         namespace = {"torch": torch, "inf": math.inf, "nan": math.nan,
                      "_pt": _pt, "_stream_sums": _stream_sums}
@@ -708,11 +727,20 @@ class StagedLogp:
     def vag(self, x: torch.Tensor):
         """Value and gradient at ``x`` of shape ``(d, n)`` through the torch
         rendering: ``(lp (n,), grad (d, n))``."""
+        return self._call(self._torch_fn, x)
+
+    def warp_split(self) -> "SplitProgram":
+        """The program split over a warp's lanes (:class:`SplitProgram`),
+        made once."""
+        if self._warp is None:
+            self._warp = SplitProgram(self)
+        return self._warp
+
+    def _call(self, fn, x: torch.Tensor):
         sd = None
         if self.stream_data is not None:
             sd = self.stream_data.to(x.device)
-        lp, gs = self._torch_fn(list(x), list(self.res_consts.to(x.device)),
-                                sd)
+        lp, gs = fn(list(x), list(self.res_consts.to(x.device)), sd)
         shape = x.shape[1:]
 
         def full(v):
@@ -720,6 +748,565 @@ class StagedLogp:
             return v.expand(shape)
 
         return full(lp), torch.stack([full(g) for g in gs])
+
+
+# -- the warp-per-chain rendering ---------------------------------------------
+
+# coordinates per lane in the warp-per-chain layout: lane l owns the
+# WARP_CPL consecutive coordinates WARP_CPL l .. WARP_CPL l + WARP_CPL - 1,
+# so one chain spans at most LANES * WARP_CPL coordinates
+WARP_CPL = 4
+# a coordinate that appears, outside the reductions, beside at least this
+# many others is a hub: every lane reads it and computes what depends on
+# the hubs alone
+HUB_DEGREE = 8
+_FULL = "0xffffffffu"
+
+
+def _bits(m: int):
+    while m:
+        low = m & -m
+        yield low.bit_length() - 1
+        m ^= low
+
+
+def _lane_sum(parts, like):
+    """The plain version of a split sum: each lane adds its operands left
+    to right in float32 (a lane with none gives 0.0), then
+    :func:`butterfly`; every lane holds the result."""
+    vals = []
+    for ops in parts:
+        acc = torch.zeros((), dtype=torch.float32, device=like.device)
+        if ops:
+            acc = torch.as_tensor(ops[0], dtype=torch.float32,
+                                  device=like.device)
+            for o in ops[1:]:
+                acc = acc + o
+        vals.append(acc)
+    shape = torch.broadcast_shapes(*[v.shape for v in vals])
+    tot = torch.stack([torch.broadcast_to(v, shape) for v in vals], dim=-1)
+    return butterfly(tot)[..., 0]
+
+
+class SplitProgram:
+    """The staged program of a ``d``-coordinate model (``LANES < d <=
+    LANES * WARP_CPL``, no stream) split over the 32 lanes of the warp that
+    runs one chain; lane ``l`` owns coordinates ``WARP_CPL l`` to ``WARP_CPL
+    l + WARP_CPL - 1``.
+
+    - The **hubs** are picked greedily: while some coordinate appears,
+      outside the reductions, beside ``HUB_DEGREE`` or more others, the one
+      beside the most (the lowest on a tie) becomes a hub. Every lane reads
+      the hubs (a ``__shfl_sync`` from their owners).
+    - An instruction whose operands hold one non-hub coordinate ``k`` runs
+      on ``k``'s owner lane (it is *local* to ``k``), and so does one of
+      the hubs alone whose every user is local to ``k``. One whose
+      operands hold none, or two or more, runs on every lane (*shared*):
+      the values it needs from other lanes come by ``__shfl_sync``.
+    - A reduction (``Program.reductions``) with an operand local to some
+      lane is split: each lane adds its own operands in operand order (the
+      shared ones go to lane 0; a lane with none gives 0.0), then the
+      butterfly of :func:`butterfly`. Every lane ends with the same bits.
+    - The local instructions of coordinates with the same structure form a
+      **class**, rendered once as SIMT code over the lanes' slots; their
+      residual constants are indexed by the coordinate (an affine index, or
+      a block of gathered constants appended to ``res_consts``).
+    - ``g[k]`` ends on ``k``'s owner lane, ``lp`` on every lane.
+
+    The torch rendering (:meth:`vag`) evaluates the same instructions; it
+    differs from the serial one only in the order of the split sums, which
+    it follows exactly."""
+
+    def __init__(self, staged: "StagedLogp"):
+        d = self.d = staged.d
+        if staged.streams or not LANES < d <= LANES * WARP_CPL:
+            raise ValueError(f"scalarize: no warp-per-chain split for d={d}"
+                             + (" with a stream loop" if staged.streams
+                                else ""))
+        self.staged = staged
+        self._reach = self._reachable(staged)
+        self.hubs = self._pick_hubs()
+        self._place = self._placement()
+        extra: List[float] = []
+        self._build_classes(extra, singletons=False)
+        if self._order is None:         # a cycle between classes: split them
+            self._build_classes(extra, singletons=True)
+        extra_t = torch.tensor(extra, dtype=torch.float32,
+                               device=staged.res_consts.device)
+        self.res_consts = torch.cat([staged.res_consts, extra_t]) \
+            if extra else staged.res_consts
+        self.n_res = int(self.res_consts.shape[0])
+        self.n_lane_instructions = self._lane_counts()
+        self._cuda_src: Optional[str] = None
+        self.torch_source = self._render_torch()
+        namespace = {"torch": torch, "inf": math.inf, "nan": math.nan,
+                     "_lane_sum": _lane_sum}
+        exec(compile(self.torch_source, "<staged_vag_warp>", "exec"),
+             namespace)
+        self._torch_fn = namespace["staged_vag_warp"]
+
+    # -- analysis ---------------------------------------------------------
+
+    def _args(self, j):
+        red = self.staged.prog.reductions
+        return ("sum", red[j]) if j in red else self.staged.prog.instrs[j]
+
+    def _reachable(self, staged):
+        """The instructions the outputs need, in program order, with each
+        reduction as one node over its operands."""
+        seen, stack = set(), [e.idx for e in [staged.lp] + staged.grads
+                              if isinstance(e, Sym) and e.kind == "t"]
+        while stack:
+            j = stack.pop()
+            if j in seen:
+                continue
+            seen.add(j)
+            stack += [a.idx for a in self._args(j)[1]
+                      if isinstance(a, Sym) and a.kind == "t"]
+        return sorted(seen)
+
+    def _pick_hubs(self) -> int:
+        """The hub coordinates as a bit mask (see the class note): the
+        footprints here stop at reductions."""
+        foot: Dict[int, int] = {}
+        for j in self._reach:
+            op, args = self._args(j)
+            m = 0
+            if op != "sum":
+                for a in args:
+                    if isinstance(a, Sym) and a.kind == "x":
+                        m |= 1 << a.idx
+                    elif isinstance(a, Sym) and a.kind == "t":
+                        m |= foot[a.idx]
+            foot[j] = m
+        masks = {m for m in foot.values() if m & (m - 1)}
+        hubs = 0
+        while True:
+            near = [0] * self.d
+            for m in {m & ~hubs for m in masks}:
+                if m & (m - 1):
+                    for k in _bits(m):
+                        near[k] |= m
+            deg = [bin(near[k] & ~(1 << k)).count("1")
+                   for k in range(self.d)]
+            best = max(range(self.d), key=lambda k: (deg[k], -k))
+            if deg[best] < HUB_DEGREE:
+                return hubs
+            hubs |= 1 << best
+
+    def _is_hub(self, k: int) -> bool:
+        return bool(self.hubs >> k & 1)
+
+    def _placement(self) -> Dict[int, int]:
+        """Instruction -> the non-hub coordinate it is local to, or -1
+        (shared: every lane runs it). An instruction of the hubs alone
+        whose every user is local to one coordinate (a per-coordinate term
+        such as ``slope * x_i + intercept``) is local to it too."""
+        place: Dict[int, int] = {}
+        users: Dict[int, List[int]] = {}
+        hub_only = set()
+        for j in self._reach:
+            op, args = self._args(j)
+            ks = set()
+            for a in args:
+                if isinstance(a, Sym) and a.kind == "t":
+                    users.setdefault(a.idx, []).append(j)
+                k = self._local_of(a, place)
+                if k >= 0 and op != "sum":
+                    ks.add(k)
+            place[j] = ks.pop() if len(ks) == 1 else -1
+            if op != "sum" and not any(self._local_of(a, place) >= 0
+                                       for a in args):
+                hub_only.add(j)
+        outputs = {e.idx for e in [self.staged.lp] + self.staged.grads
+                   if isinstance(e, Sym) and e.kind == "t"}
+        for j in reversed(self._reach):
+            if j not in hub_only or j in outputs or j not in users:
+                continue
+            ks = {place[u] for u in users[j]}
+            if len(ks) == 1 and min(ks) >= 0:
+                place[j] = ks.pop()
+        return place
+
+    def _local_of(self, a, place=None) -> int:
+        place = self._place if place is None else place
+        if isinstance(a, Sym) and a.kind == "x" and not self._is_hub(a.idx):
+            return a.idx
+        if isinstance(a, Sym) and a.kind == "t":
+            return place[a.idx]
+        return -1
+
+    def _build_classes(self, extra, singletons: bool):
+        """Group the coordinates whose local instructions have the same
+        structure; schedule the classes' instruction positions and the
+        shared instructions (``self._order``, None on a cycle)."""
+        extra.clear()
+        per_k: Dict[int, List[int]] = {}
+        for j in self._reach:
+            if self._place[j] >= 0:
+                per_k.setdefault(self._place[j], []).append(j)
+        self._pos = {j: p for js in per_k.values() for p, j in enumerate(js)}
+        groups: Dict[Any, List[int]] = {}
+        for k in sorted(per_k):
+            key = (k,) if singletons else tuple(
+                self._signature(j, k) for j in per_k[k])
+            groups.setdefault(key, []).append(k)
+        self.classes = list(groups.values())       # members, ascending
+        self._class_of = {k: c for c, ks in enumerate(self.classes)
+                          for k in ks}
+        self._lists = per_k
+        self._leaf: Dict[Tuple[int, int, int], str] = {}
+        for c, ks in enumerate(self.classes):
+            for p in range(len(per_k[ks[0]])):
+                args = self._args(per_k[ks[0]][p])[1]
+                for ai, a in enumerate(args):
+                    col = [self._args(per_k[k][p])[1][ai] for k in ks]
+                    if isinstance(a, Sym) and a.kind == "r":
+                        self._leaf[(c, p, ai)] = self._r_index(
+                            ks, [e.idx for e in col], extra)
+                    elif isinstance(a, float):
+                        self._leaf[(c, p, ai)] = self._literal(
+                            ks, col, extra)
+        self._order = self._schedule()
+
+    def _signature(self, j, k):
+        op, args = self._args(j)
+        sig = []
+        for a in args:
+            if isinstance(a, Sym) and a.kind == "x":
+                sig.append(("own",) if a.idx == k else ("hub", a.idx))
+            elif isinstance(a, Sym) and a.kind == "t":
+                sig.append(("loc", self._pos[a.idx])
+                           if self._place[a.idx] == k else ("all", a.idx))
+            elif isinstance(a, Sym):
+                sig.append(("r",))
+            elif isinstance(a, (bool, np.bool_)):
+                sig.append(("lit", bool(a)))
+            else:
+                sig.append(("num",))
+        return (op, self.staged.prog.dtypes[j], tuple(sig))
+
+    def _r_index(self, ks, idx, extra) -> str:
+        """``r[...]`` of one residual operand over a class's members: an
+        affine index in the coordinate ``_k`` where there is one, else a
+        block of the gathered constants appended to the residuals."""
+        b = (idx[1] - idx[0]) // (ks[1] - ks[0]) if len(ks) > 1 else 0
+        a = idx[0] - b * ks[0]
+        if all(i == a + b * k for i, k in zip(idx, ks)):
+            if b == 0:
+                return f"r[{a}]"
+            lin = "_k" if b == 1 else f"{b} * _k"
+            return f"r[{a} + {lin}]" if a else f"r[{lin}]"
+        vals = self.staged.res_consts.detach().cpu().tolist()
+        return self._gather(ks, [vals[i] for i in idx], extra)
+
+    def _literal(self, ks, vals, extra) -> str:
+        """A literal operand over a class's members: the literal if it is
+        the same for all, else a gathered block."""
+        if len({_cuda_lit(v) for v in vals}) == 1:
+            return _cuda_lit(vals[0])
+        return self._gather(ks, vals, extra)
+
+    def _gather(self, ks, vals, extra) -> str:
+        """``vals[m]`` (float32) at ``r[base + ks[m]]``: a block of ``d``
+        constants appended to the residuals."""
+        base = self.staged.n_res + len(extra)
+        block = [0.0] * self.d
+        for v, k in zip(vals, ks):
+            block[k] = v
+        extra.extend(block)
+        return f"r[{base} + _k]"
+
+    def _unit(self, j):
+        k = self._place[j]
+        if k < 0:
+            return ("a", j)
+        return ("g", self._class_of[k], self._pos[j])
+
+    def _schedule(self):
+        """A topological order of the units (a shared instruction, or one
+        position of a class over all its members), by program order where
+        it is free; None if the units form a cycle."""
+        deps: Dict[Tuple, set] = {}
+        key: Dict[Tuple, int] = {}
+        for j in self._reach:
+            u = self._unit(j)
+            key[u] = max(key.get(u, -1), j)
+            ds = deps.setdefault(u, set())
+            for a in self._args(j)[1]:
+                if isinstance(a, Sym) and a.kind == "t":
+                    v = self._unit(a.idx)
+                    if v != u:
+                        ds.add(v)
+        users: Dict[Tuple, List] = {u: [] for u in deps}
+        for u, ds in deps.items():
+            for v in ds:
+                users[v].append(u)
+        left = {u: len(ds) for u, ds in deps.items()}
+        heap = [(key[u], u) for u, n in left.items() if n == 0]
+        heapq.heapify(heap)
+        order = []
+        while heap:
+            _, u = heapq.heappop(heap)
+            order.append(u)
+            for w in users[u]:
+                left[w] -= 1
+                if left[w] == 0:
+                    heapq.heappush(heap, (key[w], w))
+        return order if len(order) == len(deps) else None
+
+    def _lanes_of(self, c):
+        """Per slot, the lanes whose coordinate in that slot is a member of
+        class ``c``, as a bit mask."""
+        masks = [0] * WARP_CPL
+        for k in self.classes[c]:
+            masks[k % WARP_CPL] |= 1 << (k // WARP_CPL)
+        return masks
+
+    # -- per-lane operands ------------------------------------------------
+
+    def _reg(self, a) -> str:
+        """The register of a local operand on its owner lane."""
+        k = self._local_of(a)
+        if isinstance(a, Sym) and a.kind == "x":
+            return f"xv[{k % WARP_CPL}]"
+        return f"v{self._class_of[k]}_{self._pos[a.idx]}[{k % WARP_CPL}]"
+
+    def _shared_lit(self, a) -> str:
+        """A shared operand (no local coordinate) in CUDA."""
+        if isinstance(a, Sym) and a.kind == "x":
+            return f"xh{a.idx}"
+        if isinstance(a, Sym) and a.kind == "t":
+            return f"a{a.idx}"
+        return _cuda_lit(a)
+
+    def _sum_parts(self, ops):
+        """Per lane, its operands of a split sum in operand order, as
+        (local operand or shared operand) pairs ``(is_local, a)``."""
+        parts = [[] for _ in range(LANES)]
+        for a in ops:
+            k = self._local_of(a)
+            parts[k // WARP_CPL if k >= 0 else 0].append((k >= 0, a))
+        return parts
+
+    def _is_split(self, j) -> bool:
+        op, args = self._args(j)
+        return op == "sum" and any(self._local_of(a) >= 0 for a in args)
+
+    def _lane_counts(self) -> List[int]:
+        """Instructions each lane executes for one value and gradient:
+        shared instructions, its own slots of each class position, its
+        partial adds and the butterfly (5 shuffles, 5 adds) of each split
+        sum, the shuffles that bring operands from other lanes, the hub
+        reads and the output moves."""
+        counts = [bin(self.hubs).count("1")] * LANES
+        for u in self._order:
+            if u[0] == "g":
+                for m in self._lanes_of(u[1]):
+                    for lane in _bits(m):
+                        counts[lane] += 1
+                continue
+            j = u[1]
+            op, args = self._args(j)
+            if op == "sum" and self._is_split(j):
+                for lane, ops in enumerate(self._sum_parts(args)):
+                    counts[lane] += max(len(ops) - 1, 0) + 10
+            else:
+                n = len(args) - 1 if op == "sum" else 1
+                n += sum(self._local_of(a) >= 0 for a in args)
+                counts = [c + n for c in counts]
+        moves = sum(1 for g in self.staged.grads
+                    if not (isinstance(g, Sym) and self._local_of(g) >= 0))
+        return [c + moves for c in counts]
+
+    @property
+    def max_lane_instructions(self) -> int:
+        return max(self.n_lane_instructions)
+
+    # -- renderings -------------------------------------------------------
+
+    def cuda_source(self) -> str:
+        if self._cuda_src is None:
+            self._cuda_src = self._render_cuda()
+        return self._cuda_src
+
+    def _render_cuda(self) -> str:
+        P = self.staged.prog
+        L = [_CUDA_HELPERS,
+             "// lane owns coordinates 4 lane .. 4 lane + 3 (xv, gv); every "
+             "lane of the warp calls this with the same r",
+             "__device__ __forceinline__ void staged_vag_warp("
+             "const float* xv, const float* r, float& lp, float* gv, "
+             "const int lane) {"]
+        for h in _bits(self.hubs):
+            L.append(f"  const float xh{h} = __shfl_sync({_FULL}, "
+                     f"xv[{h % WARP_CPL}], {h // WARP_CPL});")
+        for c, ks in enumerate(self.classes):
+            for p, j in enumerate(self._lists[ks[0]]):
+                ctype = "bool" if P.dtypes[j] == "b" else "float"
+                zero = "false" if ctype == "bool" else "0.0f"
+                L.append(f"  {ctype} v{c}_{p}[{WARP_CPL}] = "
+                         f"{{{', '.join([zero] * WARP_CPL)}}};")
+        i = 0
+        while i < len(self._order):
+            u = self._order[i]
+            if u[0] == "a":
+                self._cuda_shared(L, u[1])
+                i += 1
+                continue
+            run = [u]                   # consecutive positions of one class
+            while i + len(run) < len(self._order) and \
+                    self._order[i + len(run)][0] == "g" and \
+                    self._order[i + len(run)][1] == u[1]:
+                run.append(self._order[i + len(run)])
+            self._cuda_class(L, u[1], [p for _, _, p in run])
+            i += len(run)
+        self._cuda_outputs(L)
+        L.append("}")
+        return "\n".join(L) + "\n"
+
+    def _shfl(self, L, a, name) -> str:
+        """A local operand read on every lane from its owner lane."""
+        k = self._local_of(a)
+        src = self._reg(a)
+        bool_ = isinstance(a, Sym) and a.kind == "t" and \
+            self.staged.prog.dtypes[a.idx] == "b"
+        if bool_:
+            L.append(f"  const bool {name} = (bool)__shfl_sync({_FULL}, "
+                     f"(int){src}, {k // WARP_CPL});")
+        else:
+            L.append(f"  const float {name} = __shfl_sync({_FULL}, {src}, "
+                     f"{k // WARP_CPL});")
+        return name
+
+    def _cuda_shared(self, L, j):
+        P = self.staged.prog
+        op, args = self._args(j)
+        if op == "sum" and self._is_split(j):
+            parts = self._sum_parts(args)
+            pats: Dict[Tuple, int] = {}
+            for lane, ops in enumerate(parts):
+                expr = tuple(self._reg(a) if loc else self._shared_lit(a)
+                             for loc, a in ops)
+                pats[expr] = pats.get(expr, 0) | (1 << lane)
+            L.append(f"  float a{j};")
+            first = True
+            for expr, mask in pats.items():
+                if not expr:
+                    continue
+                acc = expr[0]
+                for e in expr[1:]:
+                    acc = f"({acc} + {e})"
+                L.append(f"  {'if' if first else 'else if'} ((0x{mask:x}u >> "
+                         f"lane) & 1u) a{j} = {acc};")
+                first = False
+            L.append(f"  else a{j} = 0.0f;" if not first else
+                     f"  a{j} = 0.0f;")
+            for off in (16, 8, 4, 2, 1):
+                L.append(f"  a{j} = a{j} + __shfl_xor_sync({_FULL}, a{j}, "
+                         f"{off});")
+            return
+        lits = []
+        for ai, a in enumerate(args):
+            if self._local_of(a) >= 0:
+                lits.append(self._shfl(L, a, f"q{j}_{ai}"))
+            else:
+                lits.append(self._shared_lit(a))
+        if op == "sum":
+            acc = lits[0]
+            for e in lits[1:]:
+                acc = f"({acc} + {e})"
+            L.append(f"  const float a{j} = {acc};")
+            return
+        ctype = "bool" if P.dtypes[j] == "b" else "float"
+        L.append(f"  const {ctype} a{j} = {_OPS[op][2].format(*lits)};")
+
+    def _cuda_class(self, L, ci, positions):
+        ks = self.classes[ci]
+        masks = self._lanes_of(ci)
+        first = self._lists[ks[0]]
+        L.append(f"  {{ const unsigned m_[{WARP_CPL}] = {{"
+                 + ", ".join(f"0x{m:x}u" for m in masks) + "};")
+        L.append("#pragma unroll")
+        L.append(f"  for (int c = 0; c < {WARP_CPL}; ++c) {{")
+        L.append("    if (!((m_[c] >> lane) & 1u)) continue;")
+        if any(key[0] == ci and "_k" in e for key, e in self._leaf.items()):
+            L.append(f"    const int _k = {WARP_CPL} * lane + c;")
+        for p in positions:
+            j = first[p]
+            op, args = self._args(j)
+            lits = []
+            for ai, a in enumerate(args):
+                if isinstance(a, Sym) and a.kind == "x":
+                    lits.append("xv[c]" if not self._is_hub(a.idx)
+                                else f"xh{a.idx}")
+                elif isinstance(a, Sym) and a.kind == "t":
+                    lits.append(f"v{ci}_{self._pos[a.idx]}[c]"
+                                if self._place[a.idx] >= 0
+                                else f"a{a.idx}")
+                elif (ci, p, ai) in self._leaf:
+                    lits.append(self._leaf[(ci, p, ai)])
+                else:
+                    lits.append(_cuda_lit(a))
+            L.append(f"    v{ci}_{p}[c] = {_OPS[op][2].format(*lits)};")
+        L.append("  } }")
+
+    def _cuda_outputs(self, L):
+        g = self.staged.grads
+        lp = self.staged.lp
+        if isinstance(lp, Sym) and self._local_of(lp) >= 0:
+            lp_s = self._shfl(L, lp, "lp_")
+        else:
+            lp_s = self._shared_lit(lp) if isinstance(lp, Sym) \
+                else _cuda_lit(lp)
+        L.append(f"  lp = {lp_s};")
+        for c in range(WARP_CPL):
+            L.append(f"  gv[{c}] = 0.0f;")
+            by_expr: Dict[str, int] = {}
+            for lane in range(LANES):
+                k = WARP_CPL * lane + c
+                if k >= self.d:
+                    continue
+                e = g[k]
+                if isinstance(e, Sym) and self._local_of(e) == k:
+                    expr = self._reg(e)
+                elif isinstance(e, Sym) and self._local_of(e) >= 0:
+                    expr = self._shfl(L, e, f"o{k}_")
+                elif isinstance(e, Sym):
+                    expr = self._shared_lit(e)
+                else:
+                    expr = _cuda_lit(e)
+                by_expr[expr] = by_expr.get(expr, 0) | (1 << lane)
+            for expr, mask in by_expr.items():
+                if expr == _cuda_lit(0.0):       # gv[c] is 0.0f already
+                    continue
+                L.append(f"  if ((0x{mask:x}u >> lane) & 1u) gv[{c}] = "
+                         f"{expr};")
+
+    def _render_torch(self) -> str:
+        lines = ["def staged_vag_warp(x, r, sd):"]
+        for j in self._reach:
+            op, args = self._args(j)
+            if op != "sum":
+                lines.append(f"    t{j} = {_torch_expr(op, args)}")
+            elif self._is_split(j):
+                parts = ", ".join(
+                    "[" + ", ".join(_torch_lit(a) for _, a in ops) + "]"
+                    for ops in self._sum_parts(args))
+                lines.append(f"    t{j} = _lane_sum([{parts}], x[0])")
+            else:
+                acc = _torch_lit(args[0])
+                for a in args[1:]:
+                    acc = f"({acc} + {_torch_lit(a)})"
+                lines.append(f"    t{j} = {acc}")
+        outs = ", ".join(_torch_lit(g) for g in self.staged.grads)
+        lines.append(f"    return {_torch_lit(self.staged.lp)}, [{outs}]")
+        return "\n".join(lines) + "\n"
+
+    def vag(self, x: torch.Tensor):
+        """Value and gradient at ``x`` ``(d, n)`` in the split order:
+        ``(lp (n,), grad (d, n))``."""
+        return self.staged._call(self._torch_fn, x)
 
 
 # -- evaluation of the residual graph at the ScalarArray level ----------------
@@ -829,9 +1416,21 @@ def _elementwise(prog, op: str, *args):
 
 
 def _sum_elems(prog, elems):
-    acc = elems[0]
+    """The left-to-right chain of adds over ``elems`` (folded as ``emit``
+    folds); a chain of three or more operands is recorded as one n-ary
+    sum (``Program.reductions``)."""
+    acc, ops = elems[0], [elems[0]]
     for e in elems[1:]:
-        acc = prog.emit("add", acc, e)
+        new = prog.emit("add", acc, e)
+        if not isinstance(new, Sym):
+            ops = [new]                     # constants folded
+        elif new is e and not isinstance(acc, Sym):
+            ops = [e]                       # 0.0 + e
+        elif not (new is acc and not isinstance(e, Sym)):
+            ops.append(e)                   # (acc + 0.0 is acc)
+        acc = new
+    if isinstance(acc, Sym) and acc.kind == "t" and len(ops) >= 3:
+        getattr(prog, "prog", prog).reductions[acc.idx] = tuple(ops)
     return acc
 
 

@@ -242,9 +242,11 @@ def test_k6_cuda_source_renders():
     assert "#define NUTS_D 4" in src and "#define NUTS_MD 6" in src
     assert 'extern "C" int nuts_tick_launch(' in src
     assert "philox4x32_10" in src and "uturn_block" in src
-    # the shared helpers are spliced into both kernels' sources, so an edit
-    # of the header changes both build hashes
-    common = (nuts_fused._CSRC_DIR / "nuts_common.cuh").read_text()
+    # the shared helpers (the lines of this model's layout) are spliced into
+    # both kernels' sources, so an edit of the header changes both build
+    # hashes
+    common = nuts_fused.keep_layout(
+        (nuts_fused._CSRC_DIR / "nuts_common.cuh").read_text(), "thread")
     assert common in src
     assert common in nuts_fused.kernel_source(staged, 6, paired=True)
 
