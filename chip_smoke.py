@@ -9,8 +9,8 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (four K1, nine K3, six K6,
-   two staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
+   variant from ``gen_tpu_torch/ops/csrc`` (seven K1, twelve K3, nine
+   K6, five staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
    per source, all at once), with registers, spills and stack from
    ptxas. K3 and K6 above 32 coordinates (the 100-school model, the d=33
    and d=40 Gaussians, the mixed regression's extended logp) run one warp
@@ -112,9 +112,13 @@ nonzero and no result line is printed):
     code's (``scalarize.body_launches``, ``staged_eval.staged_vag``) set
     to 0 before each path and read after:
     a. The staged code alone and K1, K3 and K6 with the stream loop
-       (robust-t n = 10,000 at 8,192 chains, n = 10^6 at 1,024) and K1 and
-       K3 with the Kalman body (T = 100, 131,072 chains) against their
-       plain versions under injected randomness, bit for bit.
+       (robust-t n = 10,000 at 8,192 chains, n = 10^6 at 1,024; the
+       layouts' edges n = 2,049 and 1,000,003 at 1, 3 and 1,027 chains:
+       ragged tiles, chains split over blocks, tail blocks; the staged
+       code alone also at n = 10^6 with 128 and 256 chains, phase (b)'s
+       shapes) and K1 and K3 with the Kalman body (T = 100, 131,072
+       chains) against their plain versions under injected randomness,
+       bit for bit.
     b. ``benchmarks/bench_stream.py``'s robust-t regression: n = 10,000 at
        8,192 chains through ``sample_posterior(engine="auto")``, which
        must pick ``nuts_fused`` and stream; gates 0.05 sd, 6% against
@@ -135,7 +139,8 @@ nonzero and no result line is printed):
 9. Numbers (printed after phase 10): per kernel its time, its plain
    version's time, its bound, the library call's time where there is one
    and launches on the main path, as one JSON line (K2c and K2b per
-   gradient of the staged-code kernel); then the card; then the result
+   gradient of the staged-code kernel; K2c at 10^6 also at the ChEES
+   warmup's 128 chains); then the card; then the result
    line.
 
 Each main path is driven with the kernels' launch counts set to 0 just
@@ -623,7 +628,8 @@ def nuts_kernel_path(torch, run, paired, k_err):
 
     hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
     nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
-    nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0)
+    nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0,
+                                                  stream=0)
     layout = nf.kernel_layout(staged)
     (values, hist, _, _, _), first_s = timed(
         torch, lambda: call(run["values"], k_run))
@@ -835,7 +841,8 @@ def phase_sample(torch, tt, dev, tag, s8, s100):
             random.split(k_init, chains)))
         hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
         nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
-        nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0)
+        nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0,
+                                                  stream=0)
         clock = PhaseClock(torch, [
             ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
             ("gen_tpu_torch.inference.nuts_fsm", "nuts_fsm"),
@@ -1668,6 +1675,10 @@ def k5_entry(torch, dev, tag, decode_run, k5_err):
 
 STREAM_N, STREAM_CHAINS = 10_000, 8192          # bench_stream.py main()
 STREAM_N_BIG, STREAM_CHAINS_BIG = 1_000_000, 1024
+# the stream layouts' edges: a ragged last tile (2,049 points, 1,000,003),
+# chains split over blocks (1 and 3 chains), a tail block (1,027 chains)
+STREAM_EDGE_NS = (2049, 1_000_003)
+STREAM_EDGE_CHAINS = (1, 3, 1027)
 STREAM_CHAINS_AUTO_BIG = 256      # the short sample_posterior call at 10^6
 STREAM_WARM_CHAINS = 128          # bench_stream.py:178-196's warmup subset
 STREAM_TICKS = 1600
@@ -1739,21 +1750,22 @@ def ar1_setup(torch, tt, dev, T=AR1_T):
 
 
 def k2_setup(torch, tt, dev):
-    """Phase 1's part of phase 10: the three models, one FlatTarget each,
-    staged (timed) and their kernels' build jobs: K1, K3, K6 and the
-    staged-code kernel for the stream model (one source serves both data
-    sizes), K1, K3 and the staged-code kernel for the Kalman model."""
+    """Phase 1's part of phase 10: the models, one FlatTarget each, staged
+    (timed) and their kernels' build jobs: K1, K3, K6 and the staged-code
+    kernel for the stream model at each data size (the layout of K1, K3
+    and K6 follows the size), K1, K3 and the staged-code kernel for the
+    Kalman model."""
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
     from gen_tpu_torch.ops import hmc_fused, staged_eval
     from gen_tpu_torch.ops import nuts_fused as nf
 
     out, stage_s = {}, {}
-    for name, setup in (("stream", lambda: stream_setup(torch, tt, dev,
-                                                         STREAM_N)),
-                        ("stream_big", lambda: stream_setup(
-                            torch, tt, dev, STREAM_N_BIG)),
-                        ("ar1", lambda: ar1_setup(torch, tt, dev))):
+    sizes = [("stream", STREAM_N), ("stream_big", STREAM_N_BIG)] + [
+        (f"stream_{n}", n) for n in STREAM_EDGE_NS]
+    for name, setup in [(name, (lambda n=n: stream_setup(torch, tt, dev, n)))
+                        for name, n in sizes] + [
+                            ("ar1", lambda: ar1_setup(torch, tt, dev))]:
         s = setup()
         target = FlatTarget(s[0].generate(random.PRNGKey(1, dev), s[1],
                                           s[2])[0], s[3])
@@ -1761,14 +1773,20 @@ def k2_setup(torch, tt, dev):
                                                         dev))
         out[name] = (s, target, st)
         stage_s[name] = secs
-    st_s, st_k = out["stream"][2], out["ar1"][2]
-    jobs = [("K1 robust-t stream", st_s, hmc_fused.build_job(st_s)),
-            ("K3 robust-t stream", st_s, nf.build_job(st_s, 6, True)),
-            ("K6 robust-t stream", st_s, nf.build_job(st_s, 6, False)),
-            ("K2c staged stream", st_s, staged_eval.build_job(st_s)),
-            ("K1 AR(1) T=100", st_k, hmc_fused.build_job(st_k)),
-            ("K3 AR(1) T=100", st_k, nf.build_job(st_k, 8, True)),
-            ("K2b staged Kalman", st_k, staged_eval.build_job(st_k))]
+    st_k = out["ar1"][2]
+    jobs = []
+    for name, n in sizes:
+        st_s = out[name][2]
+        jobs += [(f"K1 robust-t n={n} {st_s.layout}", st_s,
+                  hmc_fused.build_job(st_s))]
+        jobs += [(f"K{k} robust-t n={n} {nf.stream_layout(st_s, paired)}",
+                  st_s, nf.build_job(st_s, 6, paired))
+                 for k, paired in ((3, True), (6, False))]
+        jobs += [(f"K2c staged stream n={n}", st_s,
+                  staged_eval.build_job(st_s))]
+    jobs += [("K1 AR(1) T=100", st_k, hmc_fused.build_job(st_k)),
+             ("K3 AR(1) T=100", st_k, nf.build_job(st_k, 8, True)),
+             ("K2b staged Kalman", st_k, staged_eval.build_job(st_k))]
     for name, secs in stage_s.items():
         st = out[name][2]
         print(f"staging {name}: {secs:.2f} s, {st.n_instructions} "
@@ -1795,15 +1813,17 @@ def stream_start(torch, xs, ys, n, dev, seed):
 
 def compare_staged(torch, st, x, label):
     """The staged-code kernel against the staged program's torch rendering
-    on the same points: bit for bit."""
+    in the kernel's layout on the same points: bit for bit."""
     from gen_tpu_torch.ops import staged_eval
     lk, gk = staged_eval.staged_vag(st, x.T.contiguous())
-    lp, gp = st.vag(x.T.contiguous())
+    lp, gp = staged_eval.staged_vag_plain(st, x.T.contiguous())
     torch.cuda.synchronize()
     err = max(float((lk - lp).abs().max()), float((gk - gp).abs().max()))
     same = torch.equal(lk, lp) and torch.equal(gk, gp)
+    lay = (f", {staged_eval.layout(st, x.shape[0])}" if st.streams else "")
     print(f"staged code {label}: max |kernel - plain| = {err:.3e} over "
-          f"{x.shape[0]} chains ({'bit for bit' if same else 'DIFFERENT'})")
+          f"{x.shape[0]} chains{lay} "
+          f"({'bit for bit' if same else 'DIFFERENT'})")
     check(same and bool(torch.isfinite(lk).all()),
           f"staged code {label}: kernel and plain version differ")
     return err
@@ -1811,30 +1831,48 @@ def compare_staged(torch, st, x, label):
 
 def phase_compare_k2(torch, ctx, dev, rng):
     """Phase 10a: the staged code alone, then K1, K3 and K6 with the stream
-    loop (n = 10,000 at 8,192 chains, n = 1,000,000 at 1,024) and K1 and
-    K3 with the unrolled Kalman body (T = 100, 131,072 chains), each
-    against its plain version under injected randomness. Returns the
-    largest differences per kernel."""
+    loop (n = 10,000 at 8,192 chains, n = 1,000,000 at 1,024, and the
+    layouts' edges: n = 2,049 and 1,000,003 at 1, 3 and 1,027 chains) and
+    K1 and K3 with the unrolled Kalman body (T = 100, 131,072 chains),
+    each against its plain version under injected randomness; the stream
+    kernels bit for bit. The staged code alone also at n = 1,000,000 with
+    the chain counts phase 10(b) hands it (the ChEES warmup's 128 and the
+    short sample_posterior call's 256), whose split counts no other check
+    reaches. Returns the largest differences per kernel, and per
+    (model, chains) the staged code's under "K2c at"."""
     from gen_tpu_torch.ops import hmc_fused
     from gen_tpu_torch.ops import nuts_fused as nf
 
     errs = {"K1": [], "K3": [], "K6": [], "K2b": [], "K2c": []}
+    at = {}
     key = torch.zeros(2, dtype=torch.int64, device=dev)
-    for name, n, eps, steps in (("stream", STREAM_CHAINS, 0.004, 4),
-                                ("stream_big", STREAM_CHAINS_BIG, 0.0004,
-                                 2)):
+    shapes = [("stream", STREAM_CHAINS, 0.004, 4),
+              ("stream_big", STREAM_CHAINS_BIG, 0.0004, 2)]
+    shapes += [(f"stream_{n_pts}", n, 0.004 if n_pts < 10 ** 5 else 0.0004,
+                2) for n_pts in STREAM_EDGE_NS for n in STREAM_EDGE_CHAINS]
+    for name, n, eps, steps in shapes:
         (_, _, _, _, xs, ys), target, st = ctx["k2"][name]
         v0 = stream_start(torch, xs, ys, n, dev, 3)
         label = f"robust-t n={len(xs)} ({n} chains)"
-        errs["K2c"].append(compare_staged(torch, st, v0, label))
+        at[name, n] = compare_staged(torch, st, v0, label)
+        errs["K2c"].append(at[name, n])
         errs["K1"].append(compare_k1(
             torch, hmc_fused.hmc_chains_fused,
             hmc_fused.hmc_chains_fused_plain, key, target.logp, v0, steps,
-            3, eps, None, None, rng, label)[2])
+            3, eps, None, None, rng, f"{label}, {st.layout}")[2])
+        check(errs["K1"][-1] == 0.0, f"K1 {label}: not bit for bit")
         for paired, k in ((True, "K3"), (False, "K6")):
             errs[k].append(compare_nuts(
                 torch, nf, target.logp, v0, steps if paired else 2 * steps,
-                eps, 6, None, None, 1000.0, 5, label, paired)[1])
+                eps, 6, None, None, 1000.0, 5,
+                f"{label}, {nf.stream_layout(st, paired)}", paired)[1])
+            check(errs[k][-1] == 0.0, f"{k} {label}: not bit for bit")
+    (_, _, _, _, xs, ys), _, st = ctx["k2"]["stream_big"]
+    for n in (STREAM_WARM_CHAINS, STREAM_CHAINS_AUTO_BIG):
+        at["stream_big", n] = compare_staged(
+            torch, st, stream_start(torch, xs, ys, n, dev, 3),
+            f"robust-t n={len(xs)} ({n} chains, phase 10(b)'s)")
+        errs["K2c"].append(at["stream_big", n])
     (_, _, _, _, _), target, st = ctx["k2"]["ar1"]
     g = torch.Generator(dev).manual_seed(9)
     v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
@@ -1846,7 +1884,7 @@ def phase_compare_k2(torch, ctx, dev, rng):
         key, target.logp, v0, 3, 2, 0.05, None, None, rng, label)[2])
     errs["K3"].append(compare_nuts(torch, nf, target.logp, v0, 4, 0.05, 8,
                                    0, None, 1000.0, 6, label, True)[1])
-    return {k: max(v) for k, v in errs.items()}
+    return dict({k: max(v) for k, v in errs.items()}, **{"K2c at": at})
 
 
 def posterior_gate(torch, samples, summary, exact, tols, label):
@@ -2088,7 +2126,7 @@ def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
     xt = x.T.contiguous()
     staged_eval.staged_vag(st, xt)
     ms = gpu_ms(torch, lambda: staged_eval.staged_vag(st, xt), 5)
-    _, plain_s = timed(torch, lambda: st.vag(xt))
+    _, plain_s = timed(torch, lambda: staged_eval.staged_vag_plain(st, xt))
     nbytes = 4 * (n_chains * (2 * st.d + 1) + st.n_res
                   + (st.stream_data.numel() if st.streams else 0))
     b_ms, b_by = bound_ms(k2_ops(st, n_chains), nbytes)
@@ -2109,17 +2147,24 @@ def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
 
 
 def k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res):
-    """Phase 10d: K2c at n = 10,000 (8,192 chains) and 1,000,000 (1,024),
-    K2b at T = 100 (131,072 chains); launches are the K1/K3/K6 launches
-    whose body held that code on the phase's main paths."""
+    """Phase 10d: K2c at n = 10,000 (8,192 chains) and 1,000,000 (1,024
+    chains; and 128, the ChEES warmup's shape, whose launches are the
+    staged-code kernel's), K2b at T = 100 (131,072 chains); launches are
+    the K1/K3/K6 launches whose body held that code on the phase's main
+    paths and the staged-code kernel's."""
     out = []
     for name, n, run, kind in (
             ("stream", STREAM_CHAINS, [stream_res["a"]], "k2c_stream_1e4"),
             ("stream_big", STREAM_CHAINS_BIG,
-             [stream_res["b"], stream_res["c"]], "k2c_stream_1e6")):
+             [stream_res["b"], stream_res["c"]], "k2c_stream_1e6"),
+            ("stream_big", STREAM_WARM_CHAINS,
+             [dict(r, launches=0) for r in (stream_res["b"],
+                                            stream_res["c"])],
+             "k2c_stream_1e6_chees")):
         (_, _, _, _, xs, ys), _, st = ctx["k2"][name]
         x = stream_start(torch, xs, ys, n, dev, 4)
-        out.append(k2_entry(torch, dev, st, n, x, run, k2_err["K2c"],
+        out.append(k2_entry(torch, dev, st, n, x, run,
+                            k2_err["K2c at"][name, n],
                             f"robust-t n={len(xs)}", kind))
     _, _, st = ctx["k2"]["ar1"]
     x = torch.tensor([0.6, -1.2, -0.7], device=dev).expand(AR1_CHAINS, 3)

@@ -9,11 +9,18 @@
 //   and gradient live in registers (D is a compile-time constant) for all
 //   n_steps x L leapfrogs; device memory sees one read of the state, the
 //   per-step history write and the final write.
-// - A streamed likelihood (a loop over the data table sd, (rows, n_pts))
-//   gets a warp per chain instead (HMC_LANES 32): the 32 lanes run the
-//   chain's HMC bookkeeping on the same values, and inside staged_vag each
-//   lane sums every 32nd point, Kahan-compensated, before a shuffle tree
-//   gives every lane the same sums. All lanes store the same values.
+// - A streamed likelihood (a loop over the data table sd, rows of padded
+//   length) gets HMC_LANES / 32 warps per chain and HMC_BLOCK / HMC_LANES
+//   chains per block instead: the lanes run the chain's HMC bookkeeping on
+//   the same values and split the loop inside staged_vag. The loop is
+//   bound by its per-point arithmetic (IEEE divisions, log1p); each lane
+//   evaluates a block of points of every tile as independent
+//   instructions and Kahan-adds the block's tree sum, and the block's
+//   chains read every tile from one ring of shared memory (cp.async), so
+//   the table crosses L2 once per block. Every chain of a block calls
+//   staged_vag at the same points of its loops (its barriers need every
+//   warp): the wrapper fills the last block with copies of the last chain
+//   and drops their results. All lanes of a chain store the same values.
 // - The model's value and gradient is the straight-line __device__ function
 //   staged_vag, generated by gen_tpu_torch/ops/scalarize.py and spliced in
 //   below; the data-only part of the model was evaluated once outside and

@@ -28,7 +28,7 @@ constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 #ifdef NUTS_D
 __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
                                     float& lp, float* g,
@@ -68,7 +68,7 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
   z1 = r * s;
 }
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 #ifdef NUTS_D
 // NUTS_D standard normals from Philox counters (i, step, tag0 + c, 0),
 // c = 0..ceil(NUTS_D / 4) - 1
@@ -115,7 +115,7 @@ __device__ __forceinline__ float unpack_lo(uint32_t p) {
   return __uint_as_float(p << 16);
 }
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 #ifdef NUTS_D
 // sum_j (inv_j a_j) b_j, j = 0..D-1 in order
 __device__ __forceinline__ float dot_im(const float* inv, const float* a,

@@ -13,8 +13,8 @@
 // and the per-level U-turn end tests only in slot 2.
 //
 // The design is Hopper's, not the TPU's. ops/nuts_fused.py keeps one of
-// two layouts of the kernel (the lines between "LAYOUT thread" or "LAYOUT
-// warp" and "LAYOUT end"; kernel_layout picks):
+// three layouts of the kernel (the lines after a "LAYOUT" marker that
+// names it, up to the next marker; kernel_layout picks):
 //
 // - One thread per chain (d <= 32, a streamed likelihood, or d > 128):
 //   layout (d, n) with chains contiguous, so every history row and state
@@ -42,12 +42,21 @@
 //   registers. The staged residual constants are in shared memory; in the
 //   one-thread layout also the inverse mass and momentum scale, which the
 //   warp layout keeps in each lane's registers.
-// - A streamed likelihood (a loop over the data table sd, (rows, n_pts))
-//   gets a warp per chain (NUTS_LANES 32) in the one-thread layout: the 32
-//   lanes run the chain's NUTS bookkeeping on the same values, and inside
-//   staged_vag each lane sums every 32nd point, Kahan-compensated, before
-//   a shuffle tree gives every lane the same sums. All lanes store the
-//   same values.
+// - A streamed likelihood (a loop over the data table sd, rows of padded
+//   length) runs the one-thread layout's code in the stream layout:
+//   NUTS_LANES / 32 warps per chain (1-8 by the data length) run the
+//   chain's NUTS bookkeeping on the same values and split the loop inside
+//   staged_vag. The loop is bound by its per-point arithmetic (IEEE
+//   divisions, log1p, -fmad=false): each lane evaluates a block of points
+//   of every tile as independent instructions and Kahan-adds the block's
+//   tree sum, from tiles copied into a shared-memory ring (cp.async).
+//   One chain a block, as slot 2 is conditional per chain: every warp of
+//   the block takes the same branch, so the loop's barriers hold.
+//   NUTS_MIN_BLOCKS blocks an SM (at most 128 registers) was faster on the
+//   H100 than one block an SM at 182 registers, and than two chains a
+//   block sharing the tiles with slot 2 run for both when one needs it.
+//   Where a chain is one warp, 4 points a lane (not 8) keep the chain's
+//   state out of local memory. All lanes store the same values.
 // - In the one-thread layout the model's value and gradient is staged_vag
 //   (gen_tpu_torch/ops/scalarize.py), inlined at its three call sites for
 //   small programs, one non-inlined function for large ones.
@@ -80,7 +89,7 @@
 
 // @@STAGED_VAG@@
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 #if NUTS_D <= 32
 #define NUTS_UNROLL _Pragma("unroll")
 #define NUTS_VAG_INLINE __forceinline__
@@ -94,11 +103,16 @@
 
 // @@NUTS_COMMON@@
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 namespace {
 
 template <bool INJECTED, bool COLLECT_ALL>
+// @@LAYOUT thread@@
 __global__ void __launch_bounds__(NUTS_BLOCK) nuts_pair_kernel(
+// @@LAYOUT stream@@
+__global__ void __launch_bounds__(NUTS_BLOCK, NUTS_MIN_BLOCKS)
+nuts_pair_kernel(
+// @@LAYOUT thread stream@@
     const float* __restrict__ v0,        // (D, n)
     float* __restrict__ vout,            // (D, n)
     float* __restrict__ hist,            // (P, n) or (P, D, n)

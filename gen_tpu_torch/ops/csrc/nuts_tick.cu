@@ -14,9 +14,9 @@
 // per-trajectory NUTS as K3 (nuts_pair.cu) on a different schedule.
 //
 // The design is Hopper's, not the TPU's, and K3's. ops/nuts_fused.py
-// keeps one of two layouts of the kernel (the lines between "LAYOUT
-// thread" or "LAYOUT warp" and "LAYOUT end"; kernel_layout picks), as for
-// K3:
+// keeps one of three layouts of the kernel (the lines after a "LAYOUT"
+// marker that names it, up to the next marker; kernel_layout picks), as
+// for K3:
 //
 // - One thread per chain (d <= 32, a streamed likelihood, or d > 128):
 //   layout (d, n) with chains contiguous, so every history row and state
@@ -35,6 +35,14 @@
 //   rendering (SplitProgram), inlined. Lane l draws its momentum normals
 //   from the Philox block (chain, tick, 1 + l, 0), the one-thread layout's
 //   bits for those coordinates.
+// - A streamed likelihood runs the one-thread layout's code in the stream
+//   layout: NUTS_LANES / 32 warps per chain split the data loop inside
+//   staged_vag, and NUTS_BLOCK / NUTS_LANES chains a block (16 warps) read
+//   every data tile from one shared-memory ring (cp.async), since every
+//   chain calls staged_vag once a tick. The loop is bound by its per-point
+//   arithmetic (IEEE divisions, log1p, -fmad=false): each lane evaluates a
+//   block of points as independent instructions and Kahan-adds their tree
+//   sum. The wrapper fills the last block with copies of the last chain.
 // - The leapfrog runs in place on the integration point, which K3's two
 //   slots could not do.
 // - Where the TPU evaluated every branch as a full-plane select (no
@@ -69,7 +77,7 @@
 
 // @@STAGED_VAG@@
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 #if NUTS_D <= 32
 #define NUTS_UNROLL _Pragma("unroll")
 #define NUTS_VAG_INLINE __forceinline__
@@ -83,11 +91,16 @@
 
 // @@NUTS_COMMON@@
 
-// @@LAYOUT thread@@
+// @@LAYOUT thread stream@@
 namespace {
 
 template <bool INJECTED, bool COLLECT_ALL>
+// @@LAYOUT thread@@
 __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
+// @@LAYOUT stream@@
+__global__ void __launch_bounds__(NUTS_BLOCK, NUTS_MIN_BLOCKS)
+nuts_tick_kernel(
+// @@LAYOUT thread stream@@
     const float* __restrict__ v0,        // (D, n)
     float* __restrict__ vout,            // (D, n)
     float* __restrict__ hist,            // (T, n) or (T, D, n)

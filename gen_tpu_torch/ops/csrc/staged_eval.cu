@@ -1,12 +1,13 @@
 // One evaluation of a staged model's value and gradient per chain: the
 // body that gen_tpu_torch/ops/scalarize.py writes into K1, K3 and K6, on
-// its own. It times the staged code (the streamed likelihood's loop of
-// part c, the unrolled Kalman recursion of part b) per gradient, and holds
-// it to its torch rendering without any sampler around it.
+// its own. It times the staged code (the unrolled Kalman recursion of part
+// b, any straight-line program) per gradient, and holds it to its torch
+// rendering without any sampler around it. A streamed likelihood (part c)
+// runs staged_stream.cu instead, in a layout of its own.
 //
-// Launch shape: one thread per chain, or a warp per chain for a streamed
-// likelihood (SE_LANES 32; every lane returns the same sums and stores the
-// same values). Built with -fmad=false, as the kernels that embed it.
+// Launch shape: one thread per chain (SE_LANES 1). What bounds it is the
+// program's arithmetic, in registers. Built with -fmad=false, as the
+// kernels that embed it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -27,14 +27,17 @@ Where PyTorch and Hopper forced differences:
 - The kernel's PRNG is Philox seeded from the key's two words, so its
   draws differ from the twin's (which uses :mod:`gen_tpu_torch.random`);
   with ``injected_rng`` both consume the same numbers and agree.
-- A streamed likelihood (``StagedLogp.stream_data``) runs a warp per chain
-  (``StagedLogp.lanes``; a block of up to 8 warps per chain above 65,536
-  points per warp): the kernel's stream loop (staging part c) strides the
-  lanes over the data points. gen_tpu's ``has_stream``/``stream_hbm``
-  kernel variants (the table in SMEM, or DMA'd from HBM in tiles) are one
-  loop over device memory here, and its ``use_pallas=None`` dispatch
-  (stream models to the XLA twin below a TPU-measured crossover) is not
-  ported: on CUDA the kernel runs.
+- A streamed likelihood (``StagedLogp.stream_data``) runs in
+  ``StagedLogp.layout`` (:class:`~gen_tpu_torch.ops.scalarize.StreamLayout`):
+  one to eight warps per chain by the data length, and several chains a
+  block that read the data tiles from one ring of shared memory, as
+  gen_tpu's ``stream_hbm`` variant DMA'd tiles into VMEM. The loop is
+  bound by its per-point arithmetic; each lane evaluates a block of points
+  as independent instructions and Kahan-adds the block's total. The
+  block's barriers need every chain of the block, so a CUDA launch fills
+  the last block with copies of the last chain and drops them. gen_tpu's
+  ``use_pallas=None`` dispatch (stream models to the XLA twin below a
+  TPU-measured crossover) is not ported: on CUDA the kernel runs.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import torch
 from .. import random
 from ..utils import sqrt_mass_safe
 from . import _cuda_build, scalarize
-from .scalarize import StagedLogp, block_size, stage_scalarized
+from .scalarize import (StagedLogp, block_size, pad_chains,
+                        stage_scalarized)
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
@@ -164,12 +168,19 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
                                     injected_rng, n_steps, collect_idx)
     d, n = vt.shape
     lib = build(staged)
+    # a stream layout's blocks hold whole groups of chains: the kernel runs
+    # n_k chains, copies of the last one past n, and drops the copies
+    c = staged.layout.chains if staged.streams else 1
+    n_k = -(-n // c) * c
+    vt = pad_chains(vt, n_k)
+    if inj is not None:
+        inj = (inj[0], pad_chains(inj[1], n_k), pad_chains(inj[2], n_k))
     with torch.cuda.device(vt.device):
         vout = torch.empty_like(vt)
-        hist = torch.empty((n_steps, n) if collect_idx is not None
-                           else (n_steps, d, n), dtype=torch.float32,
+        hist = torch.empty((n_steps, n_k) if collect_idx is not None
+                           else (n_steps, d, n_k), dtype=torch.float32,
                            device=vt.device)
-        acc = torch.empty((n,), dtype=torch.float32, device=vt.device)
+        acc = torch.empty((n_k,), dtype=torch.float32, device=vt.device)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
         res = staged.res_consts.contiguous()
         sd = scalarize.stream_table(staged, vt.device)
@@ -177,7 +188,7 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
         rc = lib.hmc_fused_launch(
             vt.data_ptr(), vout.data_ptr(), hist.data_ptr(), acc.data_ptr(),
             res.data_ptr(), inv.data_ptr(),
-            None if sd is None else sd.data_ptr(), staged.n_pts, n,
+            None if sd is None else sd.data_ptr(), staged.n_pts, n_k,
             n_steps, L, float(eps),
             float(eps_jitter), -1 if collect_idx is None else collect_idx,
             seed0, seed1, *([t.data_ptr() for t in inj] if inj is not None
@@ -185,7 +196,7 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
     _cuda_build.check_launch(rc, "hmc_fused")
     hmc_chains_fused.launches += 1
     scalarize.count_body_launch(staged)
-    return _outputs(vout, hist, acc, collect_idx)
+    return _outputs(vout[:, :n], hist[..., :n], acc[:n], collect_idx)
 
 
 hmc_chains_fused.launches = 0

@@ -17,12 +17,18 @@ Where PyTorch and Hopper forced differences:
   ``interpret`` or ``tile``. gen_tpu's ``use_pallas=None`` dispatch sent
   stream models to its XLA twin below a crossover measured on the TPU;
   that dispatch is not ported: on CUDA the kernel runs.
-- A streamed likelihood (``StagedLogp.stream_data``) runs a warp per chain
-  (``StagedLogp.lanes``; a block of up to 8 warps per chain above 65,536
-  points per warp): the kernel's stream loop (staging part c) strides the
-  lanes over the data points. gen_tpu's ``has_stream``/``stream_hbm``
-  variants (SMEM table, or HBM DMA tiles) are one loop over device memory.
-- Two layouts (:func:`kernel_layout`): one thread per chain holds the
+- A streamed likelihood (``StagedLogp.stream_data``) runs the one-thread
+  layout's code in the ``"stream"`` layout (:func:`stream_layout`): one to
+  eight warps per chain by the data length, whose lanes split the loop
+  over the data tiles (staging part c). What bounds the loop is its
+  per-point arithmetic; each lane evaluates a block of points as
+  independent instructions and Kahan-adds the block's total, and the data
+  tiles are copied into shared memory, as gen_tpu's ``stream_hbm``
+  variant DMA'd them. K6's blocks hold several chains that share the
+  tiles (a launch fills the last block with copies of the last chain and
+  drops them, since the loop's barriers need every warp); K3's hold one,
+  as its slot 2 is conditional per chain.
+- Layouts (:func:`kernel_layout`): one thread per chain holds the
   chain's state where it fits (d <= 32, streams, and for now d > 128);
   for 32 < d <= 128 a warp runs one chain, lane l holding coordinates
   ``4l .. 4l+3`` in registers, every sum over coordinates split into lane
@@ -59,9 +65,14 @@ from ..inference.nuts_fsm import (injected_draws, key_draws, run_pairs,
 from ..utils import sqrt_mass_safe
 from . import _cuda_build, scalarize
 from .hmc_fused import stage
-from .scalarize import LANES, WARP_CPL, StagedLogp, block_size
+from .scalarize import (LANES, WARP_CPL, StagedLogp, StreamLayout,
+                        block_size, pad_chains)
 
 BLOCK = 128                    # threads (chains) per block; tuning is later
+# points a lane of K3's stream loop where a chain is one warp: at 8 its
+# 128 registers spilled 200 bytes; 4 ran 24% faster at 10^4 points and
+# 8,192 chains on the H100, 2 slower (PERF.md)
+PAIR_ONE_WARP_POINTS = 4
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
 _CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 _ARGTYPES = [
@@ -100,24 +111,43 @@ def extract_completed_draws(hist, hist_cnt, m: int):
 
 
 def kernel_layout(staged: StagedLogp) -> str:
-    """``"warp"`` (one warp per chain, lane l holding coordinates ``4l ..
-    4l+3``) for ``32 < d <= 128`` without a stream loop; else
-    ``"thread"``: one thread per chain, or a warp (a block) per chain over
-    the data points of a streamed likelihood."""
-    if not staged.streams and LANES < staged.d <= LANES * WARP_CPL:
+    """``"stream"`` for a streamed likelihood (the one-thread layout's
+    code, run by the warps of :func:`stream_layout`); ``"warp"`` (one warp
+    per chain, lane l holding coordinates ``4l .. 4l+3``) for ``32 < d <=
+    128``; else ``"thread"``: one thread per chain."""
+    if staged.streams:
+        return "stream"
+    if LANES < staged.d <= LANES * WARP_CPL:
         return "warp"
     return "thread"
 
 
+def stream_layout(staged: StagedLogp, paired: bool) -> StreamLayout:
+    """The stream loop's layout in K3 (``paired``) or K6: K6 calls the
+    staged code at the same point in every chain, so its blocks hold
+    several chains that share the tiles (``staged.layout``); K3's hold one,
+    since its slot 2 is conditional per chain (two a block, running slot 2
+    for both when one needed it, were slower on the H100: PERF.md). K3
+    keeps more state than K6: where its chain is one warp, so that the
+    work around the loop weighs most, it takes at most
+    ``PAIR_ONE_WARP_POINTS`` points a lane, which keeps that state out of
+    local memory."""
+    lay = staged.layout
+    if not paired:
+        return lay
+    return StreamLayout(lay.warps, lay.points if lay.warps > 1
+                        else min(lay.points, PAIR_ONE_WARP_POINTS))
+
+
 def keep_layout(text: str, layout: str) -> str:
-    """``text`` without the marker lines ``// @@LAYOUT <name>@@`` and ``//
-    @@LAYOUT end@@``, and without the lines between them of every layout
-    other than ``layout``."""
+    """``text`` without the marker lines ``// @@LAYOUT <names>@@`` and ``//
+    @@LAYOUT end@@``, and without the lines after a marker that does not
+    name ``layout`` (up to the next marker)."""
     out, keep = [], True
     for line in text.splitlines(keepends=True):
         if line.startswith("// @@LAYOUT "):
-            name = line.strip()[len("// @@LAYOUT "):-2]
-            keep = name in ("end", layout)
+            names = line.strip()[len("// @@LAYOUT "):-2].split()
+            keep = names == ["end"] or layout in names
             continue
         if keep:
             out.append(line)
@@ -136,6 +166,15 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
                    f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
                    f"#define NUTS_LANES {staged.lanes}")
         vag_src = staged.cuda_source()
+    elif layout == "stream":
+        lay = stream_layout(staged, paired)
+        defines = (f"#define NUTS_D {staged.d}\n"
+                   f"#define NUTS_R {staged.n_res}\n"
+                   f"#define NUTS_MD {int(max_depth)}\n"
+                   f"#define NUTS_BLOCK {lay.threads}\n"
+                   f"#define NUTS_MIN_BLOCKS {lay.min_blocks}\n"
+                   f"#define NUTS_LANES {lay.lanes}")
+        vag_src = staged.cuda_source(lay)
     else:
         split = staged.warp_split()
         defines = (f"#define NUTS_D {staged.d}\n#define NUTS_R {split.n_res}\n"
@@ -228,6 +267,11 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
     steps = (num_ticks + 1) // 2 if paired else num_ticks
     lib = build(staged, max_depth, paired)
     dev = vt.device
+    layout = kernel_layout(staged)
+    # a stream layout's blocks hold whole groups of chains: the kernel runs
+    # n_k chains, copies of the last one past n, and drops the copies
+    c = stream_layout(staged, paired).chains if layout == "stream" else 1
+    n_k = -(-n // c) * c
     with torch.cuda.device(dev):
         msc = sqrt_mass_safe(inv).contiguous()
         inj = [None, None]
@@ -240,27 +284,27 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
                     f"{len(injected_rng)}")
             z, *us = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                       for x in injected_rng)
-            inj = [z.reshape(steps, n, d).permute(0, 2, 1).contiguous(),
-                   torch.stack([u.reshape(steps, n) for u in us], dim=1)
-                   .contiguous()]
-        vout = torch.empty_like(vt)
-        hist = torch.empty((steps, n) if collect_idx is not None
-                           else (steps, d, n), dtype=torch.float32,
+            inj = [pad_chains(z.reshape(steps, n, d).permute(0, 2, 1), n_k),
+                   pad_chains(torch.stack([u.reshape(steps, n) for u in us],
+                                          dim=1), n_k)]
+        v_k = pad_chains(vt, n_k)
+        vout = torch.empty_like(v_k)
+        hist = torch.empty((steps, n_k) if collect_idx is not None
+                           else (steps, d, n_k), dtype=torch.float32,
                            device=dev)
-        hist_cnt = torch.empty((steps, n), dtype=torch.int32, device=dev)
-        counts = torch.empty((n,), dtype=torch.int32, device=dev)
-        stats = torch.empty((5, n), dtype=torch.float32, device=dev)
+        hist_cnt = torch.empty((steps, n_k), dtype=torch.int32, device=dev)
+        counts = torch.empty((n_k,), dtype=torch.int32, device=dev)
+        stats = torch.empty((5, n_k), dtype=torch.float32, device=dev)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
-        layout = kernel_layout(staged)
-        res = (staged.res_consts if layout == "thread"
-               else staged.warp_split().res_consts).contiguous()
+        res = (staged.warp_split().res_consts if layout == "warp"
+               else staged.res_consts).contiguous()
         sd = scalarize.stream_table(staged, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"{name}_launch")(
-            vt.data_ptr(), vout.data_ptr(), hist.data_ptr(),
+            v_k.data_ptr(), vout.data_ptr(), hist.data_ptr(),
             hist_cnt.data_ptr(), counts.data_ptr(), stats.data_ptr(),
             res.data_ptr(), inv.data_ptr(), msc.data_ptr(),
-            None if sd is None else sd.data_ptr(), staged.n_pts, n, steps,
+            None if sd is None else sd.data_ptr(), staged.n_pts, n_k, steps,
             float(eps), float(divergence_threshold),
             -1 if collect_idx is None else collect_idx, seed0, seed1,
             *[None if t is None else t.data_ptr() for t in inj], stream)
@@ -270,16 +314,18 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
     nuts_chains_fused.layout_launches[layout] += 1
     scalarize.count_body_launch(staged)
     # accept sum, depth sum, divergences, in-flight alpha sum and leapfrogs
+    stats = stats[:, :n]
     five = (stats[0], stats[1], stats[2].to(torch.int32), stats[3],
             stats[4].to(torch.int32))
-    return _outputs(vout, hist, hist_cnt, counts, five, collect_idx)
+    return _outputs(vout[:, :n], hist[..., :n], hist_cnt[:, :n],
+                    counts[:n], five, collect_idx)
 
 
 # launches of either kernel, of each (K3 "nuts_pair", K6 "nuts_tick") and
-# in each layout (kernel_layout: "thread" or "warp")
+# in each layout (kernel_layout: "thread", "warp" or "stream")
 nuts_chains_fused.launches = 0
 nuts_chains_fused.kernel_launches = {"nuts_pair": 0, "nuts_tick": 0}
-nuts_chains_fused.layout_launches = {"thread": 0, "warp": 0}
+nuts_chains_fused.layout_launches = {"thread": 0, "warp": 0, "stream": 0}
 
 
 def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
@@ -296,8 +342,11 @@ def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,
     (:func:`kernel_layout`). Without ``injected_rng`` each chain draws from
     its own key, ``random.split(key, n)``, as gen_tpu's XLA path does."""
     staged, vt, inv = _prepare(logp, values0, inv_mass_diag, collect_idx)
-    layout = kernel_layout(staged)
+    layout = "warp" if kernel_layout(staged) == "warp" else "thread"
     vag = staged.vag if layout == "thread" else staged.warp_split().vag
+    if staged.streams:
+        lay = stream_layout(staged, paired)
+        vag = (lambda x: staged.vag(x, lay))
     d, n = vt.shape
     dev = vt.device
     n_u = _KERNELS[paired][2]

@@ -40,21 +40,37 @@ The pass:
   second, per-point program (``p<j>``, reading data rows ``d<i>`` and
   per-chain values). Every sum over the data axis (the logp's and each
   gradient coordinate's, which the joint graph holds as reductions)
-  becomes one accumulator ``s<k>`` of a loop over the points,
+  becomes one accumulator ``s<k>`` of a loop over the points, blocked and
   Kahan-compensated as gen_tpu's ``_blocked_accumulate``. A data-sum may
   not flow back into per-point arithmetic: a non-additive use of the
   likelihood shows in the joint graph as its derivative re-entering the
   loop, and is refused naming the data-sum, as gen_tpu refuses it.
-  gen_tpu's SMEM and HBM-tile loops (``_stream_loop``,
-  ``_stream_loop_hbm``, ``STREAM_TILE``, ``max_stream_bytes``) are one
-  loop over device memory here.
-- **Render twice**: as a CUDA C++ ``__device__`` function that the fused
+- **The stream loop on Hopper** (:class:`StreamLayout`, one definition
+  that both renderings read). What bounds it is the issue of the
+  per-point arithmetic: a few dozen float operations per point and
+  chain under ``-fmad=false``, each IEEE division ~10 instructions and a
+  ``log1pf`` ~20 on the H100. So the loop spends little around it: each
+  lane evaluates ``points`` points of a tile (gen_tpu's
+  ``STREAM_BLOCK``), adds them by a pairwise tree and the tile's total
+  into its Kahan sum (gen_tpu's ``_block_contrib``): one compensated add
+  per block, not four instructions per point and sum; the tiles
+  (gen_tpu's ``STREAM_TILE`` DMA) are copied into a ring of shared
+  memory that every chain of the block reads, with ``cp.async``, so the
+  table crosses L2 once per block; the stream table
+  (:func:`stream_table`) is padded to whole tiles and a point past the
+  data contributes 0.0 by a select, as gen_tpu's edge padding is
+  masked. K1, K3 and K6 take a layout fixed when they are built
+  (:func:`fused_layout`: warps per chain from the data length, several
+  chains a block where the gradient call is block-uniform); the
+  staged-code kernel one chosen per call from chains and points
+  (:func:`eval_layout`), which splits a chain's tiles over blocks when
+  chains are few. The two orders differ in the last bits; each kernel
+  equals its own plain version.
+- **Render twice**: as CUDA C++ ``__device__`` functions that the fused
   kernels inline (:meth:`StagedLogp.cuda_source`), and as torch ops on
   ``(n_chains,)`` tensors (:meth:`StagedLogp.vag`), the CPU and reference
   twin. Both run the same arithmetic in the same order, the stream loop
-  included: 32 lanes per chain (a warp; more warps per chain above
-  ``POINTS_PER_WARP`` points per warp) each sum every 32nd point, then a
-  fixed butterfly of shuffles, and the warps' totals in warp order.
+  included (:func:`_stream_sums` is the loop's plain version).
 - **Split over a warp** (:class:`SplitProgram`, no counterpart in gen_tpu):
   for the warp-per-chain layout of K3 and K6 (32 < d <= 128) the same
   instructions run on the lanes that own their coordinates, and each
@@ -227,6 +243,33 @@ __device__ __forceinline__ void _kahan(float& a, float& c, float v) {
   const float s_ = a + y_;
   c = (s_ - a) - y_;
   a = s_;
+}
+"""
+
+# the stream loop's tile copies: 16 bytes a thread with cp.async (cached
+# in L2 only), waited on per thread, then made visible to the block by a
+# barrier
+_CUDA_STREAM = """\
+__device__ __forceinline__ void _cp_commit() {
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void _cp_wait() {
+  asm volatile("cp.async.wait_group %0;\\n" :: "n"(N) : "memory");
+}
+// points [p0, p0 + T) of each of the rows of the padded table sd (row
+// stride ld) into dst (rows x T), every thread of the block copying
+__device__ __forceinline__ void _stream_tile(float* dst,
+                                             const float* __restrict__ sd,
+                                             int ld, int p0, int T,
+                                             int rows) {
+  const int q4 = T / 4;
+  for (int q = (int)threadIdx.x; q < rows * q4; q += (int)blockDim.x) {
+    const int row = q / q4, c = 4 * (q - row * q4);
+    const unsigned a = (unsigned)__cvta_generic_to_shared(dst + row * T + c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n"
+                 :: "r"(a), "l"(sd + (size_t)row * ld + p0 + c) : "memory");
+  }
 }
 """
 
@@ -445,33 +488,148 @@ INLINE_MAX_INSTRUCTIONS = 2000
 PLAIN_STREAM_BYTES = 256 << 20
 LANES = 32     # a warp: the stream loop's lanes per chain, at least
 # a stream loop over more than POINTS_PER_WARP points per warp gets more
-# warps per chain, up to MAX_STREAM_WARPS (a block per chain)
+# warps per chain in K1, K3 and K6, up to MAX_STREAM_WARPS
 POINTS_PER_WARP = 1 << 16
 MAX_STREAM_WARPS = 8
+# points each lane evaluates per tile as independent instructions (halved
+# while the tile ring would outgrow STREAM_SMEM_BYTES; 8 was faster than
+# 16 and 4 on the H100, PERF.md)
+STREAM_POINTS = 8
+STREAM_STAGES = 2                  # the tile ring: double buffering
+STREAM_SMEM_BYTES = 32 << 10       # the ring's shared memory, at most
+# every row of the kernels' stream table is padded to a multiple of this
+# many points, the largest tile (so that every tile copy is whole)
+STREAM_PAD = 4096
+# warps per block of K1 and K6: several chains share the tiles (K6 on the
+# H100: 16 warps a block 4.6% faster than 8 at 10^6 points and 1,024
+# chains, 1.5% at 10^4 and 8,192; PERF.md)
+STREAM_BLOCK_WARPS = 16
+# warps an SM that K3 and K6 with a stream loop ask registers for
+# (``__launch_bounds__``' minimum blocks): 16, at most 128 registers
+STREAM_SM_WARPS = 16
+# the staged-code kernel: chains (one warp each) per block, the warps it
+# launches at least by splitting chains over blocks (132 SMs x 96: about
+# four waves of the 24 warps an SM holds at the robust-t body's 80
+# registers; more splits measured faster on the H100, PERF.md), and the
+# tiles a block walks at least when it does
+EVAL_BLOCK_CHAINS = 8
+EVAL_TARGET_WARPS = 132 * 96
+EVAL_MIN_TILES = 4
 
 
-def stream_lanes(n_pts: int) -> int:
-    """Lanes that sum one chain's stream loop: a warp, doubled while each
-    warp would have more than ``POINTS_PER_WARP`` points, up to
-    ``MAX_STREAM_WARPS`` warps."""
+class StreamLayout:
+    """How a stream loop spreads over a kernel's threads, and so the order
+    of its sums (both renderings read it):
+
+    - ``warps`` per chain (``lanes = 32 warps``); each lane evaluates
+      ``points`` points of every tile of ``tile = lanes * points`` points:
+      lane l of warp w the points ``(w points + p) 32 + l``, p = 0 ..
+      points-1, as independent instructions. A point past ``n_pts``
+      contributes 0.0 by a select (whatever the body gives there, NaN
+      too). For each data-sum the lane adds its ``points`` values by a
+      pairwise tree (``v[2q] + v[2q+1]``, level by level) and adds the
+      tile's total into its running Kahan-compensated sum.
+    - ``chains`` chains per block read every tile from one ring of
+      ``STREAM_STAGES`` shared-memory stages (``cp.async`` copies of 16
+      bytes); ``splits`` blocks share one chain's tiles: block g walks
+      tiles g, g + splits, ... (the staged-code kernel only; K1, K3 and K6
+      keep ``splits`` 1).
+    - A lane's total is ``acc - comp``; a warp's lanes combine by the
+      butterfly ``v + v[lane ^ off]``, off = 16 .. 1; a block adds its
+      warps' totals in warp order, and the chain its blocks' in block
+      order.
+
+    ``chains`` does not change the sums; the others do."""
+
+    __slots__ = ("warps", "points", "chains", "splits")
+
+    def __init__(self, warps: int, points: int, chains: int = 1,
+                 splits: int = 1):
+        self.warps, self.points = int(warps), int(points)
+        self.chains, self.splits = int(chains), int(splits)
+
+    @property
+    def lanes(self) -> int:
+        return LANES * self.warps
+
+    @property
+    def tile(self) -> int:
+        return self.lanes * self.points
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.chains
+
+    @property
+    def min_blocks(self) -> int:
+        """Blocks an SM to hold ``STREAM_SM_WARPS`` warps."""
+        return max(1, STREAM_SM_WARPS * LANES // self.threads)
+
+    def tiles(self, n_pts: int) -> int:
+        return -(-n_pts // self.tile)
+
+    def __repr__(self):
+        return ("StreamLayout(" + ", ".join(
+            f"{k}={getattr(self, k)}" for k in self.__slots__) + ")")
+
+
+def _stream_points(warps: int, rows: int) -> int:
+    """``STREAM_POINTS`` halved while the ring of ``rows`` rows would
+    outgrow ``STREAM_SMEM_BYTES``."""
+    p = STREAM_POINTS
+    while p > 1 and (STREAM_STAGES * rows * LANES * warps * p * 4
+                     > STREAM_SMEM_BYTES or LANES * warps * p > STREAM_PAD):
+        p //= 2
+    if STREAM_STAGES * rows * LANES * warps * p * 4 > STREAM_SMEM_BYTES:
+        raise ValueError(f"scalarize: a stream table of {rows} rows does "
+                         f"not fit the tile ring ({STREAM_SMEM_BYTES} "
+                         "bytes of shared memory)")
+    return p
+
+
+def stream_warps(n_pts: int) -> int:
+    """Warps per chain in K1, K3 and K6: one, doubled while each warp would
+    have more than ``POINTS_PER_WARP`` points, up to
+    ``MAX_STREAM_WARPS``."""
     w = 1
     while w < MAX_STREAM_WARPS and n_pts > w * POINTS_PER_WARP:
         w *= 2
-    return LANES * w
+    return w
+
+
+def fused_layout(n_pts: int, rows: int) -> StreamLayout:
+    """The layout of K1 and K6, fixed when they are built (K3 takes its
+    warps and points): warps per chain from ``n_pts``, and as many chains
+    a block, sharing the tiles, as make ``STREAM_BLOCK_WARPS`` warps."""
+    w = stream_warps(n_pts)
+    return StreamLayout(w, _stream_points(w, rows),
+                        max(1, STREAM_BLOCK_WARPS // w), 1)
+
+
+def eval_layout(n_pts: int, rows: int, n_chains: int) -> StreamLayout:
+    """The staged-code kernel's layout for ``n_chains`` chains: a warp per
+    chain, ``EVAL_BLOCK_CHAINS`` chains per block, and each chain's tiles
+    split over as many blocks as bring the warps launched to
+    ``EVAL_TARGET_WARPS`` (each block walking ``EVAL_MIN_TILES`` tiles at
+    least)."""
+    p = _stream_points(1, rows)
+    tiles = -(-n_pts // (LANES * p))
+    g = min(-(-EVAL_TARGET_WARPS // max(n_chains, 1)),
+            tiles // EVAL_MIN_TILES)
+    return StreamLayout(1, p, max(1, min(EVAL_BLOCK_CHAINS, n_chains)),
+                        max(1, g))
 
 
 def block_size(staged: "StagedLogp", chains_block: int) -> int:
     """Threads per block of a kernel that embeds ``staged``:
-    ``chains_block`` chains' worth of warps, or one chain per block when a
-    chain takes more than a warp (its warps then combine their sums through
-    shared memory between two ``__syncthreads``)."""
-    return chains_block if staged.lanes <= LANES else staged.lanes
+    ``chains_block`` chains without a stream loop, the stream layout's
+    ``threads`` with one."""
+    return staged.layout.threads if staged.streams else chains_block
 
 
 def _pt(v):
-    """A per-chain value, shaped to broadcast against ``(steps, LANES)``
-    point blocks."""
-    return v.reshape(v.shape + (1, 1)) if isinstance(v, torch.Tensor) \
+    """A per-chain value, shaped to broadcast against a run of points."""
+    return v.reshape(v.shape + (1,)) if isinstance(v, torch.Tensor) \
         and v.dim() else v
 
 
@@ -485,49 +643,57 @@ def butterfly(tot: torch.Tensor) -> torch.Tensor:
     return tot
 
 
-def _stream_sums(point, sd: torch.Tensor, n_sums: int, batch, n_instr: int,
-                 lanes: int):
-    """The plain version of the kernels' stream loop: each of ``lanes``
-    lanes sums the points ``lane, lane + lanes, ...`` of every data-sum in
-    order, Kahan-compensated; each warp's 32 totals (``acc - comp``) are
-    combined by the butterfly ``v + v[lane ^ off]``, ``off = 16, 8, 4, 2,
-    1`` (``__shfl_xor_sync`` in the kernel), which leaves every lane with
-    the same bits, and the warps' totals are added in warp order (through
-    shared memory in the kernel). ``point(rows)`` evaluates the per-point
-    values of a block of points; blocks are sized so that its
+def _stream_sums(point, sd: torch.Tensor, n_pts: int, n_sums: int, batch,
+                 n_instr: int, layout: StreamLayout):
+    """The plain version of the kernels' stream loop in ``layout``'s order
+    (:class:`StreamLayout`): per lane blocks of ``points`` points, masked
+    past ``n_pts``, summed by the pairwise tree; one Kahan add per tile;
+    the butterfly, warps in order, blocks in order. ``sd`` holds
+    ``n_pts`` points a row or more (the kernels' padded table); a point
+    past ``n_pts`` reads the row's last point, as the padding holds.
+    ``point(rows)`` evaluates the per-point values of a run of points;
+    runs are whole rounds of ``splits`` tiles, sized so that their
     intermediates stay within ``PLAIN_STREAM_BYTES``."""
-    n_pts = int(sd.shape[1])
-    steps = -(-n_pts // lanes)
+    T, G, W, P = layout.tile, layout.splits, layout.warps, layout.points
+    n_tiles = layout.tiles(n_pts)
+    rounds = -(-n_tiles // G)
     chains = math.prod(batch)
-    per_step = 4 * lanes * max(chains, 1) * (n_instr + int(sd.shape[0])
-                                             + 3 * n_sums + 1)
-    block = max(1, min(steps, PLAIN_STREAM_BYTES // per_step))
-    acc = torch.zeros((n_sums,) + tuple(batch) + (lanes,), dtype=sd.dtype,
-                      device=sd.device)
+    per_round = 4 * G * T * max(chains, 1) * (n_instr + int(sd.shape[0])
+                                              + 3 * n_sums + 1)
+    chunk = max(1, min(rounds, PLAIN_STREAM_BYTES // per_round))
+    acc = torch.zeros((n_sums,) + tuple(batch) + (G, W, LANES),
+                      dtype=sd.dtype, device=sd.device)
     comp = torch.zeros_like(acc)
-    lane = torch.arange(lanes, device=sd.device)
-    for b0 in range(0, steps, block):
-        b1 = min(steps, b0 + block)
-        idx = torch.clamp(torch.arange(b0 * lanes, b1 * lanes,
-                                       device=sd.device), max=n_pts - 1)
-        rows = [row[idx].reshape(b1 - b0, lanes) for row in sd]
+    for r0 in range(0, rounds, chunk):
+        r1 = min(rounds, r0 + chunk)
+        k0, k1 = r0 * G, min(n_tiles, r1 * G)
+        pts = torch.arange(k0 * T, k1 * T, device=sd.device)
+        live = pts < n_pts
+        idx = torch.clamp(pts, max=n_pts - 1)
         vals = torch.stack([torch.broadcast_to(
             torch.as_tensor(v, dtype=sd.dtype, device=sd.device),
-            tuple(batch) + (b1 - b0, lanes)) for v in point(rows)])
-        for j in range(b1 - b0):
-            v = vals[..., j, :]
-            y = v - comp
-            t = acc + y
-            c = (t - acc) - y
-            live = (b0 + j) * lanes + lane < n_pts
-            if not bool(live.all()):
-                t, c = torch.where(live, t, acc), torch.where(live, c, comp)
-            acc, comp = t, c
-    tot = butterfly((acc - comp).reshape(acc.shape[:-1]
-                                         + (lanes // LANES, LANES)))
-    out = tot[..., 0, 0]
-    for w in range(1, lanes // LANES):
-        out = out + tot[..., w, 0]
+            tuple(batch) + (len(pts),)) for v in point([row[idx]
+                                                        for row in sd])])
+        vals = torch.where(live, vals, torch.zeros((), dtype=sd.dtype,
+                                                   device=sd.device))
+        vals = vals.reshape(vals.shape[:-1] + (k1 - k0, W, P, LANES))
+        while vals.shape[-2] > 1:
+            vals = vals[..., 0::2, :] + vals[..., 1::2, :]
+        block = vals[..., 0, :]              # (sums, *batch, tiles, W, 32)
+        for r in range(r0, r1):
+            lo, hi = r * G - k0, min(n_tiles, (r + 1) * G) - k0
+            a, c = acc[..., :hi - lo, :, :], comp[..., :hi - lo, :, :]
+            y = block[..., lo:hi, :, :] - c
+            t = a + y
+            comp[..., :hi - lo, :, :] = (t - a) - y
+            acc[..., :hi - lo, :, :] = t
+    tot = butterfly(acc - comp)[..., 0]      # (sums, *batch, G, W)
+    per_block = tot[..., 0]
+    for w in range(1, W):
+        per_block = per_block + tot[..., w]
+    out = per_block[..., 0]
+    for g in range(1, G):
+        out = out + per_block[..., g]
     return list(out)
 
 
@@ -546,11 +712,34 @@ def count_body_launch(staged: "StagedLogp") -> None:
 
 
 def stream_table(staged: "StagedLogp", device):
-    """The stream table on ``device`` (contiguous float32), or None."""
+    """The kernels' stream table on ``device`` (contiguous float32), or
+    None: each row padded with its last point to a multiple of
+    ``STREAM_PAD`` points, so that every tile copy is whole and aligned to
+    16 bytes. Made once per device."""
     if staged.stream_data is None:
         return None
-    return staged.stream_data.to(device=device,
-                                 dtype=torch.float32).contiguous()
+    key = str(torch.device(device))
+    if key not in staged._tables:
+        sd = staged.stream_data.to(device=device, dtype=torch.float32)
+        n_pad = -(-staged.n_pts // STREAM_PAD) * STREAM_PAD
+        staged._tables[key] = torch.cat(
+            [sd, sd[:, -1:].expand(-1, n_pad - staged.n_pts)],
+            dim=1).contiguous()
+    return staged._tables[key]
+
+
+def pad_chains(t: torch.Tensor, n_pad: int, dim: int = -1) -> torch.Tensor:
+    """``t`` with its chain axis ``dim`` filled up to ``n_pad`` by copies
+    of its last chain (contiguous): a kernel whose blocks hold several
+    chains then has no chain past the end to leave its barriers; the
+    copies' results are dropped."""
+    n = t.shape[dim]
+    if n == n_pad:
+        return t.contiguous()
+    last = t.narrow(dim, n - 1, 1)
+    shape = list(t.shape)
+    shape[dim] = n_pad - n
+    return torch.cat([t, last.expand(shape)], dim=dim).contiguous()
 
 
 class StagedLogp:
@@ -561,14 +750,23 @@ class StagedLogp:
     - ``stream_data``: float32 ``(rows, n_pts)`` data table of a streamed
       likelihood (part c), or None when the model collapses to residual
       constants.
-    - ``vag(x)``: the torch rendering; ``x`` is ``(d, n)``, returns
-      ``(lp (n,), grad (d, n))``.
-    - ``cuda_source()``: the CUDA C++ rendering, a ``__device__`` function
-      ``staged_vag(const float* x, const float* r, float& lp, float* g,
-      const float* sd, int n_pts)``. A streamed likelihood's function must
-      be called by all 32 lanes of a warp with the same ``x``: each lane
-      sums every 32nd point and the lanes combine their sums by shuffles,
-      so every lane returns the same bits.
+    - ``layout``: the :class:`StreamLayout` of K1, K3 and K6
+      (:func:`fused_layout`), or None without a stream loop; ``lanes`` its
+      lanes per chain (1 without one).
+    - ``vag(x, layout=None)``: the torch rendering; ``x`` is ``(d, n)``,
+      returns ``(lp (n,), grad (d, n))``; a stream loop sums in
+      ``layout``'s order (default ``self.layout``).
+    - ``cuda_source(layout=None)``: the CUDA C++ rendering, a
+      ``__device__`` function ``staged_vag(const float* x, const float* r,
+      float& lp, float* g, const float* sd, int n_pts)``. With a stream
+      loop (in ``layout``, default ``self.layout``) it is
+      ``staged_partial`` (the loop over the tiles ``g0, g0 + gs, ...``
+      into the block's sums ``s``) then ``staged_finish`` (the program
+      after the loop), and every thread of the block must call it at once
+      with ``layout.threads`` threads a block, each warp with its chain's
+      ``x``: the block's warps share the tiles, and every lane of a chain
+      returns the same bits. ``sd`` is :func:`stream_table`'s padded
+      table.
     """
 
     def __init__(self, d: int, st: "_Stager", lp, grads, res_consts):
@@ -583,10 +781,13 @@ class StagedLogp:
         self.stream_data = (torch.stack(st.rows).to(res_consts.device)
                             .contiguous() if self.sums else None)
         self.n_pts = int(st.n_pts) if self.sums else 0
-        self.lanes = stream_lanes(self.n_pts) if self.sums else 1
+        self.layout = (fused_layout(self.n_pts, len(st.rows))
+                       if self.sums else None)
+        self.lanes = self.layout.lanes if self.sums else 1
         self.structured = st.structured
         self.libs: Dict[Any, Any] = {}      # built kernels, per variant
-        self._cuda_src: Optional[str] = None
+        self._tables: Dict[str, torch.Tensor] = {}   # stream_table's
+        self._cuda_src: Dict[Any, str] = {}
         self._warp: Optional["SplitProgram"] = None
         self.torch_source = self._render_torch()
         namespace = {"torch": torch, "inf": math.inf, "nan": math.nan,
@@ -626,7 +827,8 @@ class StagedLogp:
         return out
 
     def _render_torch(self) -> str:
-        lines = ["def staged_vag(x, r, sd):"]
+        lines = ["def staged_vag(x, r, sd"
+                 + (", layout):" if self.sums else "):")]
         pre, post = self._split()
 
         def instr(j):
@@ -647,8 +849,8 @@ class StagedLogp:
                 _torch_lit(e) for e in self.sums) + "]")
             names = ", ".join(f"s{k}" for k in range(len(self.sums)))
             lines.append(f"    {names}, = _stream_sums(point, sd, "
-                         f"{len(self.sums)}, x[0].shape, "
-                         f"{len(self.pprog.instrs)}, {self.lanes})")
+                         f"{self.n_pts}, {len(self.sums)}, x[0].shape, "
+                         f"{len(self.pprog.instrs)}, layout)")
         for j in post:
             instr(j)
         outs = ", ".join(_torch_lit(g) for g in self.grads)
@@ -662,72 +864,173 @@ class StagedLogp:
         return "__forceinline__" if n <= INLINE_MAX_INSTRUCTIONS \
             else "__noinline__"
 
-    def cuda_source(self) -> str:
-        if self._cuda_src is None:
-            self._cuda_src = self._render_cuda()
-        return self._cuda_src
+    def cuda_source(self, layout: Optional[StreamLayout] = None) -> str:
+        layout = layout if self.sums and layout is not None else self.layout
+        # chains a block shape the source only where a chain has warps to
+        # combine (their sums' shared array)
+        key = None if layout is None else (
+            layout.warps, layout.points,
+            layout.chains if layout.warps > 1 else 1)
+        if key not in self._cuda_src:
+            self._cuda_src[key] = (self._render_stream_cuda(layout)
+                                   if self.sums else self._render_cuda())
+        return self._cuda_src[key]
 
-    def _render_cuda(self) -> str:
-        lines = [_CUDA_HELPERS + (_CUDA_KAHAN if self.sums else ""),
-                 f"__device__ {self._qualifier()} void staged_vag("
-                 "const float* x, const float* r, float& lp, float* g, "
-                 "const float* __restrict__ sd, int n_pts) {"]
-        pre, post = self._split()
+    def _instr(self, lines, j, prog, indent):
+        op, args = prog.instrs[j]
+        ctype = "bool" if prog.dtypes[j] == "b" else "float"
+        expr = _OPS[op][2].format(*[_cuda_lit(a) for a in args])
+        lines.append(f"{indent}const {ctype} {prog.kind}{j} = {expr};")
 
-        def instr(j, prog, indent):
-            op, args = prog.instrs[j]
-            ctype = "bool" if prog.dtypes[j] == "b" else "float"
-            expr = _OPS[op][2].format(*[_cuda_lit(a) for a in args])
-            lines.append(f"{indent}const {ctype} {prog.kind}{j} = {expr};")
-
-        for j in pre:
-            instr(j, self.prog, "  ")
-        if self.sums:
-            k = len(self.sums)
-            lines.append("  " + " ".join(f"float sa{i} = 0.0f, sc{i} = 0.0f;"
-                                         for i in range(k)))
-            lines.append(f"  for (int i = (int)(threadIdx.x & "
-                         f"{self.lanes - 1}u); i < n_pts; "
-                         f"i += {self.lanes}) {{")
-            for row in range(len(self.stream_data)):
-                lines.append(f"    const float d{row} = "
-                             f"sd[(size_t){row} * n_pts + i];")
-            for j in range(len(self.pprog.instrs)):
-                instr(j, self.pprog, "    ")
-            for i, e in enumerate(self.sums):
-                lines.append(f"    _kahan(sa{i}, sc{i}, {_cuda_lit(e)});")
-            lines.append("  }")
-            for i in range(k):
-                lines.append(f"  float s{i} = sa{i} - sc{i};")
-                for off in (16, 8, 4, 2, 1):
-                    lines.append(f"  s{i} = s{i} + __shfl_xor_sync("
-                                 f"0xffffffffu, s{i}, {off});")
-            warps = self.lanes // LANES
-            if warps > 1:
-                # one chain per block: its warps' sums, added in warp order
-                lines.append(f"  __shared__ float _red[{k}][{warps}];")
-                lines.append("  __syncthreads();")
-                lines.append("  if ((threadIdx.x & 31u) == 0) {")
-                for i in range(k):
-                    lines.append(f"    _red[{i}][threadIdx.x >> 5] = s{i};")
-                lines.append("  }")
-                lines.append("  __syncthreads();")
-                for i in range(k):
-                    lines.append(f"  s{i} = _red[{i}][0];")
-                    for w in range(1, warps):
-                        lines.append(f"  s{i} = s{i} + _red[{i}][{w}];")
-        for j in post:
-            instr(j, self.prog, "  ")
+    def _outputs_cuda(self, lines):
         lines.append(f"  lp = {_cuda_lit(self.lp)};")
         for i, g in enumerate(self.grads):
             lines.append(f"  g[{i}] = {_cuda_lit(g)};")
         lines.append("}")
+
+    def _render_cuda(self) -> str:
+        """The program without a stream loop: one straight-line
+        function."""
+        lines = [_CUDA_HELPERS,
+                 f"__device__ {self._qualifier()} void staged_vag("
+                 "const float* x, const float* r, float& lp, float* g, "
+                 "const float* __restrict__ sd, int n_pts) {"]
+        for j in range(len(self.prog.instrs)):
+            self._instr(lines, j, self.prog, "  ")
+        self._outputs_cuda(lines)
         return "\n".join(lines) + "\n"
 
-    def vag(self, x: torch.Tensor):
+    def _point_loop(self, lines, lay, rows, masked):
+        """Each lane's ``lay.points`` points of the tile ``_t``: the loop
+        body per point, each data-sum's value into ``_b<i>[p]``."""
+        T, P = lay.tile, lay.points
+        lines.append("#pragma unroll")
+        lines.append(f"      for (int _p = 0; _p < {P}; ++_p) {{")
+        lines.append(f"        const int _o = (_w * {P} + _p) * 32 + _lane;")
+        for row in range(rows):
+            lines.append(f"        const float d{row} = _t[{row * T} + _o];")
+        for j in range(len(self.pprog.instrs)):
+            self._instr(lines, j, self.pprog, "        ")
+        if masked:
+            lines.append("        const bool _live = _base + _o < n_pts;")
+        for i, e in enumerate(self.sums):
+            v = f"_live ? {_cuda_lit(e)} : 0.0f" if masked else _cuda_lit(e)
+            lines.append(f"        _b{i}[_p] = {v};")
+        lines.append("      }")
+
+    def _render_stream_cuda(self, lay: StreamLayout) -> str:
+        """``staged_partial`` (the program before the loop, and the loop in
+        ``lay``), ``staged_finish`` (the program before and after the loop;
+        the compiler keeps one copy of the part before where both are
+        inlined) and ``staged_vag``, the two in a row."""
+        pre, post = self._split()
+        k, rows = len(self.sums), len(self.stream_data)
+        T, P, W, S = lay.tile, lay.points, lay.warps, STREAM_STAGES
+        q = self._qualifier()
+        lines = [_CUDA_HELPERS + _CUDA_KAHAN + _CUDA_STREAM,
+                 f"__device__ {q} void staged_partial("
+                 "const float* x, const float* r, float* s, "
+                 "const float* __restrict__ sd, int n_pts, int g0, int gs) {"]
+        for j in pre:
+            self._instr(lines, j, self.prog, "  ")
+        lines.append(f"  __shared__ __align__(16) float _tile[{S}]"
+                     f"[{rows * T}];")
+        if W > 1:
+            lines.append(f"  __shared__ float _red[{lay.chains}][{k}]"
+                         f"[{W}];")
+        lines.append("  " + " ".join(f"float sa{i} = 0.0f, sc{i} = 0.0f;"
+                                     for i in range(k)))
+        lines.append(f"  const int _ld = (n_pts + {STREAM_PAD - 1}) / "
+                     f"{STREAM_PAD} * {STREAM_PAD};")
+        lines.append(f"  const int _nt = (n_pts + {T - 1}) / {T};")
+        lines.append("  const int _cnt = g0 < _nt ? (_nt - g0 + gs - 1) / gs"
+                     " : 0;")
+        lines.append("  const int _lane = (int)(threadIdx.x & 31u);")
+        lines.append(f"  const int _w = (int)(threadIdx.x >> 5) % {W};"
+                     if W > 1 else "  const int _w = 0;")
+        lines.append("  __syncthreads();   // the last call's reads are "
+                     "done")
+        lines.append(f"  for (int _q = 0; _q < {S - 1}; ++_q) {{")
+        lines.append(f"    if (_q < _cnt) _stream_tile(_tile[_q], sd, _ld, "
+                     f"(g0 + _q * gs) * {T}, {T}, {rows});")
+        lines.append("    _cp_commit();")
+        lines.append("  }")
+        lines.append("  for (int _j = 0; _j < _cnt; ++_j) {")
+        lines.append(f"    _cp_wait<{S - 2}>();")
+        lines.append("    __syncthreads();   // tile _j is in; tile _j - 1 "
+                     "is read")
+        lines.append(f"    if (_j + {S - 1} < _cnt) _stream_tile(_tile[(_j "
+                     f"+ {S - 1}) % {S}], sd, _ld, (g0 + (_j + {S - 1}) * "
+                     f"gs) * {T}, {T}, {rows});")
+        lines.append("    _cp_commit();")
+        lines.append(f"    const float* _t = _tile[_j % {S}];")
+        lines.append(f"    const int _base = (g0 + _j * gs) * {T};")
+        lines.append("    " + " ".join(f"float _b{i}[{P}];"
+                                       for i in range(k)))
+        # a tile that the data fill needs no mask (the same sums: a live
+        # point's select is the point); the last tile selects 0.0 past
+        # n_pts
+        lines.append(f"    if (_base + {T} <= n_pts) {{")
+        self._point_loop(lines, lay, rows, masked=False)
+        lines.append("    } else {")
+        self._point_loop(lines, lay, rows, masked=True)
+        lines.append("    }")
+        # the pairwise tree, written out: constant indices keep the blocks
+        # in registers
+        h = P // 2
+        while h:
+            for i in range(k):
+                lines.append("    " + " ".join(
+                    f"_b{i}[{q}] = _b{i}[{2 * q}] + _b{i}[{2 * q + 1}];"
+                    for q in range(h)))
+            h //= 2
+        for i in range(k):
+            lines.append(f"    _kahan(sa{i}, sc{i}, _b{i}[0]);")
+        lines.append("  }")
+        for i in range(k):
+            lines.append(f"  float s{i} = sa{i} - sc{i};")
+            for off in (16, 8, 4, 2, 1):
+                lines.append(f"  s{i} = s{i} + __shfl_xor_sync("
+                             f"0xffffffffu, s{i}, {off});")
+        if W > 1:
+            # the chain's warps' sums, added in warp order
+            lines.append(f"  const int _c = (int)threadIdx.x / {lay.lanes};")
+            lines.append("  if (_lane == 0) {")
+            for i in range(k):
+                lines.append(f"    _red[_c][{i}][_w] = s{i};")
+            lines.append("  }")
+            lines.append("  __syncthreads();")
+            for i in range(k):
+                lines.append(f"  s{i} = _red[_c][{i}][0];")
+                for w in range(1, W):
+                    lines.append(f"  s{i} = s{i} + _red[_c][{i}][{w}];")
+        for i in range(k):
+            lines.append(f"  s[{i}] = s{i};")
+        lines.append("}")
+        lines.append(f"__device__ {q} void staged_finish("
+                     "const float* x, const float* r, const float* s, "
+                     "float& lp, float* g) {")
+        for j in pre:
+            self._instr(lines, j, self.prog, "  ")
+        for i in range(k):
+            lines.append(f"  const float s{i} = s[{i}];")
+        for j in post:
+            self._instr(lines, j, self.prog, "  ")
+        self._outputs_cuda(lines)
+        lines.append(f"__device__ {q} void staged_vag("
+                     "const float* x, const float* r, float& lp, float* g, "
+                     "const float* __restrict__ sd, int n_pts) {")
+        lines.append(f"  float s[{k}];")
+        lines.append("  staged_partial(x, r, s, sd, n_pts, 0, 1);")
+        lines.append("  staged_finish(x, r, s, lp, g);")
+        lines.append("}")
+        return "\n".join(lines) + "\n"
+
+    def vag(self, x: torch.Tensor, layout: Optional[StreamLayout] = None):
         """Value and gradient at ``x`` of shape ``(d, n)`` through the torch
-        rendering: ``(lp (n,), grad (d, n))``."""
-        return self._call(self._torch_fn, x)
+        rendering: ``(lp (n,), grad (d, n))``; a stream loop sums in
+        ``layout``'s order (default ``self.layout``)."""
+        return self._call(self._torch_fn, x, layout or self.layout)
 
     def warp_split(self) -> "SplitProgram":
         """The program split over a warp's lanes (:class:`SplitProgram`),
@@ -736,11 +1039,11 @@ class StagedLogp:
             self._warp = SplitProgram(self)
         return self._warp
 
-    def _call(self, fn, x: torch.Tensor):
-        sd = None
+    def _call(self, fn, x: torch.Tensor, layout=None):
+        args = (list(x), list(self.res_consts.to(x.device)), None)
         if self.stream_data is not None:
-            sd = self.stream_data.to(x.device)
-        lp, gs = fn(list(x), list(self.res_consts.to(x.device)), sd)
+            args = args[:2] + (self.stream_data.to(x.device), layout)
+        lp, gs = fn(*args)
         shape = x.shape[1:]
 
         def full(v):

@@ -19,8 +19,9 @@ that follow the kernels' lane order.
   randomness: the serial layout's completed counts, its values within
   1e-5, and gen_tpu's ``nuts_fsm_paired``/``nuts_fsm`` the same way.
 - The kernel sources: the warp layout at d=102 (its defines, shuffles, the
-  split program); at d=10 and for a streamed likelihood the code of the
-  one-thread layout, byte for byte once comments are removed.
+  split program); at d=10 the code of the one-thread layout, byte for byte
+  once comments are removed, and for a streamed likelihood the code of
+  the tiled stream layout.
 - The ``cuda``-marked test holds both kernels to their plain versions at
   d=40 on a card.
 """
@@ -225,17 +226,17 @@ def _hash(text):
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
-# sha256 prefixes of the kernel sources as rendered before the warp-per-
-# chain layout existed (eight_schools d=10 at max_depth 8, the robust-t
-# stream at n=4,096 and max_depth 6): the code of K3 and K6 (comments
-# removed; the notes changed), and K1 and the staged-code kernel whole
+# sha256 prefixes of the kernels' code (comments removed; the notes
+# changed): eight_schools d=10 at max_depth 8 as rendered before the
+# warp-per-chain layout existed (its code has not changed since), and the
+# robust-t stream at n=4,096 and max_depth 6 in the tiled stream layout
 BEFORE = {
     ("d10", "K3"): "4e05987a7c3bab0a", ("d10", "K6"): "1f3db0637740fe13",
-    ("d10", "K1"): "88c1c897ea99eaf9", ("d10", "SE"): "c259bcccaf1659d5",
-    ("robust", "K3"): "663e14a5a36c0be3",
-    ("robust", "K6"): "e1a04e45c558edc6",
-    ("robust", "K1"): "a0c8b69ac5aad6cd",
-    ("robust", "SE"): "674419f9ae89108d",
+    ("d10", "K1"): "e4a06f73aad64e27", ("d10", "SE"): "e3557ef3139e2160",
+    ("robust", "K3"): "da3fe09f856fcfb7",
+    ("robust", "K6"): "f55d724b3368ff3f",
+    ("robust", "K1"): "5fd9f9e2fd250642",
+    ("robust", "SE"): "8e64b08816454f67",
 }
 
 
@@ -258,14 +259,17 @@ def test_kernel_sources_by_layout(schools102):
         FlatTarget(rtr, tt.select("slope", "intercept", "log_noise")).logp,
         3, "cpu")
     for name, st, md in (("d10", st10, 8), ("robust", strob, 6)):
-        assert nuts_fused.kernel_layout(st) == "thread"
+        assert nuts_fused.kernel_layout(st) == ("thread" if name == "d10"
+                                                else "stream")
         for paired, k in ((True, "K3"), (False, "K6")):
             src = nuts_fused.kernel_source(st, md, paired)
             assert f"#define NUTS_LANES {st.lanes}" in src
             assert "#define NUTS_CPL" not in src and "@@" not in src
             assert _hash(_code(src)) == BEFORE[(name, k)]
-        assert _hash(hmc_fused.kernel_source(st)) == BEFORE[(name, "K1")]
-        assert _hash(staged_eval.build_job(st)[1]) == BEFORE[(name, "SE")]
+        assert _hash(_code(hmc_fused.kernel_source(st))) == \
+            BEFORE[(name, "K1")]
+        assert _hash(_code(staged_eval.build_job(st)[1])) == \
+            BEFORE[(name, "SE")]
     assert "#define NUTS_LANES 1\n" in nuts_fused.kernel_source(st10, 8, True)
 
 

@@ -6,14 +6,18 @@
   gradient at rtol 2e-5 and 1e-3; the non-additive variant is refused
   with the data-sum named; with ``allow_stream=False`` the residual cap
   refuses it, as gen_tpu's does.
-- The plain stream loop sums in the kernels' order: 32 lanes, each
-  Kahan-compensated over every 32nd point, then the butterfly; bit for bit
-  against a numpy transcription, and the same bits whatever the block size
-  of the plain evaluation.
+- The plain stream loop sums in the kernels' order (``StreamLayout``): per
+  lane blocks of P points, masked past the data, added by a pairwise tree,
+  one Kahan add per tile, the butterfly, warps in order and split blocks
+  in order; bit for bit against a numpy transcription in four layouts,
+  and the same bits whatever the block size of the plain evaluation. At
+  200,000 points its sums are as close to float64 as the old per-point
+  Kahan order's.
 - Data arrays read twice share a row, a bool mask becomes a row, an array
   of one value folds, and a per-point value combined with an unrolled
-  array is refused. The CUDA rendering holds the loop and the kernels run a
-  warp per chain."""
+  array is refused. The CUDA rendering holds the tiled loop, and the
+  kernels run its layout's warps per chain and chains per block; the
+  staged-code kernel has a stream source of its own."""
 
 import pytest
 
@@ -75,34 +79,84 @@ def test_stream_refusals():
         stage_scalarized(unrolled, 1, "cpu")
 
 
-def _lanes_reference(vals, lanes):
+def _layout_reference(vals, lay):
     """numpy float32 transcription of the kernels' stream loop for one
-    chain: lane l sums points l, l + lanes, ... with Kahan compensation,
-    its total is acc - comp; within each warp v += v[l ^ off] for off = 16,
-    8, 4, 2, 1; then the warps' totals in warp order."""
+    chain in the ``StreamLayout`` ``lay``: the points in tiles of
+    ``lay.tile``, lane l of warp w holding points ``(w P + p) 32 + l`` of
+    each, 0.0 past the data; per lane the pairwise tree over its P values,
+    then a Kahan add of the tile's total into block ``tile % splits``'s
+    sum; each lane's ``acc - comp``, the butterfly ``v + v[l ^ off]``, the
+    warps' totals in warp order, the blocks' in block order."""
     f = np.float32
+    T, G, W, P = lay.tile, lay.splits, lay.warps, lay.points
+    n_tiles = -(-len(vals) // T)
+    padded = np.zeros(n_tiles * T, f)
+    padded[:len(vals)] = vals
+    acc, comp = np.zeros((G, W, 32), f), np.zeros((G, W, 32), f)
+    for k, tile in enumerate(padded.reshape(n_tiles, W, P, 32)):
+        while tile.shape[1] > 1:
+            tile = (tile[:, 0::2] + tile[:, 1::2]).astype(f)
+        g = k % G
+        y = (tile[:, 0] - comp[g]).astype(f)
+        t = (acc[g] + y).astype(f)
+        comp[g] = ((t - acc[g]).astype(f) - y).astype(f)
+        acc[g] = t
+    tot = (acc - comp).astype(f)
+    for off in (16, 8, 4, 2, 1):
+        tot = (tot + tot[..., np.arange(32) ^ off]).astype(f)
+    assert all(len(set(w.tolist())) == 1 for w in tot.reshape(-1, 32))
+    per_block = tot[:, 0, 0]
+    for w in range(1, W):
+        per_block = (per_block + tot[:, w, 0]).astype(f)
+    out = per_block[0]
+    for g in range(1, G):
+        out = f(out + per_block[g])
+    return out
+
+
+def _old_order(vals, lanes):
+    """The order the kernels summed in before the tiles: lane l adds the
+    points l, l + lanes, ... one Kahan add each, then the butterfly and
+    the warps in order."""
+    f = np.float32
+    steps = -(-len(vals) // lanes)
+    v = np.zeros(steps * lanes, f)
+    v[:len(vals)] = vals
     acc, comp = np.zeros(lanes, f), np.zeros(lanes, f)
-    for i, v in enumerate(vals):
-        lane = i % lanes
-        y = f(f(v) - comp[lane])
-        t = f(acc[lane] + y)
-        comp[lane] = f(f(t - acc[lane]) - y)
-        acc[lane] = t
+    for row in v.reshape(steps, lanes):
+        y = (row - comp).astype(f)
+        t = (acc + y).astype(f)
+        comp = ((t - acc).astype(f) - y).astype(f)
+        acc = t
     tot = (acc - comp).astype(f).reshape(-1, 32)
     for off in (16, 8, 4, 2, 1):
         tot = (tot + tot[:, np.arange(32) ^ off]).astype(f)
-    assert all(len(set(w.tolist())) == 1 for w in tot)
     out = tot[0, 0]
     for w in range(1, tot.shape[0]):
         out = f(out + tot[w, 0])
     return out
 
 
-@pytest.mark.parametrize("per_warp,lanes", [(1 << 16, 32), (600, 128)])
-def test_plain_loop_sums_in_the_kernels_order(monkeypatch, per_warp, lanes):
-    """A warp per chain, and (with fewer points per warp allowed) four
-    warps per chain."""
-    monkeypatch.setattr(scalarize, "POINTS_PER_WARP", per_warp)
+# (patched module constants, expected (warps, points, splits), whose
+# layout): 2,103 points are neither a multiple of P nor of a tile
+LAYOUTS = {
+    "ragged": ({}, (1, 8, 1), "fused"),
+    "chains_with_tail": ({"POINTS_PER_WARP": 600}, (4, 8, 1), "fused"),
+    "split_blocks": ({"EVAL_MIN_TILES": 2}, (1, 8, 4), "eval"),
+    "eight_warps_p4": ({"POINTS_PER_WARP": 100,
+                        "STREAM_SMEM_BYTES": 8 << 10}, (8, 4, 1), "fused"),
+}
+
+
+@pytest.mark.parametrize("case", list(LAYOUTS))
+def test_plain_loop_sums_in_the_kernels_order(monkeypatch, case):
+    """Four layouts: a warp per chain, 16 chains a block, over a ragged
+    end; four warps per chain, four chains a block (three chains leave a
+    tail); the staged-code kernel's chain split over four blocks; eight
+    warps per chain with 4 points a lane."""
+    patch, (w, p, g), which = LAYOUTS[case]
+    for name, value in patch.items():
+        monkeypatch.setattr(scalarize, name, value)
     data = (np.random.default_rng(2).standard_normal(2103) * 30.0 + 7.0
             ).astype(np.float32)
     t = torch.from_numpy(data)
@@ -111,18 +165,51 @@ def test_plain_loop_sums_in_the_kernels_order(monkeypatch, per_warp, lanes):
         return torch.sum(torch.log1p((t - x[0]) ** 2)) + x[0]
 
     staged = stage_scalarized(logp, 1, "cpu")
-    assert staged.lanes == lanes
-    assert f"__shared__ float _red[2][{lanes // 32}];" in \
-        staged.cuda_source() or lanes == 32
     X = torch.tensor([[0.25, -3.0, 11.5]])
-    lp_default, g_default = staged.vag(X)
-    monkeypatch.setattr(scalarize, "PLAIN_STREAM_BYTES", 1)  # one step/block
-    lp, g = staged.vag(X)
+    lay = (staged.layout if which == "fused"
+           else staged_eval.layout(staged, X.shape[1]))
+    assert (lay.warps, lay.points, lay.splits) == (w, p, g)
+    assert lay.tile % 16 == 0 and 2103 % lay.tile and 2103 % p
+    if which == "fused":
+        assert staged.lanes == lay.lanes
+        assert lay.chains == scalarize.STREAM_BLOCK_WARPS // w
+        assert (f"__shared__ float _red[{lay.chains}][2][{w}];" in
+                staged.cuda_source()) == (w > 1)
+        lp_default, g_default = staged.vag(X)
+    else:
+        lp_default, g_default = staged_eval.staged_vag(staged, X)
+    if case == "chains_with_tail":
+        assert X.shape[1] % lay.chains
+    monkeypatch.setattr(scalarize, "PLAIN_STREAM_BYTES", 1)  # a tile a run
+    lp, g = staged.vag(X, lay)
     assert torch.equal(lp, lp_default) and torch.equal(g, g_default)
     for j, x0 in enumerate(X[0].tolist()):
         vals = np.log1p(np.square(data - np.float32(x0)).astype(np.float32))
-        want = np.float32(_lanes_reference(vals, lanes) + np.float32(x0))
+        want = np.float32(_layout_reference(vals, lay) + np.float32(x0))
         assert lp[j].item() == float(want)
+
+
+def test_blocked_sums_stay_as_close_to_float64():
+    """200,000 float32 values of mixed sign and magnitude, summed by the
+    plain loop in K3's layout and in the staged-code kernel's (split over
+    blocks): each within the old per-point order's distance to the float64
+    sum, plus one unit in the last place."""
+    rng = np.random.default_rng(7)
+    n = 200_000
+    vals = (rng.standard_normal(n) * np.exp(rng.uniform(-6, 6, n))
+            ).astype(np.float32)
+    exact = float(np.sum(vals.astype(np.float64)))
+    ulp = float(np.spacing(np.float32(abs(exact))))
+    sd = torch.from_numpy(vals).reshape(1, n)
+    old_err = abs(float(_old_order(vals, 32 * scalarize.stream_warps(n)))
+                  - exact)
+    for lay in (scalarize.fused_layout(n, 1),
+                scalarize.eval_layout(n, 1, 4)):
+        s, = scalarize._stream_sums(lambda rows: [rows[0]], sd, n, 1, (),
+                                    0, lay)
+        assert float(s) == float(_layout_reference(vals, lay))
+        assert abs(float(s) - exact) <= old_err + ulp
+    assert scalarize.eval_layout(n, 1, 4).splits > 1
 
 
 def test_rows_masks_and_constants():
@@ -150,22 +237,45 @@ def test_stream_sources_render_with_a_warp_per_chain():
     _, tl = _logps()
     staged = hmc_fused.stage(tl, 2, "cpu")
     src = staged.cuda_source()
-    assert "for (int i = (int)(threadIdx.x & 31u); i < n_pts; i += 32)" in src
+    lay = staged.layout
+    assert (lay.warps, lay.points, lay.chains) == (1, 8, 16)
+    assert "__shared__ __align__(16) float _tile[2][256];" in src
+    assert "_stream_tile(_tile[(_j + 1) % 2], sd, _ld" in src
+    assert src.count("const int _o = (_w * 8 + _p) * 32 + _lane;") == 2
     assert src.count("_kahan(sa") == len(staged.sums) == 3
     assert src.count("__shfl_xor_sync(0xffffffffu") == 5 * 3
-    assert "__device__ __forceinline__ void staged_vag(" in src
+    assert src.count("_live ? ") == 3 and "_red" not in src
+    assert "if (_base + 256 <= n_pts) {" in src
+    for fn in ("staged_partial(", "staged_finish(", "staged_vag("):
+        assert f"__device__ __forceinline__ void {fn}" in src
     for k_src in (hmc_fused.kernel_source(staged),
                   nuts_fused.kernel_source(staged, 6, True),
-                  nuts_fused.kernel_source(staged, 6, False),
-                  staged_eval.build_job(staged)[1]):
-        assert src in k_src and "_LANES 32\n" in k_src and "@@" not in k_src
+                  nuts_fused.kernel_source(staged, 6, False)):
+        assert "_LANES 32\n" in k_src and "@@" not in k_src
+    assert src in hmc_fused.kernel_source(staged)
+    assert "#define HMC_BLOCK 512\n" in hmc_fused.kernel_source(staged)
+    assert src in nuts_fused.kernel_source(staged, 6, False)
+    k3 = nuts_fused.kernel_source(staged, 6, True)
+    # K3: one chain a block, so slot 2's branch is block-uniform, and at
+    # one warp a chain 4 points a lane
+    assert "__syncthreads_or" not in k3 and "if (!m1) {" in k3
+    assert "#define NUTS_BLOCK 32\n" in k3
+    k3_lay = nuts_fused.stream_layout(staged, True)
+    assert (k3_lay.warps, k3_lay.points, k3_lay.chains) == (1, 4, 1)
+    assert staged.cuda_source(k3_lay) in k3 and src not in k3
+    se = staged_eval.build_job(staged)
+    assert se[0] == "staged_stream" and "@@" not in se[1]
+    assert staged.cuda_source(staged_eval.layout(staged, 1)) in se[1]
+    assert staged_eval.layout(staged, 1 << 16).splits == 1
+    assert staged_eval.layout(staged, 1).splits > 1
 
 
 @pytest.mark.cuda
 def test_stream_kernels_match_plain_versions_on_cuda():
-    """On a card: the staged-code kernel and K1 with the stream loop (one
-    warp per chain at n = 5,000; eight at n = 300,000) against their plain
-    versions, bit for bit."""
+    """On a card: the staged-code kernel (777 chains, 128 and 256, and 3
+    split over blocks) and K1 with the stream loop (one warp per chain at n = 5,000;
+    eight at n = 300,000; 300 chains leave a tail block) against their
+    plain versions, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -179,10 +289,12 @@ def test_stream_kernels_match_plain_versions_on_cuda():
 
         staged = hmc_fused.stage(logp, 2, dev)
         assert staged.lanes == (32 if n_pts < 65536 else 256)
-        x = 0.3 * torch.randn(2, 777, device=dev)
-        lk, gk = staged_eval.staged_vag(staged, x)
-        lp, gp = staged.vag(x)
-        assert torch.equal(lk, lp) and torch.equal(gk, gp)
+        # 777 leaves a tail block; 128, 256 and 3 split chains
+        for n in (777, 128, 256, 3):
+            x = 0.3 * torch.randn(2, n, device=dev)
+            lk, gk = staged_eval.staged_vag(staged, x)
+            lp, gp = staged_eval.staged_vag_plain(staged, x)
+            assert torch.equal(lk, lp) and torch.equal(gk, gp)
         g = torch.Generator(dev).manual_seed(5)
         n, steps = 300, 3
         inj = (torch.full((steps,), 0.02, device=dev),
