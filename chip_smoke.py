@@ -9,8 +9,8 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (seven K1, twelve K3, nine
-   K6, five staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
+   variant from ``gen_tpu_torch/ops/csrc`` (nine K1, fourteen K3, nine
+   K6, seven staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
    per source, all at once), with registers, spills and stack from
    ptxas. K3 and K6 above 32 coordinates (the 100-school model, the d=33
    and d=40 Gaussians, the mixed regression's extended logp) run one warp
@@ -107,8 +107,10 @@ nonzero and no result line is printed):
       tests/test_mixed.py (exact enumeration; the regression's slope and
       intercept); wall time split into generate,
       warmup and sampling, with the Gibbs sweeps' and the kernel's share.
-10. The streamed likelihood (staging part c, K2c) and the unrolled Kalman
-    recursion (part b, K2b), K1, K3 and K6's launch counts and the staged
+10. The streamed likelihood (staging part c, K2c) and the Kalman
+    recursion (part b, K2b: a rolled loop over time, a tape of the carry,
+    a backward loop that recomputes each step from it), K1, K3 and K6's
+    launch counts and the staged
     code's (``scalarize.body_launches``, ``staged_eval.staged_vag``) set
     to 0 before each path and read after:
     a. The staged code alone and K1, K3 and K6 with the stream loop
@@ -116,9 +118,10 @@ nonzero and no result line is printed):
        layouts' edges n = 2,049 and 1,000,003 at 1, 3 and 1,027 chains:
        ragged tiles, chains split over blocks, tail blocks; the staged
        code alone also at n = 10^6 with 128 and 256 chains, phase (b)'s
-       shapes) and K1 and K3 with the Kalman body (T = 100, 131,072
-       chains) against their plain versions under injected randomness,
-       bit for bit.
+       shapes), and the staged code alone, K1 and K3 with the Kalman body
+       (the AR(1) model at T = 100 and 131,072 chains and at T = 1, a
+       two-state model at T = 6) against their plain versions under
+       injected randomness, bit for bit.
     b. ``benchmarks/bench_stream.py``'s robust-t regression: n = 10,000 at
        8,192 chains through ``sample_posterior(engine="auto")``, which
        must pick ``nuts_fused`` and stream; gates 0.05 sd, 6% against
@@ -140,8 +143,8 @@ nonzero and no result line is printed):
    version's time, its bound, the library call's time where there is one
    and launches on the main path, as one JSON line (K2c and K2b per
    gradient of the staged-code kernel; K2c at 10^6 also at the ChEES
-   warmup's 128 chains); then the card; then the result
-   line.
+   warmup's 128 chains; K2b with its registers, spills, tape bytes and
+   executed operations); then the card; then the result line.
 
 Each main path is driven with the kernels' launch counts set to 0 just
 before it and read just after. The script imports neither JAX nor gen_tpu.
@@ -150,9 +153,11 @@ It refuses to run without a CUDA device.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1683,6 +1688,18 @@ STREAM_CHAINS_AUTO_BIG = 256      # the short sample_posterior call at 10^6
 STREAM_WARM_CHAINS = 128          # bench_stream.py:178-196's warmup subset
 STREAM_TICKS = 1600
 AR1_T, AR1_CHAINS = 100, 131072   # bench_statespace_fused.py
+# the Kalman bodies phase 10(a) holds to their plain versions: (name, T,
+# chains); "kalman2" is the two-state model of tests/test_hmc_fused.py
+KALMAN_CASES = (("ar1", AR1_T, AR1_CHAINS), ("ar1_t1", 1, 8192),
+                ("kalman2", 6, 8192))
+# operations per chain of the T = 100 AR(1) program as staging unrolled it
+# before the scan loops (10,070 instructions): the work K2b's bound
+# divides, kept so that its rows stay comparable (the rolled program
+# executes more: the backward loop recomputes each step). It holds for the
+# rolled program of this shape only: (straight-line instructions, (steps,
+# body instructions) of each loop), which k2_ops checks
+K2B_WORK = 10070
+K2B_SHAPE = (40, [(100, 36), (100, 89)])
 ROBUST_ADDRS = ("slope", "intercept", "log_noise")
 AR1_ADDRS = ("phi", "log_q", "log_r")
 
@@ -1749,12 +1766,34 @@ def ar1_setup(torch, tt, dev, T=AR1_T):
             tt.select(*AR1_ADDRS), ys_np)
 
 
+def kalman2_logp(torch, dev, T=6, seed=0):
+    """tests/test_hmc_fused.py's two-state Kalman logp (the port's
+    counterpart is tests/torch_port_models.py::torch_kalman_logp): priors
+    on (phi, log_q, log_r) and the exact Kalman marginal, float32."""
+    from gen_tpu_torch.models import LGSSMParams, kalman_filter
+    ys = torch.tensor(np.random.default_rng(seed).standard_normal((T, 1)),
+                      dtype=torch.float32, device=dev)
+    eye2 = torch.eye(2, device=dev)
+    shift = torch.tensor([[0.0, 1.0], [0.0, 0.0]], device=dev)
+    c = torch.tensor([[1.0, 0.0]], device=dev)
+
+    def logp(x):
+        phi, log_q, log_r = x[0], x[1], x[2]
+        params = LGSSMParams(shift + phi * eye2, torch.exp(log_q) * eye2, c,
+                             torch.exp(log_r) * torch.eye(1, device=dev),
+                             torch.zeros(2, device=dev), eye2)
+        return (kalman_filter(params, ys).log_ml
+                - 0.5 * (phi ** 2 + log_q ** 2 + log_r ** 2))
+
+    return logp
+
+
 def k2_setup(torch, tt, dev):
     """Phase 1's part of phase 10: the models, one FlatTarget each, staged
     (timed) and their kernels' build jobs: K1, K3, K6 and the staged-code
     kernel for the stream model at each data size (the layout of K1, K3
-    and K6 follows the size), K1, K3 and the staged-code kernel for the
-    Kalman model."""
+    and K6 follows the size), K1, K3 and the staged-code kernel for each
+    Kalman model of ``KALMAN_CASES``."""
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
     from gen_tpu_torch.ops import hmc_fused, staged_eval
@@ -1765,15 +1804,19 @@ def k2_setup(torch, tt, dev):
         (f"stream_{n}", n) for n in STREAM_EDGE_NS]
     for name, setup in [(name, (lambda n=n: stream_setup(torch, tt, dev, n)))
                         for name, n in sizes] + [
-                            ("ar1", lambda: ar1_setup(torch, tt, dev))]:
+                            ("ar1", lambda: ar1_setup(torch, tt, dev)),
+                            ("ar1_t1", lambda: ar1_setup(torch, tt, dev, 1)),
+                            ("kalman2", lambda: None)]:
         s = setup()
-        target = FlatTarget(s[0].generate(random.PRNGKey(1, dev), s[1],
-                                          s[2])[0], s[3])
+        if s is None:           # a bare logp where a FlatTarget goes
+            target = SimpleNamespace(logp=kalman2_logp(torch, dev))
+        else:
+            target = FlatTarget(s[0].generate(random.PRNGKey(1, dev), s[1],
+                                              s[2])[0], s[3])
         st, secs = timed(torch, lambda: hmc_fused.stage(target.logp, 3,
                                                         dev))
         out[name] = (s, target, st)
         stage_s[name] = secs
-    st_k = out["ar1"][2]
     jobs = []
     for name, n in sizes:
         st_s = out[name][2]
@@ -1784,9 +1827,12 @@ def k2_setup(torch, tt, dev):
                  for k, paired in ((3, True), (6, False))]
         jobs += [(f"K2c staged stream n={n}", st_s,
                   staged_eval.build_job(st_s))]
-    jobs += [("K1 AR(1) T=100", st_k, hmc_fused.build_job(st_k)),
-             ("K3 AR(1) T=100", st_k, nf.build_job(st_k, 8, True)),
-             ("K2b staged Kalman", st_k, staged_eval.build_job(st_k))]
+    for name, T, _ in KALMAN_CASES:
+        st_k = out[name][2]
+        label = f"{'AR(1)' if name.startswith('ar1') else 'Kalman D=2'} T={T}"
+        jobs += [(f"K1 {label}", st_k, hmc_fused.build_job(st_k)),
+                 (f"K3 {label}", st_k, nf.build_job(st_k, 8, True)),
+                 (f"K2b staged {label}", st_k, staged_eval.build_job(st_k))]
     for name, secs in stage_s.items():
         st = out[name][2]
         print(f"staging {name}: {secs:.2f} s, {st.n_instructions} "
@@ -1794,7 +1840,10 @@ def k2_setup(torch, tt, dev):
               f"{st.n_point_instructions} per point, {len(st.sums)} "
               f"data-sums, {st.n_res} residual constants"
               + (f", stream table {tuple(st.stream_data.shape)}"
-                 if st.streams else ""))
+                 if st.streams else "")
+              + (f", scan loops (steps, body instructions) "
+                 f"{st.loop_shape}, {st.executed_instructions} executed, "
+                 f"tape {4 * st.tape_floats} B a chain" if st.loops else ""))
     return out, jobs, sum(stage_s.values())
 
 
@@ -1873,17 +1922,23 @@ def phase_compare_k2(torch, ctx, dev, rng):
             torch, st, stream_start(torch, xs, ys, n, dev, 3),
             f"robust-t n={len(xs)} ({n} chains, phase 10(b)'s)")
         errs["K2c"].append(at["stream_big", n])
-    (_, _, _, _, _), target, st = ctx["k2"]["ar1"]
-    g = torch.Generator(dev).manual_seed(9)
-    v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
-          + 0.2 * torch.randn(AR1_CHAINS, 3, device=dev, generator=g))
-    label = f"AR(1) Kalman T={AR1_T} ({AR1_CHAINS} chains)"
-    errs["K2b"].append(compare_staged(torch, st, v0, label))
-    errs["K1"].append(compare_k1(
-        torch, hmc_fused.hmc_chains_fused, hmc_fused.hmc_chains_fused_plain,
-        key, target.logp, v0, 3, 2, 0.05, None, None, rng, label)[2])
-    errs["K3"].append(compare_nuts(torch, nf, target.logp, v0, 4, 0.05, 8,
-                                   0, None, 1000.0, 6, label, True)[1])
+    for name, T, n in KALMAN_CASES:
+        _, target, st = ctx["k2"][name]
+        g = torch.Generator(dev).manual_seed(9)
+        v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
+              + 0.2 * torch.randn(n, 3, device=dev, generator=g))
+        label = (f"{'AR(1)' if name.startswith('ar1') else 'D=2'} Kalman "
+                 f"T={T} ({n} chains)")
+        errs["K2b"].append(compare_staged(torch, st, v0, label))
+        errs["K1"].append(compare_k1(
+            torch, hmc_fused.hmc_chains_fused,
+            hmc_fused.hmc_chains_fused_plain, key, target.logp, v0, 3, 2,
+            0.05, None, None, rng, label)[2])
+        check(errs["K1"][-1] == 0.0, f"K1 {label}: not bit for bit")
+        errs["K3"].append(compare_nuts(torch, nf, target.logp, v0, 4, 0.05,
+                                       8, 0, None, 1000.0, 6, label,
+                                       True)[1])
+        check(errs["K3"][-1] == 0.0, f"K3 {label}: not bit for bit")
     return dict({k: max(v) for k, v in errs.items()}, **{"K2c at": at})
 
 
@@ -1921,7 +1976,7 @@ def reset_counts(nf, hmc):
     hmc.launches = nf.nuts_chains_fused.launches = 0
     nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
     staged_eval.staged_vag.launches = 0
-    scalarize.body_launches.update(stream=0, structured=0)
+    scalarize.body_launches.update(stream=0, structured=0, scan=0)
 
 
 def phase_stream(torch, tt, dev, tag, ctx):
@@ -2094,11 +2149,11 @@ def phase_ar1(torch, tt, dev, tag, ctx):
               f"{out.samples['phi'].shape[0]} draws per chain, "
               f"{total_s:.2f} s (ChEES {warm:.2f} s, staging "
               f"{stage_s:.2f} s); launches {launches}")
-        check(launches[kernel] >= 1 and launches["body_structured"] >= 1,
+        check(launches[kernel] >= 1 and launches["body_scan"] >= 1,
               f"AR(1) {engine}: {kernel} with the Kalman body not launched")
         posterior_gate(torch, out.samples, out.summary, exact,
                        (0.05, 0.06, 1.01), f"AR(1) {engine}")
-        res[engine] = dict(launches=launches["body_structured"],
+        res[engine] = dict(launches=launches["body_scan"],
                            staged_launches=launches["staged_eval"],
                            total_s=total_s)
         del out
@@ -2108,10 +2163,32 @@ def phase_ar1(torch, tt, dev, tag, ctx):
 def k2_ops(st, n_chains):
     """Operations of one evaluation of the staged code for ``n_chains``
     chains (conventions as :func:`k1_ops`): the straight-line part, and per
-    data point the loop body plus 4 per Kahan-compensated sum."""
+    data point the loop body plus 4 per Kahan-compensated sum. The T = 100
+    Kalman program counts ``K2B_WORK``, as it did unrolled, and must have
+    the shape ``K2B_SHAPE`` that this count was kept for."""
+    if st.loops:
+        shape = (len(st.prog.instrs), st.loop_shape)
+        check(shape == K2B_SHAPE, f"the Kalman program's shape {shape} is "
+              f"not K2B_SHAPE {K2B_SHAPE}: recount K2B_WORK for it")
+        return K2B_WORK * n_chains
     per_chain = st.n_instructions + st.n_pts * (st.n_point_instructions
                                                 + 4 * len(st.sums))
     return per_chain * n_chains
+
+
+def ptxas_numbers(job):
+    """``(registers, spill bytes, stack frame bytes)`` of the library built
+    from the build job ``job``: the most registers and stack of its
+    functions, spill stores and loads summed, from the ptxas report saved
+    beside it; each None where there is no report."""
+    from gen_tpu_torch.ops import _cuda_build
+    rep = _cuda_build.ptxas_report(job[0], job[1])
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", rep or "")]
+    if not regs:
+        return None, None, None
+    spill = [int(v) for v in re.findall(r"(\d+) bytes spill", rep)]
+    stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", rep)]
+    return max(regs), sum(spill), max(stack, default=0)
 
 
 def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
@@ -2130,10 +2207,24 @@ def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
     nbytes = 4 * (n_chains * (2 * st.d + 1) + st.n_res
                   + (st.stream_data.numel() if st.streams else 0))
     b_ms, b_by = bound_ms(k2_ops(st, n_chains), nbytes)
+    extra = {}
+    if st.loops:
+        regs, spill, stack = ptxas_numbers(staged_eval.build_job(st))
+        extra = dict(registers=regs, spill_bytes=spill, stack_bytes=stack,
+                     tape_bytes=4 * st.tape_floats,
+                     staged_instructions=st.n_instructions,
+                     loop_shape=st.loop_shape,
+                     executed_ops=st.executed_instructions * n_chains)
     print(f"{label}: {ms:.4f} ms per gradient of {n_chains} chains "
           f"(plain {plain_s * 1e3:.2f} ms, bound {b_ms:.4f} ms by {b_by}, "
-          f"{k2_ops(st, n_chains):.4e} operations)")
-    return dict(
+          f"{k2_ops(st, n_chains):.4e} operations)"
+          + (f"; {extra['registers']} registers, {extra['spill_bytes']} "
+             f"spill bytes, {extra['stack_bytes']} B stack frame (the tape: "
+             f"{extra['tape_bytes']} B a chain), {st.n_instructions} staged "
+             f"instructions, loops {st.loop_shape}, "
+             f"{extra['executed_ops']:.4e} operations executed"
+             if extra else ""))
+    return dict(**extra,
         name=kind, route="cuda",
         source="gen_tpu_torch/ops/scalarize.py",
         replaces=("gen_tpu/ops/scalarize.py:582" if kind.startswith("k2c")
@@ -2243,10 +2334,10 @@ def phase_build(torch, tt, dev, tag):
                     nf.build_job(st_w[d_], 6, paired)) for d_ in WARP_DS]
     _, build_s = timed(torch, lambda: _cuda_build.build_all(
         [job for _, _, job in builds]))
-    by_hash = {h: (secs, rep) for h, secs, rep in _cuda_build.BUILD_LOG}
-    for name, st, (_, src, _) in builds:
-        secs, report = by_hash.get(_cuda_build.source_hash(src),
-                                   (float("nan"), ""))
+    by_hash = {h: secs for h, secs, _ in _cuda_build.BUILD_LOG}
+    for name, st, (kind, src, _) in builds:
+        secs = by_hash.get(_cuda_build.source_hash(src), float("nan"))
+        report = _cuda_build.ptxas_report(kind, src) or ""
         regs = [ln.strip() for ln in report.splitlines()
                 if "registers" in ln or "spill" in ln or "stack" in ln]
         staged = ("" if st is None else f"{st.n_instructions} staged "
@@ -2343,6 +2434,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # -- phase 1: environment, staging and build --------------------------
     card = phase_env(torch)
@@ -2389,6 +2481,8 @@ def main():
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)
+    print(f"{tag} chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          "in all")
     print(json.dumps({"kernels": [
         k1_entry, dict(name="nuts_pair", **k3_10),
         dict(name="nuts_pair_d102", **k3_102),

@@ -5,13 +5,14 @@ Counterpart: ``gen_tpu/models/lgssm.py``. Ported: ``LGSSMParams``,
 ``lgssm_kernel``, ``LinearGaussianSSM`` and ``lgssm``;
 ``lgssm_batch_weights`` waits for a later slice.
 
-Where PyTorch forced a difference: gen_tpu's ``lax.scan`` over time is a
-Python loop over the T steps, so that ``make_fx`` (and with it the staging
-pass, :mod:`gen_tpu_torch.ops.scalarize`) sees the whole recursion
-unrolled; its branchless ``where(first, ...)`` for the first step is a
-Python branch on ``t == 0``, which selects the same values. The updates are
-gen_tpu's: Joseph-form covariance updates, symmetrized, and ``cho_solve``
-(``torch.cholesky_solve``) for the innovation and the gain.
+Where PyTorch forced a difference: gen_tpu's ``lax.scan`` over time is the
+port's :func:`gen_tpu_torch.ops.scan.scan`, with the step's parameters as
+explicit ``consts``: a plain Python loop outside staging, and one loop that
+the staging pass keeps rolled inside it (:mod:`gen_tpu_torch.ops.scan`).
+The step is gen_tpu's: a ``first`` flag in the carry selects the prior at
+t = 0 by ``torch.where``, Joseph-form covariance updates, symmetrized, and
+``cho_solve`` (``torch.cholesky_solve``) for the innovation and the gain.
+The smoother keeps a Python loop (no staged path reads it).
 
 Generative model (time-major, T steps, state dim D, obs dim P):
 
@@ -29,6 +30,7 @@ from .. import random
 from ..dists import mvnormal
 from ..dists.distribution import Distribution, _f
 from ..dynamic import gen
+from ..ops.scan import scan
 
 _LOG_2PI = 1.8378770664093453
 
@@ -62,8 +64,33 @@ def _cho_solve(chol, b):
     return torch.cholesky_solve(b, chol)
 
 
+def _kalman_step(consts, carry, y):
+    """One step of the filter (gen_tpu's ``step``): predict (the prior at
+    the first step, by a select), innovation, gain, Joseph-form update."""
+    A, Q, C, R, mu0, P0 = consts
+    m, P, first = carry
+    p = C.shape[-2]
+    eye_d = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    m_pred = torch.where(first, mu0, A @ m)
+    P_pred = torch.where(first, P0, _sym(A @ P @ A.T + Q))
+    # innovation
+    v = y - C @ m_pred
+    S = _sym(C @ P_pred @ C.T + R)
+    chol_s = torch.linalg.cholesky(S)
+    s_inv_v = _cho_solve(chol_s, v)
+    lml = -0.5 * (v @ s_inv_v + p * _LOG_2PI) \
+        - torch.sum(torch.log(torch.diagonal(chol_s)))
+    # gain: K = P_pred C^T S^-1
+    K = _cho_solve(chol_s, C @ P_pred).T
+    m_f = m_pred + K @ v
+    ImKC = eye_d - K @ C
+    P_f = _sym(ImKC @ P_pred @ ImKC.T + K @ R @ K.T)
+    return (m_f, P_f, torch.zeros_like(first)), (lml, m_f, P_f, m_pred,
+                                                  P_pred)
+
+
 def kalman_filter(params: LGSSMParams, ys) -> KalmanResult:
-    """Exact filtering and marginal likelihood, one Python loop over time.
+    """Exact filtering and marginal likelihood, one :func:`scan` over time.
     Differentiable with respect to every field of ``params``; Joseph-form
     covariance updates. ``ys``: (T, P)."""
     A, Q, C, R, mu0, P0 = (_f(p) for p in params)
@@ -72,34 +99,10 @@ def kalman_filter(params: LGSSMParams, ys) -> KalmanResult:
     for t_ in (Q, C, R, mu0, P0, ys):
         dt = torch.promote_types(dt, t_.dtype)
     A, Q, C, R, mu0, P0, ys = (x.to(dt) for x in (A, Q, C, R, mu0, P0, ys))
-    d = A.shape[-1]
-    p = C.shape[-2]
-    eye_d = torch.eye(d, dtype=dt, device=A.device)
-    m, P = mu0, P0
-    lml, m_f, P_f, m_p, P_p = [], [], [], [], []
-    for t in range(ys.shape[0]):
-        y = ys[t]
-        # predict (the first step uses the prior)
-        m_pred = mu0 if t == 0 else A @ m
-        P_pred = P0 if t == 0 else _sym(A @ P @ A.T + Q)
-        # innovation
-        v = y - C @ m_pred
-        S = _sym(C @ P_pred @ C.T + R)
-        chol_s = torch.linalg.cholesky(S)
-        s_inv_v = _cho_solve(chol_s, v)
-        lml.append(-0.5 * (v @ s_inv_v + p * _LOG_2PI)
-                   - torch.sum(torch.log(torch.diagonal(chol_s))))
-        # gain: K = P_pred C^T S^-1
-        K = _cho_solve(chol_s, C @ P_pred).T
-        m = m_pred + K @ v
-        ImKC = eye_d - K @ C
-        P = _sym(ImKC @ P_pred @ ImKC.T + K @ R @ K.T)
-        m_f.append(m)
-        P_f.append(P)
-        m_p.append(m_pred)
-        P_p.append(P_pred)
-    return KalmanResult(torch.sum(torch.stack(lml)), torch.stack(m_f),
-                        torch.stack(P_f), torch.stack(m_p), torch.stack(P_p))
+    first = torch.ones((), dtype=torch.bool, device=A.device)
+    _, (lml, m_f, P_f, m_p, P_p) = scan(_kalman_step, (mu0, P0, first), ys,
+                                        (A, Q, C, R, mu0, P0))
+    return KalmanResult(torch.sum(lml), m_f, P_f, m_p, P_p)
 
 
 def kalman_smoother(params: LGSSMParams, ys):

@@ -4,7 +4,8 @@ No counterpart in gen_tpu (Pallas kernels compile inside ``jit``). Every
 fused kernel of the port is a CUDA C++ source with a plain C entry point,
 specialized per model by splicing in the staged program. This module
 compiles such a source for ``sm_90a`` into ``_build/`` next to this file
-(gitignored), keyed by a hash of the source and the flags, and loads it. A
+(gitignored), keyed by a hash of the source and the flags, and loads it;
+ptxas's report stays beside the library (:func:`ptxas_report`). A
 source that includes PyTorch's headers would take minutes to build; these
 take seconds. Several sources build in parallel, one ``nvcc`` each.
 """
@@ -17,7 +18,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
@@ -79,6 +80,7 @@ def build_all(jobs: Sequence[Tuple[str, str, Signatures]]
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {cu}:\n{err}")
             continue
+        so.with_suffix(".ptxas").write_text(err)
         os.replace(tmp, so)
         BUILD_LOG.append((h, time.perf_counter() - t0, err))
     if failures:
@@ -90,6 +92,14 @@ def build_all(jobs: Sequence[Tuple[str, str, Signatures]]
             _LIBS[h] = _load(BUILD_DIR / f"{name}_{h}.so", signatures)
         libs.append(_LIBS[h])
     return libs
+
+
+def ptxas_report(name: str, src: str) -> Optional[str]:
+    """ptxas's report (``-v``: registers, spills, stack frame) of the
+    library built from ``(name, src)``, whether this process built it or
+    found it built; None if there is none."""
+    rep = BUILD_DIR / f"{name}_{source_hash(src)}.ptxas"
+    return rep.read_text() if rep.exists() else None
 
 
 def build(name: str, src: str, signatures: Signatures) -> ctypes.CDLL:

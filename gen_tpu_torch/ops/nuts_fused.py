@@ -114,10 +114,11 @@ def kernel_layout(staged: StagedLogp) -> str:
     """``"stream"`` for a streamed likelihood (the one-thread layout's
     code, run by the warps of :func:`stream_layout`); ``"warp"`` (one warp
     per chain, lane l holding coordinates ``4l .. 4l+3``) for ``32 < d <=
-    128``; else ``"thread"``: one thread per chain."""
+    128`` without scan loops (``SplitProgram`` does not split them); else
+    ``"thread"``: one thread per chain."""
     if staged.streams:
         return "stream"
-    if LANES < staged.d <= LANES * WARP_CPL:
+    if LANES < staged.d <= LANES * WARP_CPL and not staged.loops:
         return "warp"
     return "thread"
 

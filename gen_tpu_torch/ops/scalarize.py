@@ -9,12 +9,16 @@ all.
 
 The pass:
 
-- **Trace** ``torch.func.grad_and_value(logp)`` with ``make_fx`` at a
-  ``(d,)`` float32 input into a functionalized aten graph. The joint graph
-  already holds the reverse-mode gradient, so the pass needs forward
-  semantics only and never differentiates anything itself (gen_tpu's
-  ``plane_vag`` takes a vjp of the scalarized program, and assembles the
-  stream gradients by hand).
+- **Trace** the logp's value and gradient (``torch.autograd.grad``) with
+  ``make_fx`` at a ``(d,)`` float32 input, then functionalize that graph,
+  into an aten graph without in-place ops. The joint graph already holds
+  the reverse-mode gradient, so the pass needs forward semantics only and
+  never differentiates anything itself (gen_tpu's ``plane_vag`` takes a
+  vjp of the scalarized program, and assembles the stream gradients by
+  hand). Plain autograd, not ``torch.func.grad_and_value``: a
+  :func:`~gen_tpu_torch.ops.scan.scan` arrives as a pair of custom ops,
+  whose gradient functorch's transforms do not trace, and for every other
+  model the two routes give the same program.
 - **Partial-evaluate**: every node that does not depend on ``x`` runs once,
   in torch, on the target device. The results that the rest of the graph
   reads become ``res_consts``, one float32 vector; for ``normal_linear``
@@ -30,9 +34,21 @@ The pass:
   gen_tpu's Cholesky-Banachiewicz, ``linalg_solve_triangular`` and
   ``cholesky_solve`` its forward and back substitutions, ``tril``,
   ``diagonal`` and their backward ops index arithmetic, each element plain
-  arithmetic. gen_tpu's ``scan`` is a Python loop in the port's models
-  (``models/lgssm.py``), so ``make_fx`` unrolls it already; its ``cond``
-  is ``torch.where`` over both branches, which part a stages.
+  arithmetic. gen_tpu's ``cond`` is ``torch.where`` over both branches,
+  which part a stages.
+- **Keep a scan rolled** (part b; gen_tpu's ``_eval_scan`` unrolls it):
+  :func:`~gen_tpu_torch.ops.scan.scan` arrives as two nodes, its forward
+  and its pullback. The step is traced once at the scan's real inputs and
+  staged into the body of a :class:`Loop` over the T steps, which keeps
+  the carry before each step on a tape; the pullback (the step recomputed
+  from the carry, then its vjp) into the body of a second loop over the
+  steps in reverse, which reads the tape. ``xs`` become residual
+  constants indexed by the step. A sum over the steps of a stacked output
+  becomes an accumulator of the forward loop, the gradient of each
+  per-chain value the step reads one of the backward loop; any other use
+  of a stacked output raises ``ValueError`` naming the node. A body
+  instruction that reads nothing that changes from step to step runs
+  before the loop. The staged program's size no longer grows with T.
 - **Stream the data** (part c): a known float (or bool) array with one
   axis of at least ``stream_threshold`` points becomes a row of the stream
   table ``StagedLogp.stream_data``, and a value along that axis a
@@ -70,19 +86,24 @@ The pass:
   kernels inline (:meth:`StagedLogp.cuda_source`), and as torch ops on
   ``(n_chains,)`` tensors (:meth:`StagedLogp.vag`), the CPU and reference
   twin. Both run the same arithmetic in the same order, the stream loop
-  included (:func:`_stream_sums` is the loop's plain version).
+  included (:func:`_stream_sums` is the loop's plain version), and the
+  scan loops (``#pragma unroll 1`` loops in CUDA, the tape a local array
+  of each thread; Python loops over the same steps in torch).
 - **Split over a warp** (:class:`SplitProgram`, no counterpart in gen_tpu):
   for the warp-per-chain layout of K3 and K6 (32 < d <= 128) the same
   instructions run on the lanes that own their coordinates, and each
   reduction (recorded in ``Program.reductions``) becomes lane partials
-  plus the butterfly; rendered as CUDA and as torch in that order.
+  plus the butterfly; rendered as CUDA and as torch in that order. It
+  does not split a program with scan loops: such a model takes the
+  one-thread layout whatever its d.
 
 A cast between float32 and bool becomes ``x != 0`` or ``b ? 1 : 0``, and
 ``xlogy``/``xlog1py`` are written out as torch computes them: the mixed
 driver stages a model's discrete values as float coordinates. An aten op
 outside the table raises ``ValueError`` naming it; nothing falls back
 silently. ``while_loop``-style data-dependent recursions have no static
-unrolling, in gen_tpu as here.
+unrolling, in gen_tpu as here. A model with both a scan and a streamed
+likelihood raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -96,14 +117,23 @@ import numpy as np
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 
+from . import scan
+
 aten = torch.ops.aten
+_SCAN_OPS = (torch.ops.gen_tpu_torch.scan_fwd.default,
+             torch.ops.gen_tpu_torch.scan_bwd.default)
 
 
 class Sym:
     """A program symbol: ``x[i]`` (chain coordinate), ``r[i]`` (staged
     residual constant), ``t<i>`` (instruction result), ``s<i>`` (a data-sum,
     the stream loop's result), ``p<i>`` (a per-point instruction of the
-    stream loop) or ``d<i>`` (data row i at the loop's current point)."""
+    stream loop) or ``d<i>`` (data row i at the loop's current point); in
+    a scan :class:`Loop`, ``u<i>`` (a body instruction), ``y<i>`` (element
+    i of the step's data), ``c<i>`` (the loop's state: the forward loop's
+    carry, the backward loop's cotangent of it), ``k<i>`` (slot i of the
+    carry before the step, in the backward loop) and ``a<i>`` (a loop's
+    result, read after it)."""
 
     __slots__ = ("kind", "idx", "dtype")
 
@@ -377,6 +407,16 @@ class _Stager:
         self._sum_of: Dict[Tuple, Sym] = {}
         self.node_name = ""
         self.structured = False     # a part-b op was unrolled
+        self.loops: List["Loop"] = []
+        self.scans: Dict[int, "Loop"] = {}    # a scan's key -> forward loop
+        self._n_syms = {"c": 0, "a": 0}
+
+    def new_sym(self, kind: str, dtype: str = "f") -> Sym:
+        """A fresh loop state (``c``) or loop result (``a``) symbol,
+        numbered over the whole program."""
+        i = self._n_syms[kind]
+        self._n_syms[kind] += 1
+        return Sym(kind, i, dtype)
 
     def emit(self, op: str, *args):
         if not any(_per_point(a) for a in args):
@@ -436,6 +476,123 @@ class _Stager:
             self.sums.append(e)
             self.sum_names.append(self.node_name)
         return self._sum_of[e.key()]
+
+
+class Loop:
+    """A loop of the staged program over the ``n_steps`` steps of a scan:
+    the forward loop (``reverse`` False) or the backward one, which runs
+    over the same steps last to first and reads the forward loop's tape
+    (``fwd``). It runs before main-program instruction ``pos``.
+
+    - ``body`` (a :class:`Program` of kind ``"u"``) runs once a step. It
+      reads the values before the loop, the step's data ``y<i>`` =
+      ``r[ybase + t ywidth + i]``, the loop's state ``c<i>`` and, in the
+      backward loop, the forward carry before the step ``k<i>`` (slot i).
+    - ``state``/``inits``/``updates``: the state's symbols, their values
+      before the first step and the body elements that replace them after
+      each step. In the forward loop the state is the carry, one slot per
+      element; a slot in ``fixed`` (a boolean flag that every step sets to
+      one constant, as the ``first`` flag of the Kalman step) is ``init``
+      at step 0 and the constant after, computed from t, and stays off
+      the tape. The tape holds every other slot before each step.
+    - ``accs``: loop results ``(a<i>, element)``, each the sum over the
+      steps, in the loop's order, of a body element: a sum over the scan
+      axis of a stacked output in the forward loop, the gradient of a
+      value before the loop in the backward one.
+    - ``live``: the body instructions the state and the results need, in
+      order; the renderings emit only these."""
+
+    def __init__(self, name: str, n_steps: int, reverse: bool, ywidth: int):
+        self.name, self.n_steps, self.reverse = name, n_steps, reverse
+        self.ybase, self.ywidth = 0, ywidth
+        self.xs: Optional[torch.Tensor] = None     # a forward loop's data
+        self.body = Program("u")
+        self.state: List[Sym] = []
+        self.inits: List[Any] = []
+        self.updates: List[Any] = []
+        self.fixed: Dict[int, Tuple[Any, Any]] = {}
+        self.accs: List[Tuple[Sym, Any]] = []
+        self._acc_of: Dict[Any, Sym] = {}
+        self.fwd: Optional["Loop"] = None
+        self.leaves: List[Tuple[Tuple[int, ...], str]] = []
+        self.y_example: List[torch.Tensor] = []
+        self.pos = 0
+        self.live: List[int] = []
+
+    def accumulate(self, st, e):
+        """The symbol of the sum of body element ``e`` over the steps."""
+        if not isinstance(e, Sym) and e == 0.0:
+            return 0.0
+        key = _elem_key(e)
+        if key not in self._acc_of:
+            self._acc_of[key] = getattr(st, "outer", st).new_sym("a")
+            self.accs.append((self._acc_of[key], e))
+        return self._acc_of[key]
+
+    def tape_slots(self) -> List[int]:
+        """The forward carry's slots on the tape, in column order."""
+        return [i for i in range(len(self.state)) if i not in self.fixed]
+
+    def carried(self):
+        """``(state symbol, update)`` of every slot assigned each step."""
+        return [(s, u) for i, (s, u) in enumerate(zip(self.state,
+                                                      self.updates))
+                if i not in self.fixed]
+
+    def find_live(self):
+        stack = [e.idx for e in [u for _, u in self.carried()]
+                 + [e for _, e in self.accs]
+                 if isinstance(e, Sym) and e.kind == "u"]
+        live = set()
+        while stack:
+            j = stack.pop()
+            if j not in live:
+                live.add(j)
+                stack += [a.idx for a in self.body.instrs[j][1]
+                          if isinstance(a, Sym) and a.kind == "u"]
+        self.live = sorted(live)
+
+
+class _LoopStager:
+    """Stages a loop's body: an instruction that reads nothing that changes
+    from step to step is emitted into the main program, before the loop,
+    instead."""
+
+    def __init__(self, outer: _Stager, loop: Loop):
+        self.outer, self.loop, self.prog = outer, loop, loop.body
+        self.node_name = outer.node_name
+        self._state = {s.key() for s in loop.state}
+
+    @property
+    def structured(self):
+        return self.outer.structured
+
+    @structured.setter
+    def structured(self, v):
+        self.outer.structured = v
+
+    def _varies(self, a) -> bool:
+        return isinstance(a, Sym) and (a.kind in "uyk"
+                                       or a.key() in self._state)
+
+    def emit(self, op: str, *args):
+        if any(self._varies(a) for a in args):
+            return self.prog.emit(op, *args)
+        return self.outer.emit(op, *args)
+
+    def is_stream_shape(self, shape) -> bool:
+        return False
+
+
+class Stacked:
+    """An output of a scan stacked over its steps (shape ``(T,) + s``):
+    ``elems`` are the forward loop's body elements of one step. Only a sum
+    over the scan axis stages (a loop accumulator)."""
+
+    __slots__ = ("loop", "shape", "elems")
+
+    def __init__(self, loop: Loop, shape, elems):
+        self.loop, self.shape, self.elems = loop, tuple(shape), list(elems)
 
 
 def _cuda_lit(e) -> str:
@@ -627,6 +784,13 @@ def block_size(staged: "StagedLogp", chains_block: int) -> int:
     return staged.layout.threads if staged.streams else chains_block
 
 
+def _state(v, like, dtype="f"):
+    """A scan loop's value as a float32 (``dtype`` "b": bool) tensor on
+    ``like``'s device: Python numbers would compute in float64."""
+    return torch.as_tensor(v, dtype=torch.bool if dtype == "b"
+                           else torch.float32, device=like.device)
+
+
 def _pt(v):
     """A per-chain value, shaped to broadcast against a run of points."""
     return v.reshape(v.shape + (1,)) if isinstance(v, torch.Tensor) \
@@ -697,9 +861,9 @@ def _stream_sums(point, sd: torch.Tensor, n_pts: int, n_sums: int, batch,
     return list(out)
 
 
-# launches of K1, K3 and K6 whose body held a stream loop (part c) or
-# unrolled structured ops (part b); the wrappers count them
-body_launches = {"stream": 0, "structured": 0}
+# launches of K1, K3 and K6 whose body held a stream loop (part c),
+# unrolled structured ops or scan loops (part b); the wrappers count them
+body_launches = {"stream": 0, "structured": 0, "scan": 0}
 
 
 def count_body_launch(staged: "StagedLogp") -> None:
@@ -709,6 +873,8 @@ def count_body_launch(staged: "StagedLogp") -> None:
         body_launches["stream"] += 1
     if staged.structured:
         body_launches["structured"] += 1
+    if staged.loops:
+        body_launches["scan"] += 1
 
 
 def stream_table(staged: "StagedLogp", device):
@@ -785,20 +951,43 @@ class StagedLogp:
                        if self.sums else None)
         self.lanes = self.layout.lanes if self.sums else 1
         self.structured = st.structured
+        self.loops = list(st.loops)
+        for lp in self.loops:
+            lp.find_live()
         self.libs: Dict[Any, Any] = {}      # built kernels, per variant
         self._tables: Dict[str, torch.Tensor] = {}   # stream_table's
         self._cuda_src: Dict[Any, str] = {}
         self._warp: Optional["SplitProgram"] = None
         self.torch_source = self._render_torch()
         namespace = {"torch": torch, "inf": math.inf, "nan": math.nan,
-                     "_pt": _pt, "_stream_sums": _stream_sums}
+                     "_pt": _pt, "_stream_sums": _stream_sums,
+                     "_state": _state}
         exec(compile(self.torch_source, "<staged_vag>", "exec"), namespace)
         self._torch_fn = namespace["staged_vag"]
 
     @property
     def n_instructions(self) -> int:
-        """Instructions of the straight-line part (outside the loop)."""
-        return len(self.prog.instrs)
+        """Instructions outside the stream loop: the straight-line part,
+        and each scan loop's body once (:attr:`loop_shape` has the trip
+        counts)."""
+        return len(self.prog.instrs) + sum(len(lp.live) for lp in self.loops)
+
+    @property
+    def loop_shape(self) -> List[Tuple[int, int]]:
+        """``(steps, body instructions)`` of each scan loop, in order."""
+        return [(lp.n_steps, len(lp.live)) for lp in self.loops]
+
+    @property
+    def executed_instructions(self) -> int:
+        """Instructions a chain executes per evaluation (stream loop
+        aside): the straight-line part plus each loop body per step."""
+        return len(self.prog.instrs) + sum(s * n for s, n in self.loop_shape)
+
+    @property
+    def tape_floats(self) -> int:
+        """Floats of the forward loops' tapes, per chain."""
+        return sum(lp.n_steps * len(lp.tape_slots()) for lp in self.loops
+                   if not lp.reverse)
 
     @property
     def n_point_instructions(self) -> int:
@@ -830,13 +1019,18 @@ class StagedLogp:
         lines = ["def staged_vag(x, r, sd"
                  + (", layout):" if self.sums else "):")]
         pre, post = self._split()
+        at = self._loops_at()
 
         def instr(j):
+            for lp in at.get(j, ()):
+                self._loop_torch(lines, lp)
             op, args = self.prog.instrs[j]
             lines.append(f"    t{j} = {_torch_expr(op, args)}")
 
         for j in pre:
             instr(j)
+        for lp in at.get(len(self.prog.instrs), ()):
+            self._loop_torch(lines, lp)
         if self.sums:
             for a in self._loop_inputs():
                 lines.append(f"    b_{a.kind}{a.idx} = _pt({_torch_lit(a)})")
@@ -856,6 +1050,111 @@ class StagedLogp:
         outs = ", ".join(_torch_lit(g) for g in self.grads)
         lines.append(f"    return {_torch_lit(self.lp)}, [{outs}]")
         return "\n".join(lines) + "\n"
+
+    def _loops_at(self) -> Dict[int, List[Loop]]:
+        at: Dict[int, List[Loop]] = {}
+        for lp in self.loops:
+            at.setdefault(lp.pos, []).append(lp)
+        return at
+
+    def _tape(self, lp: Loop):
+        """The tape's name and the forward loop's tape columns."""
+        fwd = lp.fwd or lp
+        return f"_tape{self.loops.index(fwd)}", fwd.tape_slots()
+
+    def _fixed(self, lp: Loop):
+        """``(symbol, init, constant)`` of the forward carry's slots that
+        are computed from t, named as ``lp``'s body reads them."""
+        fwd = lp.fwd or lp
+        return [(fwd.state[i] if lp is fwd
+                 else Sym("k", i, fwd.state[i].dtype), init, lit)
+                for i, (init, lit) in sorted(fwd.fixed.items())]
+
+    def _loop_torch(self, lines, lp: Loop):
+        """A scan loop as a Python loop over the steps, every value a
+        per-chain tensor (float32, on ``x``'s device)."""
+        tape, cols = self._tape(lp)
+        T, P = lp.n_steps, lp.ywidth
+        if not lp.reverse and cols:
+            lines.append(f"    {tape} = [None] * {T}")
+        for s, _ in lp.carried():
+            init = lp.inits[lp.state.index(s)]
+            lines.append(f"    {_torch_lit(s)} = _state({_torch_lit(init)}, "
+                         "x[0])")
+        for a, _ in lp.accs:
+            lines.append(f"    {_torch_lit(a)} = _state(0.0, x[0])")
+        steps = f"range({T - 1}, -1, -1)" if lp.reverse else f"range({T})"
+        lines.append(f"    for _t in {steps}:")
+        for i in range(P):
+            lines.append(f"        y{i} = r[{lp.ybase + i} + _t"
+                         + (f" * {P}]" if P > 1 else "]"))
+        for sym, init, lit in self._fixed(lp):
+            lines.append(f"        {_torch_lit(sym)} = _state("
+                         f"{_torch_lit(init)} if _t == 0 else "
+                         f"{_torch_lit(lit)}, x[0], {sym.dtype!r})")
+        if cols and lp.reverse:
+            lines.append("        " + "".join(f"k{i}, " for i in cols)
+                         + f"= {tape}[_t]")
+        elif cols:
+            lines.append(f"        {tape}[_t] = (" + "".join(
+                f"{_torch_lit(lp.state[i])}, " for i in cols) + ")")
+        for j in lp.live:
+            op, args = lp.body.instrs[j]
+            lines.append(f"        u{j} = {_torch_expr(op, args)}")
+        for a, e in lp.accs:
+            lines.append(f"        {_torch_lit(a)} = ({_torch_lit(a)} + "
+                         f"{_torch_lit(e)})")
+        upd = lp.carried()
+        if upd:
+            lines.append("        " + "".join(f"{_torch_lit(s)}, "
+                                               for s, _ in upd)
+                         + "= " + "".join(f"{_torch_lit(u)}, "
+                                          for _, u in upd))
+
+    def _loop_cuda(self, lines, lp: Loop):
+        """A scan loop as a ``#pragma unroll 1`` loop over the steps; the
+        forward loop writes the tape, the backward one reads it. The tape is
+        an array in each thread's local memory, which the compiler
+        interleaves across a warp, so that its accesses coalesce (faster
+        than a shared-memory slab on the H100, PERF.md)."""
+        tape, cols = self._tape(lp)
+        T, P, C = lp.n_steps, lp.ywidth, len(cols)
+        lines.append(f"  // scan '{lp.name}': "
+                     + ("backward over its" if lp.reverse else "forward over")
+                     + f" {T} steps")
+        if not lp.reverse and C:
+            lines.append(f"  float {tape}[{T * C}];")
+        for s, _ in lp.carried():
+            init = lp.inits[lp.state.index(s)]
+            lines.append(f"  float {_cuda_lit(s)} = {_cuda_lit(init)};")
+        for a, _ in lp.accs:
+            lines.append(f"  float {_cuda_lit(a)} = 0.0f;")
+        lines.append("#pragma unroll 1")
+        lines.append(f"  for (int _t = {T - 1}; _t >= 0; --_t) {{"
+                     if lp.reverse else
+                     f"  for (int _t = 0; _t < {T}; ++_t) {{")
+        for i in range(P):
+            lines.append(f"    const float y{i} = r[{lp.ybase + i} + _t"
+                         + (f" * {P}];" if P > 1 else "];"))
+        for sym, init, lit in self._fixed(lp):
+            ctype = "bool" if sym.dtype == "b" else "float"
+            lines.append(f"    const {ctype} {_cuda_lit(sym)} = _t == 0 ? "
+                         f"{_cuda_lit(init)} : {_cuda_lit(lit)};")
+        for col, i in enumerate(cols):
+            cell = f"{tape}[_t * {C} + {col}]"
+            lines.append(f"    const float k{i} = {cell};" if lp.reverse
+                         else f"    {cell} = {_cuda_lit(lp.state[i])};")
+        for j in lp.live:
+            self._instr(lines, j, lp.body, "    ")
+        for a, e in lp.accs:
+            lines.append(f"    {_cuda_lit(a)} = {_cuda_lit(a)} + "
+                         f"{_cuda_lit(e)};")
+        upd = lp.carried()
+        for n, (_, u) in enumerate(upd):
+            lines.append(f"    const float _n{n} = {_cuda_lit(u)};")
+        for n, (s, _) in enumerate(upd):
+            lines.append(f"    {_cuda_lit(s)} = _n{n};")
+        lines.append("  }")
 
     def _qualifier(self) -> str:
         """Inlined at every call site unless the program is long (an
@@ -895,8 +1194,13 @@ class StagedLogp:
                  f"__device__ {self._qualifier()} void staged_vag("
                  "const float* x, const float* r, float& lp, float* g, "
                  "const float* __restrict__ sd, int n_pts) {"]
+        at = self._loops_at()
         for j in range(len(self.prog.instrs)):
+            for lp in at.get(j, ()):
+                self._loop_cuda(lines, lp)
             self._instr(lines, j, self.prog, "  ")
+        for lp in at.get(len(self.prog.instrs), ()):
+            self._loop_cuda(lines, lp)
         self._outputs_cuda(lines)
         return "\n".join(lines) + "\n"
 
@@ -1122,9 +1426,11 @@ class SplitProgram:
 
     def __init__(self, staged: "StagedLogp"):
         d = self.d = staged.d
-        if staged.streams or not LANES < d <= LANES * WARP_CPL:
+        if staged.streams or staged.loops or \
+                not LANES < d <= LANES * WARP_CPL:
             raise ValueError(f"scalarize: no warp-per-chain split for d={d}"
                              + (" with a stream loop" if staged.streams
+                                else " with scan loops" if staged.loops
                                 else ""))
         self.staged = staged
         self._reach = self._reachable(staged)
@@ -1733,7 +2039,8 @@ def _sum_elems(prog, elems):
             ops.append(e)                   # (acc + 0.0 is acc)
         acc = new
     if isinstance(acc, Sym) and acc.kind == "t" and len(ops) >= 3:
-        getattr(prog, "prog", prog).reductions[acc.idx] = tuple(ops)
+        owner = getattr(prog, "outer", prog)       # a loop body's: hoisted
+        getattr(owner, "prog", owner).reductions[acc.idx] = tuple(ops)
     return acc
 
 
@@ -2032,10 +2339,48 @@ _STRUCTURED = {
 }
 
 
+def _apply_stacked(prog, target, args, kwargs):
+    """An op that reads a scan's stacked output: picking it from the
+    scan's outputs, or a sum over the scan axis (then the forward loop
+    accumulates each of its elements, and the remaining axes sum after
+    the loop)."""
+    a = args[0]
+    if target is operator.getitem:
+        return a[args[1]]
+    if isinstance(a, Stacked) and target in _IDENTITY_ATEN:
+        return a
+    others = [v for v in list(args[1:]) + list(kwargs.values())
+              if isinstance(v, Stacked)]
+    if isinstance(a, Stacked) and not others and target in (
+            aten.sum.default, aten.sum.dim_IntList):
+        nd = len(a.shape)
+        dims = None if target is aten.sum.default else (
+            args[1] if len(args) > 1 else kwargs.get("dim"))
+        keep = target is aten.sum.dim_IntList and (
+            args[2] if len(args) > 2 else kwargs.get("keepdim", False))
+        dims = sorted({k % nd for k in dims}) if dims else list(range(nd))
+        if 0 in dims:
+            out = ScalarArray(a.shape[1:], [a.loop.accumulate(prog, e)
+                                            for e in a.elems])
+            if len(dims) > 1:
+                out = _reduce_sum(prog, out, [k - 1 for k in dims[1:]])
+            if keep:
+                out = ScalarArray(tuple(1 if i in dims else s for i, s in
+                                        enumerate(a.shape)), out.elems)
+            return out
+    loop = (a if isinstance(a, Stacked) else others[0]).loop
+    name = getattr(target, "__name__", str(target))
+    raise ValueError(f"scalarize: '{prog.node_name}' ({name}) reads the "
+                     f"stacked output of the scan '{loop.name}' other than "
+                     "by a sum over its steps; only such sums are staged")
+
+
 def _apply(prog, target, args, kwargs):
     name = getattr(target, "__name__", str(target))
     flat = []
     torch.fx.node.map_aggregate((args, kwargs), flat.append)
+    if any(isinstance(a, Stacked) for a in flat):
+        return _apply_stacked(prog, target, args, kwargs)
     if any(isinstance(a, StreamArray) for a in flat):
         out = _apply_stream(prog, target, args, kwargs)
         if out is not None:
@@ -2228,21 +2573,349 @@ def _to_elements(v, res_vals: List[torch.Tensor], staged: Dict):
     return v
 
 
-def _joint_graph(logp, x0):
-    """``make_fx`` of ``grad_and_value(logp)`` at ``x0``, functionalized so
-    that in-place ops from autograd's backward formulas (e.g. clamp's
+def _trace(fn, *args):
+    """``make_fx`` of ``fn`` at ``args``, then of that graph functionalized,
+    so that in-place ops from autograd's backward formulas (e.g. clamp's
     ``masked_fill_``) arrive as pure ops. Tracing records each node's value
     as a fake tensor; one fake mode for the whole trace (a tracing context)
     spares building a new one, stack trace and all, per node, which is most
-    of the time of an unrolled recursion's trace."""
+    of the time of a long program's trace."""
     from torch._guards import TracingContext, tracing
     from torch._subclasses.fake_tensor import FakeTensorMode
-    fn = make_fx(torch.func.functionalize(torch.func.grad_and_value(logp),
-                                          remove="mutations"))
+
+    def run():
+        gm = make_fx(fn)(*args)
+        return make_fx(torch.func.functionalize(gm, remove="mutations"))(
+            *args)
+
     if TracingContext.try_get() is not None:
-        return fn(x0)
+        return run()
     with tracing(TracingContext(FakeTensorMode(allow_fallback_kernels=True))):
-        return fn(x0)
+        return run()
+
+
+def _value_and_grad(logp):
+    """``x -> (grad, value)`` of ``logp`` by plain autograd."""
+    def vag(x):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            lp = logp(x)
+            if not lp.requires_grad:
+                return torch.zeros_like(x), lp.detach()
+            g, = torch.autograd.grad(lp, x, allow_unused=True,
+                                     materialize_grads=True)
+        return g, lp.detach()
+    return vag
+
+
+def _elem_key(e):
+    return e.key() if isinstance(e, Sym) else ("v", _cuda_lit(e))
+
+
+class _GraphEval:
+    """Partial evaluation of a traced graph into a stager's programs: a
+    node that reads no placeholder runs in torch; the rest become program
+    elements. Holds what every graph of one staging shares: the staged
+    residual constants and the scans' registry."""
+
+    def __init__(self, registry, max_residual_scalars: int,
+                 stream_threshold: int, allow_stream: bool):
+        self.registry = registry
+        self.max_res = max_residual_scalars
+        self.stream_threshold = stream_threshold
+        self.allow_stream = allow_stream
+        self.res_vals: List[torch.Tensor] = []
+        self.staged_res: Dict = {}
+
+    def to_res(self, v):
+        """``_to_elements`` of ``v``, within the residual cap."""
+        out = _to_elements(v, self.res_vals, self.staged_res)
+        total = sum(int(t.numel()) for t in self.res_vals)
+        if total > self.max_res:
+            raise ValueError(
+                f"scalarized residual needs {total} staged scalars "
+                f"(> {self.max_res}): the x-dependent part of this logp "
+                "touches large arrays that do not stream (one data axis of "
+                f">= {self.stream_threshold} points streams; "
+                f"allow_stream={self.allow_stream})")
+        return out
+
+    def run(self, gm, inputs, st):
+        """The graph's output, its placeholders bound to ``inputs``, its
+        instructions emitted through ``st``."""
+        known: Dict[Any, Any] = {}
+        residual = {}
+        # known nodes computed from graph literals alone (fills and what
+        # follows from them): their elements become literals, not residual
+        # constants, so they fold; the generated source stays
+        # data-independent
+        literal_nodes = set()
+        as_elements: Dict[Any, Any] = {}
+        inputs = iter(inputs)
+        out_node = None
+
+        def is_res(a):
+            return isinstance(a, torch.fx.Node) and a in residual
+
+        def known_val(a):
+            return torch.fx.node.map_arg(a, lambda n: known[n])
+
+        def sa_val(a):
+            def conv(n):
+                if n in residual:
+                    return residual[n]
+                if n not in as_elements:
+                    v = known[n]
+                    if n in literal_nodes:
+                        as_elements[n] = ScalarArray(v.shape, [
+                            _f32(e) for e in v.detach().cpu().reshape(-1)
+                            .tolist()])
+                    elif isinstance(v, torch.Tensor) and \
+                            st.is_stream_shape(v.shape) and \
+                            (torch.is_floating_point(v)
+                             or v.dtype == torch.bool):
+                        as_elements[n] = st.data_leaf(v)
+                    else:
+                        as_elements[n] = self.to_res(v)
+                return as_elements[n]
+            return torch.fx.node.map_arg(a, conv)
+
+        for node in gm.graph.nodes:
+            if node.op == "placeholder":
+                residual[node] = next(inputs)
+            elif node.op == "get_attr":
+                known[node] = getattr(gm, node.target)
+            elif node.op == "call_function":
+                deps = []
+                torch.fx.node.map_arg((node.args, node.kwargs), deps.append)
+                # a scan's pullback is always staged (its op computes
+                # nothing: gen_tpu_torch/ops/scan.py)
+                if (not any(is_res(a) for a in deps)
+                        and node.target is not _SCAN_OPS[1]):
+                    val = node.target(*known_val(node.args),
+                                      **known_val(node.kwargs))
+                    known[node] = val
+                    if (isinstance(val, torch.Tensor)
+                            and torch.is_floating_point(val)
+                            and val.numel() <= 64
+                            and (node.target in _FILL_ATEN
+                                 or node.target in (aten.full.default,
+                                                    aten.scalar_tensor.default,
+                                                    aten.eye.default)
+                                 or (deps and all(a in literal_nodes
+                                                  for a in deps)))):
+                        literal_nodes.add(node)
+                elif node.target in _SCAN_OPS:
+                    st.node_name = node.name
+                    if not isinstance(st, _Stager):
+                        raise ValueError(f"scalarize: the scan '{node.name}'"
+                                         " inside another scan's step is "
+                                         "not supported")
+                    stage = (self._scan_fwd if node.target is _SCAN_OPS[0]
+                             else self._scan_bwd)
+                    residual[node] = stage(node, st, is_res, known, sa_val)
+                else:
+                    st.node_name = node.name
+                    residual[node] = _apply(st, node.target,
+                                            sa_val(node.args),
+                                            sa_val(node.kwargs))
+            elif node.op == "output":
+                out_node = node
+            else:
+                raise ValueError(f"scalarize: graph node kind {node.op!r}")
+        return sa_val(out_node.args[0])
+
+    # -- scans ------------------------------------------------------------
+
+    def _data(self, node, known, is_res):
+        """The scan's ``xs``, which must be known float data."""
+        xs_n = node.args[3]
+        if is_res(xs_n):
+            raise ValueError(f"scalarize: the scan '{node.name}' runs over "
+                             "x-dependent data; its xs must be known")
+        xs = known[xs_n]
+        if not torch.is_floating_point(xs):
+            raise ValueError(f"scalarize: the scan '{node.name}' runs over "
+                             f"{xs.dtype} data; its xs must be float")
+        return xs
+
+    def stage_data(self, loops: List[Loop]):
+        """Each scan's ``xs`` as residual constants after all others (so
+        that the staged source depends on T only through the trip counts):
+        step t's element i at ``r[ybase + t ywidth + i]``."""
+        for lp in loops:
+            if lp.fwd is None:
+                lp.ybase = self.to_res(lp.xs).elems[0].idx
+        for lp in loops:
+            if lp.fwd is not None:
+                lp.ybase = lp.fwd.ybase
+
+    def _scan_fwd(self, node, st, is_res, known, sa_val):
+        """The forward loop of a scan: its outputs are the final carry's
+        leaves, then each output of the step stacked over the steps."""
+        key = node.args[0]
+        entry = self.registry[key]
+        xs = self._data(node, known, is_res)
+        T, width = int(xs.shape[0]), int(xs[0].numel())
+        loop = Loop(node.name, T, False, width)
+        loop.xs = xs
+        consts = [_as_sa(v) for v in sa_val(node.args[1])]
+        inits = [_as_sa(v) for v in sa_val(node.args[2])]
+        carry = []
+        for leaf in inits:
+            syms = [st.new_sym("c", _dtype_of(e)) for e in leaf.elems]
+            loop.state += syms
+            loop.inits += leaf.elems
+            loop.leaves.append((leaf.shape, _dtype_of(leaf.elems[0])))
+            carry.append(ScalarArray(leaf.shape, syms))
+        ex_c, ex_i, ex_x = entry.example
+        x_t = ScalarArray(ex_x.shape[1:], [Sym("y", i) for i in range(width)])
+        nc, ni = len(ex_c), len(ex_i)
+
+        def step(*flat):
+            new, y = entry.flat(list(flat[:nc]), list(flat[nc:nc + ni]),
+                                flat[-1])
+            return new + y
+
+        with torch.no_grad():
+            loop.y_example = entry.flat(ex_c, ex_i, ex_x[0])[1]
+        outs = self.run(_trace(step, *ex_c, *ex_i, ex_x[0]),
+                        consts + carry + [x_t], _LoopStager(st, loop))
+        loop.updates = [e for v in outs[:ni] for e in _as_sa(v).elems]
+        k = 0
+        for (shape, dt), leaf in zip(loop.leaves, inits):
+            upd = loop.updates[k:k + leaf.size]
+            const = [not isinstance(u, Sym) for u in upd]
+            if dt == "b" and all(const):
+                for i, (init, u) in enumerate(zip(leaf.elems, upd)):
+                    loop.fixed[k + i] = (init, bool(u))
+            elif dt == "b" or any(const):
+                raise ValueError(
+                    f"scalarize: the carry of the scan '{node.name}' holds a "
+                    "value that is neither a float every step computes nor "
+                    "a boolean flag every step sets to a constant")
+            k += leaf.size
+        loop.pos = len(st.prog.instrs)
+        st.loops.append(loop)
+        st.scans[key] = loop
+        finals = []
+        k = 0
+        for leaf in inits:
+            finals.append(ScalarArray(leaf.shape, [
+                loop.fixed[i][1] if i in loop.fixed else loop.state[i]
+                for i in range(k, k + leaf.size)]))
+            k += leaf.size
+        return finals + [Stacked(loop, (T,) + _as_sa(v).shape,
+                                 _as_sa(v).elems) for v in outs[ni:]]
+
+    def _step_cotangent(self, node, fwd, a, j, is_res, known, sa_val):
+        """The cotangent of step output ``j`` (one step's elements) from
+        that of its stack, which must be the same at every step."""
+        T = fwd.n_steps
+        if is_res(a):
+            elems = _as_sa(sa_val(a)).elems
+            n = len(elems) // T
+            rows = [elems[t * n:(t + 1) * n] for t in range(T)]
+            same = all([_elem_key(e) for e in row]
+                       == [_elem_key(e) for e in rows[0]] for row in rows)
+            one = rows[0]
+        else:
+            v = known[a].detach().to(torch.float32).reshape(T, -1)
+            bits = v.view(torch.int32)
+            same = bool((bits == bits[:1]).all())
+            one = [_f32(e) for e in v[0].tolist()]
+        if not same:
+            raise ValueError(
+                f"scalarize: '{node.name}' takes a cotangent of output {j} of "
+                f"the scan '{fwd.name}' that varies from step to step: a "
+                "stacked output is used other than by a sum over its steps")
+        return one
+
+    def _scan_bwd(self, node, st, is_res, known, sa_val):
+        """The backward loop of a scan: its outputs are the cotangents of
+        the consts (loop accumulators) and of the initial carry."""
+        key = node.args[0]
+        entry, fwd = self.registry[key], st.scans.get(key)
+        if fwd is None:
+            raise ValueError(f"scalarize: '{node.name}' is the pullback of "
+                             "a scan that was not staged")
+        consts_n, cts_n = node.args[1], node.args[4]
+        consts = [_as_sa(v) for v in sa_val(consts_n)]
+        ex_c, ex_i, ex_x = entry.example
+        nc, ni = len(ex_c), len(ex_i)
+        need = [i for i, n in enumerate(consts_n)
+                if is_res(n) and ex_c[i].is_floating_point()]
+        floats = [li for li, (_, dt) in enumerate(fwd.leaves) if dt == "f"]
+
+        def elems_of(a):
+            if is_res(a):
+                return _as_sa(sa_val(a)).elems
+            return [_f32(e) for e in known[a].detach().to(torch.float32)
+                    .reshape(-1).tolist()]
+
+        ct_y, sel = [], []
+        for j, a in enumerate(cts_n[ni:]):
+            one = self._step_cotangent(node, fwd, a, j, is_res, known,
+                                       sa_val)
+            if any(isinstance(e, Sym) or e != 0.0 for e in one):
+                sel.append(j)
+                ct_y.append(ScalarArray(fwd.y_example[j].shape, one))
+        loop = Loop(fwd.name, fwd.n_steps, True, fwd.ywidth)
+        loop.fwd = fwd
+        ct_carry = []
+        for li in floats:
+            init = elems_of(cts_n[li])
+            syms = [st.new_sym("c") for _ in init]
+            loop.state += syms
+            loop.inits += init
+            ct_carry.append(ScalarArray(fwd.leaves[li][0], syms))
+        k_in, k = [], 0
+        for shape, dt in fwd.leaves:
+            n = math.prod(shape)
+            k_in.append(ScalarArray(shape, [Sym("k", i, dt)
+                                            for i in range(k, k + n)]))
+            k += n
+        x_t = ScalarArray(ex_x.shape[1:], [Sym("y", i)
+                                           for i in range(fwd.ywidth)])
+
+        def pullback(*flat):
+            cs, ks = list(flat[:nc]), list(flat[nc:nc + ni])
+            cts = flat[nc + ni + 1:]
+            with torch.enable_grad():
+                cs = [c.detach().requires_grad_(True) if i in need else c
+                      for i, c in enumerate(cs)]
+                ks = [c.detach().requires_grad_(True) if li in floats else c
+                      for li, c in enumerate(ks)]
+                new, y = entry.flat(cs, ks, flat[nc + ni])
+                outs = [new[li] for li in floats] + [y[j] for j in sel]
+                pairs = [(o, g) for o, g in zip(outs, cts) if o.requires_grad]
+                wrt = [cs[i] for i in need] + [ks[li] for li in floats]
+                if not pairs:
+                    return [torch.zeros_like(w) for w in wrt]
+                return list(torch.autograd.grad(
+                    [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                    allow_unused=True, materialize_grads=True))
+
+        ex = [*ex_c, *ex_i, ex_x[0]] + [torch.ones_like(ex_i[li])
+                                        for li in floats] + [
+            torch.ones_like(fwd.y_example[j]) for j in sel]
+        outs = self.run(_trace(pullback, *ex),
+                        consts + k_in + [x_t] + ct_carry + ct_y,
+                        _LoopStager(st, loop))
+        loop.updates = [e for v in outs[len(need):] for e in _as_sa(v).elems]
+        grads = dict(zip(need, outs[:len(need)]))
+        out = []
+        for i, c in enumerate(consts):
+            out.append(ScalarArray(c.shape, [loop.accumulate(st, e)
+                                             for e in _as_sa(grads[i]).elems])
+                       if i in grads else ScalarArray(c.shape,
+                                                      [0.0] * c.size))
+        for li, (shape, _) in enumerate(fwd.leaves):
+            out.append(ct_carry[floats.index(li)] if li in floats
+                       else ScalarArray(shape, [0.0] * math.prod(shape)))
+        loop.pos = len(st.prog.instrs)
+        st.loops.append(loop)
+        return out
 
 
 def stage_scalarized(logp, d: int, device=None,
@@ -2260,97 +2933,29 @@ def stage_scalarized(logp, d: int, device=None,
     ``max_residual_scalars`` like any other, as in gen_tpu. gen_tpu's
     ``max_stream_bytes`` (its SMEM budget, above which it streamed from
     HBM in DMA tiles) has no counterpart: the kernels read the table from
-    device memory in one loop whatever its size."""
-    gm = _joint_graph(logp, torch.zeros((d,), dtype=torch.float32,
-                                        device=device))
-
-    known: Dict[Any, Any] = {}
-    residual = {}
-    # known nodes computed from graph literals alone (fills and what
-    # follows from them): their elements become literals, not residual
-    # constants, so they fold; the generated source stays data-independent
-    literal_nodes = set()
-    as_elements: Dict[Any, Any] = {}
+    device memory in one loop whatever its size. A
+    :func:`~gen_tpu_torch.ops.scan.scan` in ``logp`` becomes a pair of
+    loops (part b)."""
     st = _Stager(stream_threshold if allow_stream else None)
-    res_vals: List[torch.Tensor] = []
-    staged_res: Dict = {}
-    out_node = None
-
-    def is_res(a):
-        return isinstance(a, torch.fx.Node) and a in residual
-
-    def known_val(a):
-        return torch.fx.node.map_arg(a, lambda n: known[n])
-
-    def sa_val(a):
-        def conv(n):
-            if n in residual:
-                return residual[n]
-            if n not in as_elements:
-                v = known[n]
-                if n in literal_nodes:
-                    as_elements[n] = ScalarArray(v.shape, [
-                        _f32(e) for e in v.detach().cpu().reshape(-1)
-                        .tolist()])
-                elif isinstance(v, torch.Tensor) and \
-                        st.is_stream_shape(v.shape) and \
-                        (torch.is_floating_point(v) or v.dtype == torch.bool):
-                    as_elements[n] = st.data_leaf(v)
-                else:
-                    as_elements[n] = _to_elements(v, res_vals, staged_res)
-                    total = sum(int(t.numel()) for t in res_vals)
-                    if total > max_residual_scalars:
-                        raise ValueError(
-                            f"scalarized residual needs {total} staged "
-                            f"scalars (> {max_residual_scalars}): the "
-                            "x-dependent part of this logp touches large "
-                            "arrays that do not stream (one data axis of "
-                            f">= {stream_threshold} points streams; "
-                            f"allow_stream={allow_stream})")
-            return as_elements[n]
-        return torch.fx.node.map_arg(a, conv)
-
-    for node in gm.graph.nodes:
-        if node.op == "placeholder":
-            residual[node] = ScalarArray((d,), [Sym("x", i)
-                                                for i in range(d)])
-        elif node.op == "get_attr":
-            known[node] = getattr(gm, node.target)
-        elif node.op == "call_function":
-            deps = []
-            torch.fx.node.map_arg((node.args, node.kwargs), deps.append)
-            if not any(is_res(a) for a in deps):
-                val = node.target(*known_val(node.args),
-                                  **known_val(node.kwargs))
-                known[node] = val
-                if (isinstance(val, torch.Tensor)
-                        and torch.is_floating_point(val)
-                        and val.numel() <= 64
-                        and (node.target in _FILL_ATEN
-                             or node.target in (aten.full.default,
-                                                aten.scalar_tensor.default,
-                                                aten.eye.default)
-                             or (deps and all(a in literal_nodes
-                                              for a in deps)))):
-                    literal_nodes.add(node)
-            else:
-                st.node_name = node.name
-                residual[node] = _apply(st, node.target,
-                                        sa_val(node.args),
-                                        sa_val(node.kwargs))
-        elif node.op == "output":
-            out_node = node
-        else:
-            raise ValueError(f"scalarize: graph node kind {node.op!r}")
-
-    grad_out, val_out = sa_val(out_node.args[0])
+    x = ScalarArray((d,), [Sym("x", i) for i in range(d)])
+    with scan.staging() as registry:
+        gm = _trace(_value_and_grad(logp),
+                    torch.zeros((d,), dtype=torch.float32, device=device))
+        ev = _GraphEval(registry, max_residual_scalars, stream_threshold,
+                        allow_stream)
+        grad_out, val_out = ev.run(gm, [x], st)
+    ev.stage_data(st.loops)
     grad_out, val_out = _as_sa(grad_out), _as_sa(val_out)
     if val_out.size != 1 or grad_out.shape != (d,):
         raise ValueError(f"scalarize: logp must map (d,) to a scalar; got "
                          f"value {val_out.shape}, grad {grad_out.shape}")
-    if res_vals:
+    if st.loops and st.sums:
+        raise ValueError(f"scalarize: the scan '{st.loops[0].name}' and a "
+                         f"streamed likelihood ('{st.sum_names[0]}') in one "
+                         "logp are not supported")
+    if ev.res_vals:
         res = torch.cat([t.to(device=device, dtype=torch.float32)
-                         for t in res_vals])
+                         for t in ev.res_vals])
     else:
         res = torch.zeros((1,), dtype=torch.float32, device=device)
     return StagedLogp(d, st, val_out.elems[0], grad_out.elems, res)

@@ -10,7 +10,8 @@ the staged code per gradient and holds it to its torch rendering
 (:meth:`StagedLogp.vag`) without a sampler around it, and the fused
 engines' ChEES warmup evaluates its population through it.
 
-- Without a stream loop: ``csrc/staged_eval.cu``, a thread per chain.
+- Without a stream loop: ``csrc/staged_eval.cu``, a thread per chain
+  (the Kalman model's scan loops inside it).
 - A streamed likelihood: ``csrc/staged_stream.cu`` in the layout
   :func:`~gen_tpu_torch.ops.scalarize.eval_layout` picks for the call's
   chain and point counts (a warp per chain, up to 8 chains a block sharing
@@ -33,13 +34,13 @@ from pathlib import Path
 import torch
 
 from . import _cuda_build, scalarize
-from .scalarize import EVAL_BLOCK_CHAINS, LANES, StagedLogp, block_size
+from .scalarize import EVAL_BLOCK_CHAINS, LANES, StagedLogp
 
 BLOCK = 128
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SIGNATURES = {"staged_eval_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    ctypes.c_int, ctypes.c_void_p]}
 _STREAM_SIGNATURES = {"staged_stream_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -58,8 +59,7 @@ def build_job(staged: StagedLogp):
     chains a block and splits are launch parameters)."""
     if not staged.streams:
         defines = (f"#define SE_D {staged.d}\n#define SE_R {staged.n_res}\n"
-                   f"#define SE_BLOCK {block_size(staged, BLOCK)}\n"
-                   f"#define SE_LANES {staged.lanes}")
+                   f"#define SE_BLOCK {BLOCK}")
         src = ((_CSRC / "staged_eval.cu").read_text()
                .replace("// @@DEFINES@@", defines)
                .replace("// @@STAGED_VAG@@", staged.cuda_source()))
@@ -110,8 +110,8 @@ def staged_vag(staged: StagedLogp, x: torch.Tensor):
                 lay.splits, stream)
         else:
             rc = lib.staged_eval_launch(
-                x.data_ptr(), lp.data_ptr(), g.data_ptr(), res.data_ptr(),
-                None, staged.n_pts, n, stream)
+                x.data_ptr(), lp.data_ptr(), g.data_ptr(), res.data_ptr(), n,
+                stream)
     _cuda_build.check_launch(rc, name)
     staged_vag.launches += 1
     return lp, g

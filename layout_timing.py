@@ -48,6 +48,30 @@ lane, and a register cap of about 200 at 10^4 (``STREAM_SM_WARPS`` 10),
 each against ``base``, this tree as it is; each is timed on the
 staged-code kernel at STREAM_SHAPES and on K3 and K6 at
 STREAM_FUSED_SHAPES.
+
+Kalman mode times the Kalman body (staging part b, K2b) in two trees of
+the package, each in its own process, in the order other, this, this,
+other on one card:
+
+    python3 layout_timing.py --kalman OTHER_ROOT
+
+``OTHER_ROOT`` holds an earlier ``gen_tpu_torch`` package, as for
+``--stream``. Each process stages chip_smoke.py's AR(1) model at T = 1
+(the process's first trace) and at T = 100, builds K1, K3 and the
+staged-code kernel for T = 100 (one ``nvcc`` per source, in parallel),
+and times the staged-code kernel per gradient at 131,072 chains, K1 per
+step (``KALMAN_K1_STEPS`` steps of ``KALMAN_L`` leapfrogs) and K3 per
+leapfrog slot (``STREAM_SLOTS`` slots), from chains near the posterior
+at a fixed step size. A tree whose staged program has scan loops also
+times the staged-code kernel with the loops' tape moved by text
+substitution into a shared-memory slab (blocks of ``KALMAN_SHARED_BLOCK``
+threads, :func:`shared_tape`), and K1 and K3 built
+asking for one block an SM at least (``__launch_bounds__``' second
+argument; ptxas's own choice spills a few bytes in some of their
+instantiations). Prints the staging and
+``nvcc`` seconds, each kernel's ptxas report, the staged-code kernel's
+SASS opcode counts, every timing, a summary, and the card's name and
+power limit.
 """
 
 import json
@@ -79,6 +103,11 @@ STREAM_VARIANTS = {"base": {}, "ca": {"copy": "ca"},
                    "points2": {"STREAM_POINTS": 2, "points": 2},
                    "regs200": {"STREAM_SM_WARPS": 10}}
 STREAM_POINT_VARIANTS = (16, 8, 4)
+# --kalman: K1's steps and leapfrogs a step, the step size, and the block
+# of the staged-code kernel with its tape in shared memory (25,600 B of
+# tape at T = 100, within the 48 KB of static shared memory)
+KALMAN_K1_STEPS, KALMAN_L, KALMAN_EPS = 20, 10, 0.05
+KALMAN_SHARED_BLOCK = 32
 # other split counts of the staged-code kernel timed beside its rule's
 STREAM_SPLITS = {(1_000_000, 128): (33, 200), (1_000_000, 1024): (5, 26)}
 
@@ -169,16 +198,16 @@ def time_splits(torch, staged_eval, st, x, splits):
         staged_eval.layout = rule
 
 
-def sass_summary(_cuda_build, job) -> str:
-    """Opcode counts of ``staged_stream_kernel`` in the built library of
-    ``job`` (``cuobjdump -sass``): FCHK marks an IEEE division, MUFU a
-    reciprocal or logarithm, CALL a division's slow path."""
+def sass_summary(_cuda_build, job, kernel="staged_stream_kernel") -> str:
+    """Opcode counts of ``kernel`` in the built library of ``job``
+    (``cuobjdump -sass``): FCHK marks an IEEE division, MUFU a reciprocal
+    or logarithm, CALL a division's slow path, STL/LDL local memory."""
     so = (_cuda_build.BUILD_DIR
           / f"{job[0]}_{_cuda_build.source_hash(job[1])}.so")
     tool = Path(_cuda_build.nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    body = text.split("staged_stream_kernel")[-1]
+    body = text.split(kernel)[-1]
     ops = [re.sub(r"^@!?U?P[T0-9]+\s+", "",
                   ln.split("*/", 1)[1].strip()).split()[0]
            for ln in body.splitlines()
@@ -189,7 +218,8 @@ def sass_summary(_cuda_build, job) -> str:
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:12]
     return (f"{len(ops)} instructions; " + ", ".join(
         f"{k} {v}" for k, v in top) + f"; FCHK {counts.get('FCHK', 0)}, "
-        f"MUFU {counts.get('MUFU', 0)}, CALL {counts.get('CALL', 0)}")
+        f"MUFU {counts.get('MUFU', 0)}, CALL {counts.get('CALL', 0)}, "
+        f"STL {counts.get('STL', 0)}, LDL {counts.get('LDL', 0)}")
 
 
 def time_fused(torch, nf, random, target, v0, paired, eps):
@@ -416,6 +446,168 @@ def stream_variants(names):
     print(card)
 
 
+def shared_tape(job, block: int, threads: int):
+    """The staged-code kernel's build job ``job`` (blocks of ``block``
+    threads) with each scan loop's tape moved from the thread's local
+    array to a shared-memory slab for blocks of ``threads`` threads,
+    indexed by ``threadIdx.x``."""
+    name, src, signatures = job
+    src, n_decl = re.subn(r"\n  float (_tape\d+)\[(\d+)\];",
+                          rf"\n  __shared__ float \1[\2][{threads}];", src)
+    src, n_cells = re.subn(r"(_tape\d+\[_t \* \d+ \+ \d+\])",
+                           r"\1[threadIdx.x]", src)
+    src, n_block = re.subn(rf"#define SE_BLOCK {block}\b",
+                           f"#define SE_BLOCK {threads}", src)
+    if not (n_decl and n_cells and n_block == 1):
+        raise ValueError("shared_tape: the source has no scan tape to move")
+    return name, src, signatures
+
+
+def ptxas_report(_cuda_build, job) -> str:
+    """ptxas's report of ``job``'s library: the one saved beside it, or,
+    in a tree that does not save it, the one this process's build logged."""
+    if hasattr(_cuda_build, "ptxas_report"):
+        return _cuda_build.ptxas_report(job[0], job[1]) or ""
+    return {h: r for h, _, r in _cuda_build.BUILD_LOG}.get(
+        _cuda_build.source_hash(job[1]), "")
+
+
+def kalman_child(label: str, root: str):
+    """One tree's Kalman timings, with the package under ``root``; prints
+    them as one JSON line."""
+    sys.path.insert(0, root)
+    import torch
+    import gen_tpu_torch as tt
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import FlatTarget
+    from gen_tpu_torch.ops import _cuda_build, hmc_fused
+    from gen_tpu_torch.ops import nuts_fused as nf
+    from gen_tpu_torch.ops import staged_eval
+
+    dev = torch.device("cuda", 0)
+    print(f"{label}: gen_tpu_torch from {Path(tt.__file__).parent}",
+          flush=True)
+    out = {"label": label}
+
+    def target_at(T):
+        model, args, obs, sel, _ = C.ar1_setup(torch, tt, dev, T)
+        return FlatTarget(model.generate(random.PRNGKey(1, dev), args,
+                                         obs)[0], sel)
+
+    t1 = target_at(1)
+    _, out["stage_s_T1_first"] = C.timed(
+        torch, lambda: hmc_fused.stage(t1.logp, 3, dev))
+    target = target_at(C.AR1_T)
+    st, out["stage_s"] = C.timed(
+        torch, lambda: hmc_fused.stage(target.logp, 3, dev))
+    out["instructions"] = st.n_instructions
+    print(f"{label} staging: T=1 (first trace) {out['stage_s_T1_first']:.2f}"
+          f" s, T={C.AR1_T} {out['stage_s']:.2f} s, {st.n_instructions} "
+          "staged instructions"
+          + (f", loops {st.loop_shape}, tape {4 * st.tape_floats} B a chain"
+             if getattr(st, "loops", None) else ""), flush=True)
+    # a tree with scan loops also builds the staged-code kernel with the
+    # tape in a shared-memory slab, and K1 and K3 asking for one block an SM
+    rolled = bool(getattr(st, "loops", None))
+    jobs = [("staged code", staged_eval.build_job(st)),
+            ("K1", hmc_fused.build_job(st)),
+            ("K3", nf.build_job(st, 6, True))]
+    if rolled:
+        jobs.append(("staged code, tape shared",
+                     shared_tape(jobs[0][1], staged_eval.BLOCK,
+                                 KALMAN_SHARED_BLOCK)))
+    _, out["build_s"] = C.timed(torch, lambda: _cuda_build.build_all(
+        [job for _, job in jobs]))
+    secs_of = {h: secs for h, secs, _ in _cuda_build.BUILD_LOG}
+    for name, job in jobs:
+        secs = secs_of.get(_cuda_build.source_hash(job[1]), float("nan"))
+        out[f"nvcc_s {name}"] = secs
+        print(f"{label} {name}: nvcc {secs:.2f} s, {len(job[1])} B of "
+              "source; ptxas: " + " | ".join(
+                  ln.strip() for ln in ptxas_report(_cuda_build, job)
+                  .splitlines()
+                  if "registers" in ln or "spill" in ln or "stack" in ln),
+              flush=True)
+    print(f"{label} staged-code kernel SASS: " + sass_summary(
+        _cuda_build, jobs[0][1], "staged_eval_kernel"), flush=True)
+    g = torch.Generator(dev).manual_seed(9)
+    v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
+          + 0.05 * torch.randn(C.AR1_CHAINS, 3, device=dev, generator=g))
+    xt = v0.T.contiguous()
+    places = [("staged_ms", jobs[0][1])] + (
+        [("staged_ms tape shared", jobs[3][1])] if rolled else [])
+    for key, job in places:
+        st.libs["staged_eval"] = _cuda_build.build(*job)
+        staged_eval.staged_vag(st, xt)
+        out[key] = C.gpu_ms(torch, lambda: staged_eval.staged_vag(st, xt),
+                            20)
+        print(f"{label} {key}: {out[key]:.4f} ms per gradient of "
+              f"{C.AR1_CHAINS} chains", flush=True)
+    st.libs.clear()
+    key = random.PRNGKey(5, dev)
+    kw = dict(n_steps=KALMAN_K1_STEPS, L=KALMAN_L, eps=KALMAN_EPS,
+              collect_idx=0)
+    k1_src, nf_src = hmc_fused.kernel_source, nf.kernel_source
+    for tag, bounds in [("", False)] + ([(" min blocks 1", True)] if rolled
+                                         else []):
+        if bounds:
+            # K1 and K3 asking ptxas for one block an SM at least
+            hmc_fused.kernel_source = lambda s_: k1_src(s_).replace(
+                "__launch_bounds__(HMC_BLOCK)",
+                "__launch_bounds__(HMC_BLOCK, 1)")
+            nf.kernel_source = lambda s_, md, p: nf_src(s_, md, p).replace(
+                "__launch_bounds__(NUTS_BLOCK)",
+                "__launch_bounds__(NUTS_BLOCK, 1)")
+            st.libs.clear()
+            jobs = [hmc_fused.build_job(st), nf.build_job(st, 6, True)]
+            _cuda_build.build_all(jobs)
+            for name, job in zip(("K1", "K3"), jobs):
+                print(f"{label} {name}{tag} ptxas: " + " | ".join(
+                    ln.strip() for ln in ptxas_report(_cuda_build, job)
+                    .splitlines()
+                    if "registers" in ln or "spill" in ln), flush=True)
+        hmc_fused.hmc_chains_fused(key, target.logp, v0, **kw)
+        _, secs = C.timed(torch, lambda: hmc_fused.hmc_chains_fused(
+            key, target.logp, v0, **kw))
+        out[f"k1_ms_per_step{tag}"] = secs / KALMAN_K1_STEPS * 1e3
+        per_slot, times, depth = time_fused(torch, nf, random, target, v0,
+                                            True, KALMAN_EPS)
+        out[f"k3_ms_per_slot{tag}"] = per_slot
+        print(f"{label} K1{tag}: {out[f'k1_ms_per_step{tag}']:.4f} ms per "
+              f"step of {KALMAN_L} leapfrogs; K3{tag}: {per_slot:.4f} ms per "
+              f"slot (mean depth {depth:.2f})", flush=True)
+    hmc_fused.kernel_source, nf.kernel_source = k1_src, nf_src
+    print("KALMAN_RESULT " + json.dumps(out), flush=True)
+
+
+def kalman_main(other: Path):
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("layout_timing.py needs a CUDA device")
+    card = C.phase_env(torch)
+    here = Path(__file__).resolve().parent
+    roots = {"other": other.resolve(), "this": here}
+    results = []
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, __file__, "--kalman-child",
+                               which, str(roots[which])],
+                              capture_output=True, text=True, cwd=here)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:])
+            raise RuntimeError(f"the {which} tree's timing failed")
+        results += [json.loads(ln.split(" ", 1)[1])
+                    for ln in proc.stdout.splitlines()
+                    if ln.startswith("KALMAN_RESULT ")]
+    for which in ("other", "this"):
+        rows = [r for r in results if r["label"] == which]
+        for k in rows[0]:
+            if k != "label":
+                print(f"summary {which} {k}: " + ", ".join(
+                    f"{r[k]:.4f}" for r in rows))
+    print(card)
+
+
 def stream_main(other: Path, point_variants):
     import torch
     if not torch.cuda.is_available():
@@ -449,6 +641,10 @@ if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--stream":
         stream_main(Path(sys.argv[2]), tuple(int(a) for a in sys.argv[3:])
                     or STREAM_POINT_VARIANTS)
+    elif len(sys.argv) == 3 and sys.argv[1] == "--kalman":
+        kalman_main(Path(sys.argv[2]))
+    elif len(sys.argv) == 4 and sys.argv[1] == "--kalman-child":
+        kalman_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--stream-variants"]:
         stream_variants(sys.argv[2:] or list(STREAM_VARIANTS))
     elif len(sys.argv) >= 5 and sys.argv[1] == "--stream-child":

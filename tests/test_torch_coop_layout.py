@@ -228,11 +228,12 @@ def _hash(text):
 
 # sha256 prefixes of the kernels' code (comments removed; the notes
 # changed): eight_schools d=10 at max_depth 8 as rendered before the
-# warp-per-chain layout existed (its code has not changed since), and the
+# warp-per-chain layout existed (its code has not changed since; the
+# staged-code kernel's since its unused stream arguments went), and the
 # robust-t stream at n=4,096 and max_depth 6 in the tiled stream layout
 BEFORE = {
     ("d10", "K3"): "4e05987a7c3bab0a", ("d10", "K6"): "1f3db0637740fe13",
-    ("d10", "K1"): "e4a06f73aad64e27", ("d10", "SE"): "e3557ef3139e2160",
+    ("d10", "K1"): "e4a06f73aad64e27", ("d10", "SE"): "65a3bf8f3cfce426",
     ("robust", "K3"): "da3fe09f856fcfb7",
     ("robust", "K6"): "f55d724b3368ff3f",
     ("robust", "K1"): "5fd9f9e2fd250642",

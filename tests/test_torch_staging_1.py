@@ -8,8 +8,8 @@ gradients) unrolled into straight-line arithmetic.
   3e-3).
 - Each structured op, in each of its forms, stages and equals eager torch
   (value and ``torch.func`` gradient, float32, 1e-5).
-- A branch (``torch.where``, gen_tpu's ``cond``) stages; a long program
-  (an unrolled recursion) is one non-inlined CUDA function."""
+- A branch (``torch.where``, gen_tpu's ``cond``) stages; a long
+  straight-line program is one non-inlined CUDA function."""
 
 import pytest
 
@@ -135,18 +135,25 @@ def test_model_with_a_branch_stages():
 
 
 def test_long_program_is_one_function_in_every_kernel():
-    """The T=20 Kalman program is past the inlining limit: staged_vag is
-    one __noinline__ function, spliced into K1, K3, K6 and the staged-code
-    kernel, each launched by one thread per chain."""
-    staged = hmc_fused.stage(t_kalman_logp(20), 3, "cpu")
-    assert staged.n_instructions > 2000
+    """A straight-line program past the inlining limit (the Cholesky
+    factor of a 12 x 12 matrix and its gradient; a Kalman recursion is a
+    rolled loop now): staged_vag is one __noinline__ function, spliced
+    into K1, K3, K6 and the staged-code kernel, each launched by one
+    thread per chain."""
+    def logp(x):
+        a = 0.01 * torch.outer(x, x) + 2.0 * torch.eye(12)
+        return torch.log(torch.diagonal(torch.linalg.cholesky(a))).sum()
+
+    staged = hmc_fused.stage(logp, 12, "cpu")
+    assert staged.n_instructions > 2000 and not staged.loops
     src = staged.cuda_source()
     assert "__device__ __noinline__ void staged_vag(" in src
     assert src.count("  const float t") + src.count("  const bool t") == \
         staged.n_instructions
-    for k_src in (hmc_fused.kernel_source(staged),
-                  nuts_fused.kernel_source(staged, 8, True),
-                  nuts_fused.kernel_source(staged, 8, False),
-                  staged_eval.build_job(staged)[1]):
+    fused = (hmc_fused.kernel_source(staged),
+             nuts_fused.kernel_source(staged, 8, True),
+             nuts_fused.kernel_source(staged, 8, False))
+    for k_src in fused + (staged_eval.build_job(staged)[1],):
         assert src in k_src and "@@" not in k_src
-        assert "_LANES 1\n" in k_src and "__shfl_xor_sync" not in k_src
+        assert "__shfl_xor_sync" not in k_src
+    assert all("_LANES 1\n" in k_src for k_src in fused)
