@@ -10,17 +10,24 @@ nonzero and no result line is printed):
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
    variant from ``gen_tpu_torch/ops/csrc`` (nine K1, fourteen K3, nine
-   K6, seven staged-code kernels, K4 in float32 and float64, K5; one ``nvcc``
-   per source, all at once), with registers, spills and stack from
+   K6, seven staged-code kernels, K4 in float32 and float64, K5, and the
+   division sweep of phase 1b; one ``nvcc`` per source, all at once),
+   with registers, spills and stack from
    ptxas. K3 and K6 above 32 coordinates (the 100-school model, the d=33
    and d=40 Gaussians, the mixed regression's extended logp) run one warp
    per chain; for those the split program's largest per-lane instruction
    count, hubs and classes are printed beside the serial count.
+1b. The division rule of the staged code (``_div_rcp``): all 2^32
+   float32 numerators of every residual constant that a staged model
+   divides by through a staged reciprocal, and of edge and random
+   denominators, against IEEE division (``DIV_SWEEP_SRC``); any differing
+   bit fails.
 2. Each kernel against its plain PyTorch version, both on the card, with
    injected randomness, at the shapes the main paths give it:
    - K1 (fused HMC): the regression model at 8,192 and 524,288 chains, a
-     3-d Gaussian with one frozen coordinate. Accept counts equal, values
-     and histories within 2e-4.
+     3-d Gaussian with one frozen coordinate, eight_schools d=10 at
+     131,072 chains. Accept counts equal, values and histories bit for
+     bit.
    - K3 (pair-scheduled NUTS) and K6 (one leapfrog per tick), each on
      seven configurations at the same leapfrog slots: eight_schools d=10
      at 8,192 chains (all coordinates) and at 131,072 chains, the
@@ -141,7 +148,11 @@ nonzero and no result line is printed):
        from the returned summary.
 9. Numbers (printed after phase 10): per kernel its time, its plain
    version's time, its bound, the library call's time where there is one
-   and launches on the main path, as one JSON line (K2c and K2b per
+   and launches on the main path, as one JSON line (K1's launches summed
+   over its three paths, the headline, ``sample_posterior``'s
+   ``hmc_fused`` engine and phase 10(c), with its SASS census: hot
+   instructions a chain-step, MUFU a leapfrog, registers, spills, waves
+   and the issue bound at the SM clock read under load; K2c and K2b per
    gradient of the staged-code kernel; K2c at 10^6 also at the ChEES
    warmup's 128 chains; K2b with its registers, spills, tape bytes and
    executed operations); then the card; then the result line.
@@ -157,6 +168,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -225,6 +237,185 @@ def k1_ops(n_instr, d, L_):
     calls = 2 + (d + 3) // 4
     return (L_ * (n_instr + 7 * d) + 1 + 2 * (3 * d + 1) + d + 6
             + (2 * d + 1) + 1 + 5 + 14 * 2 * ((d + 3) // 4) + 100 * calls)
+
+
+SM_COUNT = 132            # an H100 SXM's streaming multiprocessors
+ISSUE_PER_CLOCK = 4       # warp instructions an SM issues per clock (4
+                          # schedulers, one each)
+
+
+def resident_blocks(registers, threads):
+    """Blocks of ``threads`` threads an SM holds at ``registers`` a thread
+    (the occupancy calculator's rule for sm_90: registers are allocated per
+    warp in units of 256; 65,536 an SM, 64 warps, 32 blocks; the kernels
+    here use a few bytes of static shared memory)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = -(-threads // 32)
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
+
+
+def ptxas_functions(report):
+    """ptxas's ``-v`` report as ``{mangled name: dict(registers,
+    spill_bytes, stack_bytes)}``."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = dict(registers=None, spill_bytes=0, stack_bytes=0)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_functions(job):
+    """The SASS of every kernel in ``job``'s built library (``cuobjdump
+    -sass``) as ``{mangled name: [(address, opcode, operands)]}``, the
+    predicate guard stripped."""
+    from gen_tpu_torch.ops import _cuda_build
+    so = (_cuda_build.BUILD_DIR
+          / f"{job[0]}_{_cuda_build.source_hash(job[1])}.so")
+    tool = Path(_cuda_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        # a branch to a label (`(.L_x_3)) as a branch to its address
+        labels = {m.group(1): m.group(2) for m in re.finditer(
+            r"(\.L_x_\d+):\s*/\*([0-9a-f]{4,})\*/", part)}
+        part = re.sub(r"`\((\.L_x_\d+)\)",
+                      lambda m: "0x" + labels.get(m.group(1), "0"), part)
+        instrs = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part):
+            ins = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+            op, _, args = ins.partition(" ")
+            instrs.append((int(m.group(1), 16), op, args.strip()))
+        out[name] = instrs
+    return out
+
+
+SASS_CLASSES = (
+    ("FP32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FSET")),
+    ("MUFU", ("MUFU",)), ("FCHK", ("FCHK",)),
+    ("branch", ("BRA", "CALL", "RET", "BSSY", "BSYNC", "EXIT")),
+    ("LDS", ("LDS",)), ("LDC", ("LDC", "ULDC")),
+    ("integer", ("IMAD", "IADD3", "LOP3", "SHF", "IMNMX", "ISETP", "LEA",
+                 "IABS", "I2F", "F2I", "IMUL", "PRMT", "SEL")),
+    ("LDG/STG", ("LDG", "STG")), ("local", ("LDL", "STL")))
+
+
+def sass_classes(instrs):
+    """Instruction counts by class (``SASS_CLASSES``; the rest as
+    "other") and by opcode."""
+    by_op, by_class = {}, {}
+    for _, op, _ in instrs:
+        base = op.split(".")[0]
+        by_op[base] = by_op.get(base, 0) + 1
+        cls = next((c for c, ops in SASS_CLASSES if base in ops), "other")
+        by_class[cls] = by_class.get(cls, 0) + 1
+    return by_class, by_op
+
+
+def _branches(instrs):
+    """``(address, target)`` of every branch with a constant target."""
+    out = []
+    for addr, op, args in instrs:
+        m = re.match(r"(0x[0-9a-f]+)", args)
+        if op.split(".")[0] == "BRA" and m:
+            out.append((addr, int(m.group(1), 16)))
+    return out
+
+
+def loop_census(instrs, L_):
+    """The SASS of a fused HMC kernel split by its loops: the step loop is
+    the widest backward branch's range, the leapfrog loop the widest one
+    inside it. The hot path leaves out the slow paths: a range that a
+    forward branch skips, holding a call or a local-memory access and no
+    back edge of those two loops (an IEEE division's slow-path call, the
+    Payne-Hanek reduction of a large sincosf argument, a guarded
+    division's IEEE fallback). Returns the hot instructions of a
+    chain-step (the rest of the step loop's body once, the leapfrog body
+    ``L_`` times), the leapfrog's and the rest's, their class counts, and
+    the static counts."""
+    br = _branches(instrs)
+    loops = [(t, a) for a, t in br if t < a]
+    step = max(loops, key=lambda r: r[1] - r[0])
+    leap = max([r for r in loops if step[0] <= r[0] and r[1] < step[1]],
+               key=lambda r: r[1] - r[0])
+    slow = ("CALL", "LDL", "STL")
+    cold = [(a, t) for a, t in br if a < t and not a < leap[1] < t
+            and not a < step[1] < t
+            and any(op.split(".")[0] in slow for x, op, _ in instrs
+                    if a < x < t)]
+
+    def hot(lo, hi, skip=None):
+        return [i for i in instrs if lo <= i[0] <= hi
+                and not (skip and skip[0] <= i[0] <= skip[1])
+                and not any(a < i[0] < t for a, t in cold)]
+
+    body, rest = hot(*leap), hot(*step, skip=leap)
+    lf, lf_ops = sass_classes(body)
+    st, st_ops = sass_classes(rest)
+    n_body = sum(1 for i in instrs if leap[0] <= i[0] <= leap[1])
+    n_step = sum(1 for i in instrs if step[0] <= i[0] <= step[1])
+    return dict(per_chain_step=len(rest) + L_ * len(body),
+                leapfrog=len(body), step_rest=len(rest),
+                static_per_chain_step=n_step - n_body + L_ * n_body,
+                static_leapfrog=n_body,
+                mufu_per_leapfrog=lf.get("MUFU", 0),
+                fchk_per_leapfrog=lf.get("FCHK", 0),
+                lds_per_leapfrog=lf.get("LDS", 0),
+                leapfrog_classes=lf, step_rest_classes=st,
+                leapfrog_ops=lf_ops, step_rest_ops=st_ops)
+
+
+def sm_clock_mhz():
+    """The SM clock now, in MHz (``nvidia-smi``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+def issue_bound_ms(sass_per_chain_step, n_chains, mhz):
+    """The least time of one step of ``n_chains`` chains (one thread each)
+    at ``ISSUE_PER_CLOCK`` warp instructions per clock on every SM at SM
+    clock ``mhz``."""
+    warp_instrs = sass_per_chain_step * n_chains / 32
+    return warp_instrs / (ISSUE_PER_CLOCK * SM_COUNT * mhz * 1e6) * 1e3
+
+
+def k1_census(job, collect_all, L_):
+    """K1's main instantiation in ``job``'s library (no injected
+    randomness; ``collect_all`` the ``collect_idx=None`` history): its
+    registers, spills and stack (ptxas), block size and resident blocks an
+    SM, and :func:`loop_census` of its SASS."""
+    from gen_tpu_torch.ops import _cuda_build
+    tag = f"hmc_fused_kernelILb0ELb{int(collect_all)}E"
+    fns = sass_functions(job)
+    name = next(n for n in fns if tag in n)
+    rep = ptxas_functions(_cuda_build.ptxas_report(job[0], job[1]) or "")
+    regs = rep.get(name, {})
+    block = int(re.search(r"#define HMC_BLOCK (\d+)", job[1]).group(1))
+    out = dict(loop_census(fns[name], L_), **regs, block=block)
+    if regs.get("registers"):
+        out["blocks_per_sm"] = resident_blocks(regs["registers"], block)
+    return out
+
+
+def k1_waves(census, n_chains):
+    """Waves of one launch over ``n_chains`` chains (one thread each) and
+    the share of its last round that is busy."""
+    waves = n_chains / (SM_COUNT * census["blocks_per_sm"]
+                        * census["block"])
+    return waves, waves / math.ceil(waves)
 
 
 def k3_ops(n_instr, d, pairs, n, completed, divergent):
@@ -467,6 +658,8 @@ def phase_headline(torch, tt, dev, k1, tag, rng):
                              k_cmp, gauss_logp, g0, 20, 10, 0.3, None,
                              inv_mass, rng, "gaussian frozen-coordinate")
     errs.append(err)
+    check(max(errs) == 0.0, f"K1 differs from its plain version by "
+          f"{max(errs)}: not bit for bit")
     check(torch.equal(vg[:, 2], g0[:, 2])
           and torch.equal(cg[:, :, 2], g0[:, 2].expand(20, -1)),
           "frozen coordinate moved")
@@ -492,6 +685,14 @@ def phase_headline(torch, tt, dev, k1, tag, rng):
             L=L, eps=EPS, collect_idx=slope_idx))
         times.append(t)
     launches = hmc_chains_fused.launches
+    # the SM clock under this load: calls queued for about half a second,
+    # read while they run (not counted as launches of the path)
+    for rep in range(20):
+        hmc_chains_fused(random.fold_in(k_run, 30), target.logp, values,
+                         N_SAMPLE, L=L, eps=EPS, collect_idx=slope_idx)
+    mhz = float(np.median([sm_clock_mhz() for _ in range(3)]))
+    torch.cuda.synchronize()
+    hmc_chains_fused.launches = launches
     print(f"headline path: {launches} fused HMC launches, "
           f"{nuts_chains_fused.launches} fused NUTS launches")
     check(launches >= 1, "the headline path did not launch the kernel")
@@ -536,11 +737,22 @@ def phase_headline(torch, tt, dev, k1, tag, rng):
 
     us_step = elapsed / N_SAMPLE * 1e6
     plain_us = plain_s / N_PLAIN * 1e6
-    from gen_tpu_torch.ops.hmc_fused import stage
+    from gen_tpu_torch.ops.hmc_fused import build_job, stage
     st = stage(target.logp, 3, dev)
     ops = k1_ops(st.n_instructions, 3, L) * N_CHAINS
     nbytes = 4 * N_CHAINS * (2 * 3 + N_SAMPLE + 1) / N_SAMPLE
     b_ms, b_by = bound_ms(ops, nbytes)
+    cen = k1_census(build_job(st), False, L)
+    waves, busy = k1_waves(cen, N_CHAINS)
+    issue_ms = issue_bound_ms(cen["per_chain_step"], N_CHAINS, mhz)
+    print(f"{tag} K1 census (main instantiation): {cen['registers']} "
+          f"registers, {cen['spill_bytes']} B spills, block {cen['block']}, "
+          f"{cen['blocks_per_sm']} blocks an SM, {waves:.2f} waves "
+          f"({busy:.1%} of the last round busy); SASS per chain-step "
+          f"{cen['per_chain_step']} (leapfrog {cen['leapfrog']} x {L} + "
+          f"{cen['step_rest']}), MUFU {cen['mufu_per_leapfrog']} and FCHK "
+          f"{cen['fchk_per_leapfrog']} per leapfrog; issue bound "
+          f"{issue_ms * 1e3:.2f} us/step at {mhz:.0f} MHz")
     print(f"{tag} init (vmapped generate, {N_CHAINS} chains): "
           f"{init_s:.3f} s")
     print(f"{tag} warmup hmc_chains: {warm_s:.3f} s for {N_WARMUP} steps "
@@ -564,7 +776,29 @@ def phase_headline(torch, tt, dev, k1, tag, rng):
                 launches=launches, max_abs_err=max(errs),
                 ms=elapsed / N_SAMPLE * 1e3,
                 plain_ms=plain_s / N_PLAIN * 1e3, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                sass_per_chain_step=cen["per_chain_step"],
+                mufu_per_leapfrog=cen["mufu_per_leapfrog"],
+                registers=cen["registers"], spill_bytes=cen["spill_bytes"],
+                waves=waves, issue_bound_ms=issue_ms, sm_mhz=mhz)
+
+
+def compare_k1_schools(torch, ctx, dev, rng):
+    """K1 on eight_schools d=10 (the ``hmc_fused`` engine's model, 36
+    divisions by residual constants a gradient) against its plain version
+    at 131,072 chains under injected randomness, bit for bit."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops.hmc_fused import (hmc_chains_fused,
+                                             hmc_chains_fused_plain)
+    v10 = init_values(torch, *ctx["s8"][0], random.split(
+        random.PRNGKey(11, dev), 131072))
+    err = compare_k1(torch, hmc_chains_fused, hmc_chains_fused_plain,
+                     random.PRNGKey(7, dev), ctx["school_targets"]["d10"].logp,
+                     v10, 6, 10, 0.25, None, None, rng,
+                     "eight_schools d=10 n=131072 collect=all")[2]
+    check(err == 0.0, f"K1 eight_schools d=10 differs from its plain version "
+          f"by {err}: not bit for bit")
+    return err
 
 
 def phase_nuts_path(torch, tt, dev, label, setup, n_chains, tag, errs,
@@ -1676,6 +1910,132 @@ def k5_entry(torch, dev, tag, decode_run, k5_err):
                 shapes={f"{n}x{k}": v for (n, k), v in rows.items()})
 
 
+# -- phase 1b: the division rule, exhaustively --------------------------------
+
+# random denominators beside the staged ones and the edges: the run-time
+# reciprocals of the staged code divide by values no sweep can list
+DIV_RANDOM = 1024
+# the sweep: every float32 bit pattern as a numerator of each denominator b,
+# through the staged code's _div_rcp with y = _div_y(RN(1 / b)) (the host's
+# float32 reciprocal, which staging stages where it is normal; the card's
+# own 1.0f / b, which the code computes for a repeated denominator, must
+# equal it), against the IEEE quotient a / b; where y is exact (b a power of
+# two), also a * y, the rendering's multiply. Per denominator: differing helper
+# results, numerators on the helper's fast path, differing multiplies, and
+# whether the card's reciprocal differs from the host's.
+DIV_SWEEP_SRC = r"""
+__global__ void div_sweep_kernel(const float* __restrict__ dens,
+                                 const float* __restrict__ rcps,
+                                 unsigned long long* __restrict__ out) {
+  const int j = (int)blockIdx.y;
+  const float b = dens[j], y = rcps[j];
+  const bool exact = __fmaf_rn(b, y, -1.0f) == 0.0f;
+  unsigned long long bad = 0, fast = 0, bad_mul = 0;
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long k = (unsigned long long)blockIdx.x * blockDim.x
+       + threadIdx.x; k < (1ull << 32); k += stride) {
+    const float a = __uint_as_float((uint32_t)k);
+    const uint32_t ref = __float_as_uint(a / b);
+    bad += __float_as_uint(_div_rcp(a, b, _div_y(y))) != ref;
+    fast += _div_rcp_ok(a, a * _div_y(y));
+    bad_mul += exact && __float_as_uint(a * y) != ref;
+  }
+  for (int o = 16; o; o >>= 1) {
+    bad += __shfl_xor_sync(0xffffffffu, bad, o);
+    fast += __shfl_xor_sync(0xffffffffu, fast, o);
+    bad_mul += __shfl_xor_sync(0xffffffffu, bad_mul, o);
+  }
+  if ((threadIdx.x & 31u) == 0) {
+    atomicAdd(out + 4 * j, bad);
+    atomicAdd(out + 4 * j + 1, fast);
+    atomicAdd(out + 4 * j + 2, bad_mul);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    out[4 * j + 3] = __float_as_uint(1.0f / b) != __float_as_uint(y);
+}
+
+extern "C" int div_sweep_launch(const float* dens, const float* rcps,
+                                int n_den, unsigned long long* out,
+                                void* stream) {
+  const dim3 grid(132 * 8, (unsigned)n_den);
+  div_sweep_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      dens, rcps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def div_sweep_job():
+    """The sweep's build job: the staged code's helpers (``_div_rcp`` as
+    the kernels inline it) and ``DIV_SWEEP_SRC``."""
+    import ctypes
+    from gen_tpu_torch.ops import scalarize
+    src = ("#include <cuda_runtime.h>\n#include <stdint.h>\n"
+           + scalarize._CUDA_HELPERS + DIV_SWEEP_SRC)
+    return ("div_sweep", src, {"div_sweep_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]})
+
+
+def div_denominators(staged_models, rng):
+    """The residual denominators that the staged models divide by through
+    a staged reciprocal, then edge denominators (powers of two, mantissas
+    of all ones, the ends of the normal range, above 2^126 where the
+    reciprocal is subnormal, subnormals, negatives) and ``DIV_RANDOM``
+    random ones of every exponent: (values, how many are staged)."""
+    staged = sorted({float(st.res_consts[k]) for st in staged_models
+                     for k in st.rcp_res})
+    f32 = np.float32
+    big = float(np.finfo(np.float32).max)
+    ones = float(np.nextafter(f32(2.0), f32(0.0)))       # 1.11...1 binary
+    edges = [1.0, 2.0, 0.5, -4.0, 3.0, 10.0, ones, -ones, 2.0 ** -126,
+             1.5 * 2.0 ** -126, ones * 2.0 ** -126, 2.0 ** 125,
+             ones * 2.0 ** 125, 2.0 ** 126, 1.5 * 2.0 ** 126, 2.0 ** 127,
+             big, -big, 2.0 ** -127, 2.0 ** -149, 1e-40]
+    bits = (rng.integers(1, 255, DIV_RANDOM) << 23 | rng.integers(
+        0, 1 << 23, DIV_RANDOM) | rng.integers(0, 2, DIV_RANDOM) << 31)
+    rand = bits.astype(np.uint32).view(np.float32).astype(float).tolist()
+    return staged + edges + rand, len(staged)
+
+
+def phase_division(torch, ctx, dev):
+    """Phase 1b: every float32 numerator of every denominator of
+    :func:`div_denominators` through the staged code's ``_div_rcp``
+    against IEEE division, bit for bit (``DIV_SWEEP_SRC``)."""
+    from gen_tpu_torch.ops import _cuda_build
+    dens, n_staged = div_denominators(ctx["staged_all"],
+                                      np.random.default_rng(17))
+    with np.errstate(all="ignore"):
+        rcps = (np.float32(1.0) / np.asarray(dens, np.float32))
+    d_t = torch.tensor(dens, dtype=torch.float32, device=dev)
+    y_t = torch.from_numpy(rcps).to(dev)
+    out = torch.zeros((len(dens), 4), dtype=torch.int64, device=dev)
+    lib = _cuda_build.build(*div_sweep_job())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = lib.div_sweep_launch(d_t.data_ptr(), y_t.data_ptr(), len(dens),
+                              out.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _cuda_build.check_launch(rc, "div_sweep")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = out.cpu().numpy()
+    bad = [(dens[j], int(res[j, 0]), int(res[j, 2]), int(res[j, 3]))
+           for j in range(len(dens)) if res[j, 0] or res[j, 2] or res[j, 3]]
+    fast = res[:, 1].astype(float) / 2.0 ** 32
+    print(f"division rule: {len(dens)} denominators ({n_staged} staged "
+          f"residual constants, {len(dens) - n_staged} edge and random) x "
+          f"2^32 numerators in {secs:.2f} s ({secs / len(dens) * 1e3:.2f} "
+          f"ms a denominator); fast path for {fast.min():.1%}-"
+          f"{fast.max():.1%} of the numerators; differing results "
+          f"{int(res[:, 0].sum())} (helper), {int(res[:, 2].sum())} "
+          f"(multiply by an exact reciprocal), reciprocals differing from "
+          f"the host's {int(res[:, 3].sum())}")
+    check(not bad, f"division rule: results differ from IEEE division for "
+          f"(denominator, helper, multiply, reciprocal) {bad[:8]}")
+    return dict(denominators=len(dens), staged=n_staged, seconds=secs)
+
+
 # -- phase 10: the streamed likelihood (K2c) and the Kalman body (K2b) -----
 
 STREAM_N, STREAM_CHAINS = 10_000, 8192          # bench_stream.py main()
@@ -2155,6 +2515,7 @@ def phase_ar1(torch, tt, dev, tag, ctx):
                        (0.05, 0.06, 1.01), f"AR(1) {engine}")
         res[engine] = dict(launches=launches["body_scan"],
                            staged_launches=launches["staged_eval"],
+                           k1_launches=launches["hmc_fused"],
                            total_s=total_s)
         del out
     return res
@@ -2182,13 +2543,12 @@ def ptxas_numbers(job):
     functions, spill stores and loads summed, from the ptxas report saved
     beside it; each None where there is no report."""
     from gen_tpu_torch.ops import _cuda_build
-    rep = _cuda_build.ptxas_report(job[0], job[1])
-    regs = [int(v) for v in re.findall(r"Used (\d+) registers", rep or "")]
-    if not regs:
+    fns = ptxas_functions(_cuda_build.ptxas_report(job[0], job[1]) or "")
+    if not fns:
         return None, None, None
-    spill = [int(v) for v in re.findall(r"(\d+) bytes spill", rep)]
-    stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", rep)]
-    return max(regs), sum(spill), max(stack, default=0)
+    return (max(f["registers"] for f in fns.values()),
+            sum(f["spill_bytes"] for f in fns.values()),
+            max(f["stack_bytes"] for f in fns.values()))
 
 
 def k2_entry(torch, dev, st, n_chains, x, runs, err, label, kind):
@@ -2332,6 +2692,9 @@ def phase_build(torch, tt, dev, tag):
             (f"{k} gaussian d=4", st_g4, nf.build_job(st_g4, 5, paired))]
         builds += [(f"{k} gaussian d={d_}", st_w[d_],
                     nf.build_job(st_w[d_], 6, paired)) for d_ in WARP_DS]
+    staged_all = list({id(st): st for _, st, _ in builds
+                       if st is not None}.values())
+    builds.append(("division sweep", None, div_sweep_job()))
     _, build_s = timed(torch, lambda: _cuda_build.build_all(
         [job for _, _, job in builds]))
     by_hash = {h: secs for h, secs, _ in _cuda_build.BUILD_LOG}
@@ -2356,7 +2719,7 @@ def phase_build(torch, tt, dev, tag):
                 gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
                 wide_logps=wide_logps, wsds=wsds,
                 st_102=st_102, stage_s=stage_s, build_s=build_s,
-                mixed=mixed, k2=k2)
+                mixed=mixed, k2=k2, staged_all=staged_all)
 
 
 def phase_compare(torch, ctx, dev, paired):
@@ -2440,6 +2803,7 @@ def main():
     card = phase_env(torch)
     tag = f"[{card}]"
     ctx = phase_build(torch, tt, dev, tag)
+    phase_division(torch, ctx, dev)
 
     # -- phase 2: K3, K6 and K4 against their plain versions ---------------
     k3_err = phase_compare(torch, ctx, dev, paired=True)
@@ -2449,7 +2813,9 @@ def main():
 
     # -- phases 3-5: the main paths, each with its gates --------------------
     rng = np.random.default_rng(123)
+    k1_d10_err = compare_k1_schools(torch, ctx, dev, rng)
     k1_entry = phase_headline(torch, tt, dev, ctx["k1"], tag, rng)
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], k1_d10_err)
     errs = {True: k3_err, False: k6_err}
     k3_10, k6_10 = phase_nuts_path(torch, tt, dev, "eight_schools d=10",
                                    ctx["s8"], 131072, tag, errs, ctx["st_10"])
@@ -2478,6 +2844,12 @@ def main():
     ar1_res = phase_ar1(torch, tt, dev, tag, ctx)
 
     # -- phase 9: numbers ---------------------------------------------------
+    # K1 runs on three main paths: the headline, sample_posterior's
+    # hmc_fused engine and phase 10(c)'s AR(1) model
+    k1_entry["launches_by_path"] = dict(
+        headline=k1_entry["launches"], sample_posterior=sample_launches[
+            "hmc_fused"], ar1=ar1_res["hmc_fused"]["k1_launches"])
+    k1_entry["launches"] = sum(k1_entry["launches_by_path"].values())
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)

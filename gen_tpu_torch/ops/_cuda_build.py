@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -30,6 +31,17 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # a C entry point's signature: {function name: [ctypes argument types]};
 # every entry point returns cudaGetLastError() as an int
 Signatures = Dict[str, Sequence]
+
+
+def csrc_text(path: Path) -> str:
+    """The text of the kernel source ``path`` with each marker line ``//
+    @@INCLUDE <file>@@`` replaced by the text of ``<file>`` from the same
+    directory (the sources are compiled in the build directory, where no
+    relative ``#include`` would be found, and the build hashes the spliced
+    text)."""
+    return re.sub(r"// @@INCLUDE (\S+)@@\n",
+                  lambda m: csrc_text(path.parent / m.group(1)),
+                  path.read_text())
 
 
 def nvcc() -> str:

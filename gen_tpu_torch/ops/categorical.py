@@ -47,7 +47,8 @@ _SIGNATURES = {"categorical_launch": [
 def kernel_source() -> str:
     """K5's source with the shared Philox helpers spliced in."""
     return (_CSRC_DIR / "categorical.cu").read_text().replace(
-        "// @@NUTS_COMMON@@", (_CSRC_DIR / "nuts_common.cuh").read_text())
+        "// @@NUTS_COMMON@@", _cuda_build.csrc_text(_CSRC_DIR
+                                                    / "nuts_common.cuh"))
 
 
 def build_job():

@@ -27,21 +27,33 @@
 //   arrives as the residual constants r[0..R-1], held in shared memory.
 // - Layout (d, n) with chains contiguous, so every per-step history write
 //   and every state read coalesces across a warp.
-// - Randomness is Philox4x32-10 keyed by the two words of the caller's key,
-//   with counter (chain, step, tag, 0). The jittered step size uses counter
-//   (0xFFFFFFFF, step, 0, 0), so it depends on (seed, step) only and every
-//   chain shares it, as hmc_chains does. (The TPU kernel drew it per grid
-//   program.) Momenta are Box-Muller pairs; an inverse mass of 0 freezes a
-//   coordinate (sqrt_mass_safe).
-// - Injected mode reads the step sizes, normals and accept uniforms from
-//   device memory instead, so the kernel can be compared exactly with its
-//   plain PyTorch twin (hmc_chains_fused_plain).
+// - Randomness is Philox4x32-10 (philox.cuh) keyed by the two words of the
+//   caller's key, with counter (chain, step, tag, 0). The jittered step
+//   size uses counter (0xFFFFFFFF, step, 0, 0), so it depends on (seed,
+//   step) only and every chain shares it, as hmc_chains does. (The TPU
+//   kernel drew it per grid program.) A one-warp prologue kernel,
+//   hmc_eps_kernel, fills the launch's table of step sizes before the main
+//   kernel runs, so no chain repeats that draw. Momenta are Box-Muller
+//   pairs; an inverse mass of 0 freezes a coordinate (sqrt_mass_safe).
+// - Injected mode reads the step sizes (the caller's table), normals and
+//   accept uniforms from device memory instead, so the kernel can be
+//   compared exactly with its plain PyTorch twin (hmc_chains_fused_plain).
 //
-// What bounds it: arithmetic. Per chain and leapfrog the staged program is
-// a few dozen float operations with one or two transcendentals; memory
-// traffic is one float per chain per step for the history. The build uses
-// -fmad=false so that the kernel performs the same roundings as its twin;
-// contraction is a tuning lever for later.
+// What bounds it: instruction issue. Per chain and leapfrog the staged
+// program is a few dozen float operations with a few transcendentals and
+// divisions; memory traffic is one float per chain per step for the
+// history. The build uses -fmad=false so that the kernel performs the same
+// roundings as its twin. The staged program divides by a residual constant
+// through its reciprocal, staged beside it (a multiply where that
+// reciprocal is exact, else _div_rcp: three instructions and a guard in
+// place of an IEEE division's reciprocal-unit call, Newton steps and
+// slow-path check), and by a value it divides by repeatedly through one
+// reciprocal computed after it (scalarize.py). The residual constants stay
+// in shared memory: the compiler keeps them in registers across the step
+// loop (no shared-memory load in it, PERF.md). With the divisions and the
+// step-size draw gone, ptxas keeps the headline regression's kernel at 64
+// registers: 8 blocks of 128 an SM, and a launch of 524,288 chains fills
+// 3.88 waves of the card (4.43 at the 70 registers it took before).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,43 +64,25 @@
 
 namespace {
 
-constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// uint32 bits -> float uniform on [0, 1) (the mantissa construction)
-__device__ __forceinline__ float u01(uint32_t b) {
-  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float& z0, float& z1) {
-  const float u1 = fmaxf(u01(b1), kTiny);
-  const float u2 = u01(b2);
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(6.2831855f * u2, &s, &c);
-  z0 = r * c;
-  z1 = r * s;
-}
+// @@INCLUDE philox.cuh@@
 
 __device__ __forceinline__ float kinetic(const float* inv, const float* m) {
   float k = (inv[0] * m[0]) * m[0];
 #pragma unroll
   for (int j = 1; j < HMC_D; ++j) k = k + (inv[j] * m[j]) * m[j];
   return 0.5f * k;
+}
+
+// the jittered step size of each step: one Philox call per step, shared by
+// every chain of the launch
+__global__ void hmc_eps_kernel(float* __restrict__ eps_tab, int n_steps,
+                               float eps, float eps_jitter, uint32_t seed0,
+                               uint32_t seed1) {
+  const uint2 key = make_uint2(seed0, seed1);
+  for (int s = (int)threadIdx.x; s < n_steps; s += (int)blockDim.x) {
+    const uint4 jb = philox4x32_10(make_uint4(0xFFFFFFFFu, s, 0u, 0u), key);
+    eps_tab[s] = eps * (1.0f - eps_jitter + 2.0f * eps_jitter * u01(jb.x));
+  }
 }
 
 template <bool INJECTED, bool COLLECT_ALL>
@@ -101,9 +95,9 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
     const float* __restrict__ inv_mass,  // (D,)
     const float* __restrict__ sd,        // (rows, n_pts) stream table
     int n_pts,
-    int n, int n_steps, int L, float eps, float eps_jitter, int collect_idx,
+    int n, int n_steps, int L, int collect_idx,
     uint32_t seed0, uint32_t seed1,
-    const float* __restrict__ inj_eps,   // (n_steps,)
+    const float* __restrict__ eps_tab,   // (n_steps,)
     const float* __restrict__ inj_z,     // (n_steps, D, n)
     const float* __restrict__ inj_u) {   // (n_steps, n)
   __shared__ float r[HMC_R];
@@ -127,15 +121,12 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
   float acc = 0.0f;
 
   for (int s = 0; s < n_steps; ++s) {
-    float eps_s;
+    const float eps_s = __ldg(eps_tab + s);
     float z[HMC_D];
     if (INJECTED) {
-      eps_s = inj_eps[s];
 #pragma unroll
       for (int k = 0; k < HMC_D; ++k) z[k] = inj_z[((size_t)s * HMC_D + k) * N + i];
     } else {
-      const uint4 jb = philox4x32_10(make_uint4(0xFFFFFFFFu, s, 0u, 0u), key);
-      eps_s = eps * (1.0f - eps_jitter + 2.0f * eps_jitter * u01(jb.x));
 #pragma unroll
       for (int c = 0; c < (HMC_D + 3) / 4; ++c) {
         const uint4 b = philox4x32_10(make_uint4(i, s, 1u + c, 0u), key);
@@ -189,11 +180,11 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
 #pragma unroll
       for (int k = 0; k < HMC_D; ++k) hist[((size_t)s * HMC_D + k) * N + i] = v[k];
     } else {
-      float c = v[0];
+      // one predicated store a coordinate: a select over v[k] by the
+      // runtime index would put v in local memory
 #pragma unroll
-      for (int k = 1; k < HMC_D; ++k)
-        if (k == collect_idx) c = v[k];
-      hist[(size_t)s * N + i] = c;
+      for (int k = 0; k < HMC_D; ++k)
+        if (k == collect_idx) hist[(size_t)s * N + i] = v[k];
     }
   }
 #pragma unroll
@@ -205,22 +196,30 @@ __global__ void __launch_bounds__(HMC_BLOCK) hmc_fused_kernel(
 
 // Launches on the caller's stream and returns cudaGetLastError(): a launch
 // that is refused never runs, and a later synchronize would not report it.
+// Without injected randomness (inj_z null) hmc_eps_kernel first fills
+// eps_tab, an (n_steps,) scratch table; with it, eps_tab holds the
+// caller's step sizes.
 extern "C" int hmc_fused_launch(
     const float* v0, float* vout, float* hist, float* acc_out,
     const float* res, const float* inv_mass, const float* sd, int n_pts,
     int n, int n_steps, int L,
     float eps, float eps_jitter, int collect_idx, unsigned int seed0,
-    unsigned int seed1, const float* inj_eps, const float* inj_z,
+    unsigned int seed1, float* eps_tab, const float* inj_z,
     const float* inj_u, void* stream) {
   const dim3 grid((unsigned)(((size_t)n * HMC_LANES + HMC_BLOCK - 1)
                              / HMC_BLOCK));
   const dim3 block(HMC_BLOCK);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool injected = inj_eps != nullptr;
+  const bool injected = inj_z != nullptr;
   const bool all = collect_idx < 0;
+  if (!injected) {
+    hmc_eps_kernel<<<1, 32, 0, st>>>(eps_tab, n_steps, eps, eps_jitter,
+                                     seed0, seed1);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
 #define HMC_ARGS v0, vout, hist, acc_out, res, inv_mass, sd, n_pts, n, \
-    n_steps, L, eps, eps_jitter, collect_idx, seed0, seed1, inj_eps, inj_z, \
-    inj_u
+    n_steps, L, collect_idx, seed0, seed1, eps_tab, inj_z, inj_u
   if (injected && all)
     hmc_fused_kernel<true, true><<<grid, block, 0, st>>>(HMC_ARGS);
   else if (injected)

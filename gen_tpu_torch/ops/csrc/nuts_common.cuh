@@ -1,5 +1,6 @@
 // Helpers shared by the fused NUTS kernels K3 (nuts_pair.cu) and K6
-// (nuts_tick.cu): Philox4x32-10, uniforms and Box-Muller normals, the
+// (nuts_tick.cu): Philox4x32-10, uniforms and Box-Muller normals (spliced
+// from philox.cuh, which the fused HMC kernel K1 splices too), the
 // logaddexp formula of jnp.logaddexp, bf16x2 checkpoint packing with
 // gen_tpu's integer rounding, and the mass-weighted dot products. The
 // batched-categorical kernel K5 (categorical.cu) takes the Philox and
@@ -24,7 +25,7 @@
 
 namespace {
 
-constexpr float kTiny = 1.1754944e-38f;   // FLT_MIN: keeps log(u) finite
+// @@INCLUDE philox.cuh@@
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -37,36 +38,6 @@ __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
 }
 #endif
 // @@LAYOUT end@@
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// uint32 bits -> float uniform on [0, 1) (the mantissa construction)
-__device__ __forceinline__ float u01(uint32_t b) {
-  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-}
-
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float& z0, float& z1) {
-  const float u1 = fmaxf(u01(b1), kTiny);
-  const float u2 = u01(b2);
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(6.2831855f * u2, &s, &c);
-  z0 = r * c;
-  z1 = r * s;
-}
 
 // @@LAYOUT thread stream@@
 #ifdef NUTS_D

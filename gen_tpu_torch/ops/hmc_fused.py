@@ -56,7 +56,10 @@ from . import _cuda_build, scalarize
 from .scalarize import (StagedLogp, block_size, pad_chains,
                         stage_scalarized)
 
-BLOCK = 128                    # threads (chains) per block; tuning is later
+# threads (chains) per block: at the 64 registers ptxas gives the
+# headline regression's kernel, 8 blocks an SM and 3.88 waves of the
+# H100's 132 SMs at 524,288 chains (256 measured the same; PERF.md)
+BLOCK = 128
 HIST_BUDGET_BYTES = 8 << 30    # device memory for one chunk's history
 _CSRC = Path(__file__).resolve().parent / "csrc" / "hmc_fused.cu"
 _TINY = 1.1754944e-38
@@ -78,7 +81,7 @@ def kernel_source(staged: StagedLogp) -> str:
     defines = (f"#define HMC_D {staged.d}\n#define HMC_R {staged.n_res}\n"
                f"#define HMC_BLOCK {block_size(staged, BLOCK)}\n"
                f"#define HMC_LANES {staged.lanes}")
-    return (_CSRC.read_text().replace("// @@DEFINES@@", defines)
+    return (_cuda_build.csrc_text(_CSRC).replace("// @@DEFINES@@", defines)
             .replace("// @@STAGED_VAG@@", staged.cuda_source()))
 
 
@@ -181,6 +184,10 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
                            else (n_steps, d, n_k), dtype=torch.float32,
                            device=vt.device)
         acc = torch.empty((n_k,), dtype=torch.float32, device=vt.device)
+        # the step sizes: the caller's, or a table the kernel's prologue
+        # fills from the key
+        eps_tab = inj[0] if inj is not None else torch.empty(
+            (n_steps,), dtype=torch.float32, device=vt.device)
         seed0, seed1 = (int(w) for w in key.reshape(-1)[:2].tolist())
         res = staged.res_consts.contiguous()
         sd = scalarize.stream_table(staged, vt.device)
@@ -191,8 +198,9 @@ def hmc_chains_fused(key, logp: Callable, values0: torch.Tensor,
             None if sd is None else sd.data_ptr(), staged.n_pts, n_k,
             n_steps, L, float(eps),
             float(eps_jitter), -1 if collect_idx is None else collect_idx,
-            seed0, seed1, *([t.data_ptr() for t in inj] if inj is not None
-                            else [None, None, None]), stream)
+            seed0, seed1, eps_tab.data_ptr(),
+            *([t.data_ptr() for t in inj[1:]] if inj is not None
+              else [None, None]), stream)
     _cuda_build.check_launch(rc, "hmc_fused")
     hmc_chains_fused.launches += 1
     scalarize.count_body_launch(staged)

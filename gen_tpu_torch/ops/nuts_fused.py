@@ -166,7 +166,12 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
                    f"#define NUTS_MD {int(max_depth)}\n"
                    f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
                    f"#define NUTS_LANES {staged.lanes}")
-        vag_src = staged.cuda_source()
+        # K3 takes the scan loops' bodies without run-time reciprocals:
+        # each _div_rcp keeps an IEEE division as its slow path, and with
+        # them K3's code grew 9% and ran 1-2% slower a slot on the AR(1)
+        # model, while K1 and the staged-code kernel ran 22% and 8%
+        # faster (PERF.md)
+        vag_src = staged.cuda_source(scan_rcps=not paired)
     elif layout == "stream":
         lay = stream_layout(staged, paired)
         defines = (f"#define NUTS_D {staged.d}\n"
@@ -185,7 +190,8 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
                    f"#define NUTS_CPL {WARP_CPL}")
         vag_src = split.cuda_source()
     src = keep_layout((_CSRC_DIR / _KERNELS[paired][1]).read_text(), layout)
-    common = keep_layout((_CSRC_DIR / "nuts_common.cuh").read_text(), layout)
+    common = keep_layout(_cuda_build.csrc_text(_CSRC_DIR / "nuts_common.cuh"),
+                         layout)
     return (src.replace("// @@DEFINES@@", defines)
             .replace("// @@STAGED_VAG@@", vag_src)
             .replace("// @@NUTS_COMMON@@", common))

@@ -265,6 +265,35 @@ __device__ __forceinline__ float _nanmin(float a, float b) {
 __device__ __forceinline__ float _sgn(float a) {
   return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);
 }
+// a / b with IEEE rounding, given y = RN(1 / b), a normal number, without
+// a reciprocal-unit call: q0 = RN(a y), then RN(q0 + (a - b q0) y) by two
+// FMAs. Markstein's theorem proves this where q0 lies within one ulp of
+// a / b: the remainder a - b q0 is then exact in one FMA. That premise can
+// fail: where y is rounded away from 1 / b by nearly half an ulp (b's
+// mantissa near all ones) and a / b lies just below a power of two, q0 is
+// up to 1.5 ulp off and the remainder rounds. The helper's exactness rests
+// on checks instead: chip_smoke.py's phase 1b sweeps all 2^32 numerators of
+// every staged denominator and of edge and random ones on the card, and
+// tests/test_torch_division.py emulates the two FMAs exactly, pairs aimed at
+// that case included. The guard keeps what the checks cover: a quotient
+// q0 between 2^-125 and 2^126 and a numerator of at least 2^-102 (the
+// remainder, about 2^-24 |a|, then is not subnormal). Other inputs (zeros,
+// subnormal or huge quotients, infinities, NaN) take the IEEE division
+// itself, the same function there.
+__device__ __forceinline__ bool _div_rcp_ok(float a, float q0) {
+  return fabsf(a) >= 0x1p-102f && fabsf(q0) >= 0x1p-125f
+      && fabsf(q0) <= 0x1p+126f;
+}
+__device__ __forceinline__ float _div_rcp(float a, float b, float y) {
+  const float q0 = a * y;
+  if (_div_rcp_ok(a, q0)) return __fmaf_rn(__fmaf_rn(-b, q0, a), y, q0);
+  return a / b;
+}
+// a reciprocal computed at run time as _div_rcp's y: a subnormal one (|b|
+// above 2^126) has lost precision, and becomes NaN, which fails the guard
+__device__ __forceinline__ float _div_y(float y) {
+  return fabsf(y) >= 0x1p-126f ? y : __int_as_float(0x7fc00000);
+}
 """
 
 _CUDA_KAHAN = """\
@@ -410,6 +439,10 @@ class _Stager:
         self.loops: List["Loop"] = []
         self.scans: Dict[int, "Loop"] = {}    # a scan's key -> forward loop
         self._n_syms = {"c": 0, "a": 0}
+        # residual constant -> its staged reciprocal (_stage_reciprocals),
+        # and the constants whose reciprocal is exact (powers of two)
+        self.rcp_res: Dict[int, int] = {}
+        self.rcp_exact: set = set()
 
     def new_sym(self, kind: str, dtype: str = "f") -> Sym:
         """A fresh loop state (``c``) or loop result (``a``) symbol,
@@ -638,8 +671,25 @@ def _torch_expr(op, args, prefix=""):
     return _OPS[op][3].format(*lits)
 
 
+def _div_expr(a: str, b: str, y: str, exact: bool) -> str:
+    """CUDA for ``a / b`` given ``y``, the reciprocal of ``b``: a multiply
+    where ``y`` is exact, else ``_div_rcp``."""
+    return f"({a} * {y})" if exact else f"_div_rcp({a}, {b}, {y})"
+
+
 # above this many instructions the CUDA rendering is not inlined
 INLINE_MAX_INSTRUCTIONS = 2000
+# the CUDA rendering divides through a known reciprocal (``_div_rcp``) by a
+# residual constant (its reciprocal is staged beside it) and by a per-chain
+# value that one evaluation divides by at least REPEATED_DIVISIONS times (a
+# division inside a loop by a value from before it counts once a step or a
+# point; the reciprocal is computed once, after the value). On the H100 an
+# IEEE division issues ~11 instructions on its fast path, with a
+# reciprocal-unit call; the helper 9 and a multiply by an exact reciprocal
+# 1, so a reciprocal computed at run time (~9) pays from about five
+# divisions on; two (the regression's exp(x1)^2) measured no faster
+# (PERF.md). The torch rendering divides as it did.
+REPEATED_DIVISIONS = 5
 # device memory the plain rendering of a stream loop may hold for one chunk
 # of points (all per-point intermediates of all chains)
 PLAIN_STREAM_BYTES = 256 << 20
@@ -922,9 +972,11 @@ class StagedLogp:
     - ``vag(x, layout=None)``: the torch rendering; ``x`` is ``(d, n)``,
       returns ``(lp (n,), grad (d, n))``; a stream loop sums in
       ``layout``'s order (default ``self.layout``).
-    - ``cuda_source(layout=None)``: the CUDA C++ rendering, a
-      ``__device__`` function ``staged_vag(const float* x, const float* r,
-      float& lp, float* g, const float* sd, int n_pts)``. With a stream
+    - ``cuda_source(layout=None, scan_rcps=True)``: the CUDA C++
+      rendering, a ``__device__`` function ``staged_vag(const float* x,
+      const float* r, float& lp, float* g, const float* sd, int n_pts)``;
+      ``scan_rcps=False`` gives the scan loops' bodies no run-time
+      reciprocals (:meth:`_divisions`). With a stream
       loop (in ``layout``, default ``self.layout``) it is
       ``staged_partial`` (the loop over the tiles ``g0, g0 + gs, ...``
       into the block's sums ``s``) then ``staged_finish`` (the program
@@ -954,6 +1006,7 @@ class StagedLogp:
         self.loops = list(st.loops)
         for lp in self.loops:
             lp.find_live()
+        self.rcp_res, self.rcp_exact = dict(st.rcp_res), set(st.rcp_exact)
         self.libs: Dict[Any, Any] = {}      # built kernels, per variant
         self._tables: Dict[str, torch.Tensor] = {}   # stream_table's
         self._cuda_src: Dict[Any, str] = {}
@@ -1111,7 +1164,7 @@ class StagedLogp:
                          + "= " + "".join(f"{_torch_lit(u)}, "
                                           for _, u in upd))
 
-    def _loop_cuda(self, lines, lp: Loop):
+    def _loop_cuda(self, lines, lp: Loop, plan):
         """A scan loop as a ``#pragma unroll 1`` loop over the steps; the
         forward loop writes the tape, the backward one reads it. The tape is
         an array in each thread's local memory, which the compiler
@@ -1145,7 +1198,7 @@ class StagedLogp:
             lines.append(f"    const float k{i} = {cell};" if lp.reverse
                          else f"    {cell} = {_cuda_lit(lp.state[i])};")
         for j in lp.live:
-            self._instr(lines, j, lp.body, "    ")
+            self._instr(lines, j, lp.body, "    ", plan)
         for a, e in lp.accs:
             lines.append(f"    {_cuda_lit(a)} = {_cuda_lit(a)} + "
                          f"{_cuda_lit(e)};")
@@ -1163,23 +1216,111 @@ class StagedLogp:
         return "__forceinline__" if n <= INLINE_MAX_INSTRUCTIONS \
             else "__noinline__"
 
-    def cuda_source(self, layout: Optional[StreamLayout] = None) -> str:
+    def cuda_source(self, layout: Optional[StreamLayout] = None,
+                    scan_rcps: bool = True) -> str:
         layout = layout if self.sums and layout is not None else self.layout
         # chains a block shape the source only where a chain has warps to
         # combine (their sums' shared array)
-        key = None if layout is None else (
+        key = (None if layout is None else (
             layout.warps, layout.points,
-            layout.chains if layout.warps > 1 else 1)
+            layout.chains if layout.warps > 1 else 1), scan_rcps)
         if key not in self._cuda_src:
-            self._cuda_src[key] = (self._render_stream_cuda(layout)
-                                   if self.sums else self._render_cuda())
+            plan = self._divisions(scan_rcps)
+            self._cuda_src[key] = (self._render_stream_cuda(layout, plan)
+                                   if self.sums else self._render_cuda(plan))
         return self._cuda_src[key]
 
-    def _instr(self, lines, j, prog, indent):
+    def _divisions(self, scan_rcps: bool = True):
+        """The plan of the run-time reciprocals: the per-chain values
+        (coordinates ``x``, instructions ``t``, ``p``, ``u``) that one
+        evaluation divides by ``REPEATED_DIVISIONS`` times or more, a
+        division inside the stream loop or a scan loop by a value from
+        before the loop counting once a point or a step. Each gets
+        ``_rcp_<name> = 1.0f / <name>`` and ``_y_<name> =
+        _div_y(_rcp_<name>)`` once, right after it (a coordinate at the
+        function's start); its divisions use ``_y_<name>``, a reciprocal of
+        it is ``_rcp_<name>``. Without ``scan_rcps`` the scan loops'
+        divisions are not counted. Returns ``{id of the defining program:
+        {instruction}}`` and the coordinates, which the render functions
+        pass down."""
+        progs = [(self.prog, range(len(self.prog.instrs)), 1)]
+        if self.sums:
+            progs.append((self.pprog, range(len(self.pprog.instrs)),
+                          self.n_pts))
+        if scan_rcps:
+            progs += [(lp.body, lp.live, lp.n_steps) for lp in self.loops]
+        uses: Dict[Tuple, int] = {}
+        for P, js, runs in progs:
+            for j in js:
+                op, args = P.instrs[j]
+                b = args[1] if op == "div" else None
+                if not isinstance(b, Sym) or b.kind not in "xtpu":
+                    continue
+                inner = b.kind == P.kind
+                owner = id(P) if inner else id(self.prog)
+                key = (owner, b.kind, b.idx)
+                uses[key] = uses.get(key, 0) + (1 if inner else runs)
+        plan: Dict[int, set] = {}
+        coords = set()
+        for (owner, kind, idx), n in uses.items():
+            if n >= REPEATED_DIVISIONS and kind == "x":
+                coords.add(idx)
+            elif n >= REPEATED_DIVISIONS:
+                plan.setdefault(owner, set()).add(idx)
+        return plan, coords
+
+    def _has_rcp(self, b, prog, plan) -> bool:
+        """Whether the per-chain value ``b``, read in ``prog``, has
+        ``_rcp_<name>`` in ``plan`` (:meth:`_divisions`)."""
+        by_prog, coords = plan
+        if b.kind == "x":
+            return b.idx in coords
+        owner = prog if b.kind == prog.kind else self.prog
+        return b.idx in by_prog.get(id(owner), ())
+
+    def staged_rcp(self, op, args) -> Optional[Tuple[int, bool]]:
+        """For a division by a residual constant with a staged reciprocal:
+        the reciprocal's index and whether it is exact; else None."""
+        b = args[1] if op == "div" else None
+        if isinstance(b, Sym) and b.kind == "r" and b.idx in self.rcp_res:
+            return self.rcp_res[b.idx], b.idx in self.rcp_exact
+        return None
+
+    def _cuda_expr(self, op, args, prog, plan) -> str:
+        """An instruction's CUDA expression; a division by a residual
+        constant with a staged reciprocal, or by a value with
+        ``_rcp_<name>``, goes through the reciprocal (:func:`_div_expr`),
+        and such a value's reciprocal is ``_rcp_<name>``."""
+        lits = [_cuda_lit(a) for a in args]
+        b = args[1] if op == "div" else args[0] if op == "reciprocal" \
+            else None
+        if isinstance(b, Sym) and b.kind in "xtpu" and \
+                self._has_rcp(b, prog, plan):
+            name = f"{b.kind}{b.idx}"
+            return f"_rcp_{name}" if op == "reciprocal" else \
+                _div_expr(lits[0], lits[1], f"_y_{name}", False)
+        rcp = self.staged_rcp(op, args)
+        if rcp is not None:
+            return _div_expr(lits[0], lits[1], f"r[{rcp[0]}]", rcp[1])
+        return _OPS[op][2].format(*lits)
+
+    def _instr(self, lines, j, prog, indent, plan):
         op, args = prog.instrs[j]
         ctype = "bool" if prog.dtypes[j] == "b" else "float"
-        expr = _OPS[op][2].format(*[_cuda_lit(a) for a in args])
+        expr = self._cuda_expr(op, args, prog, plan)
         lines.append(f"{indent}const {ctype} {prog.kind}{j} = {expr};")
+        if j in plan[0].get(id(prog), ()):
+            self._rcp_lines(lines, f"{prog.kind}{j}", indent)
+
+    @staticmethod
+    def _rcp_lines(lines, name, indent, lit=None):
+        lines.append(f"{indent}const float _rcp_{name} = (1.0f / "
+                     f"{lit or name});")
+        lines.append(f"{indent}const float _y_{name} = _div_y(_rcp_{name});")
+
+    def _coord_rcps(self, lines, plan):
+        for k in sorted(plan[1]):
+            self._rcp_lines(lines, f"x{k}", "  ", f"x[{k}]")
 
     def _outputs_cuda(self, lines):
         lines.append(f"  lp = {_cuda_lit(self.lp)};")
@@ -1187,24 +1328,25 @@ class StagedLogp:
             lines.append(f"  g[{i}] = {_cuda_lit(g)};")
         lines.append("}")
 
-    def _render_cuda(self) -> str:
+    def _render_cuda(self, plan) -> str:
         """The program without a stream loop: one straight-line
         function."""
         lines = [_CUDA_HELPERS,
                  f"__device__ {self._qualifier()} void staged_vag("
                  "const float* x, const float* r, float& lp, float* g, "
                  "const float* __restrict__ sd, int n_pts) {"]
+        self._coord_rcps(lines, plan)
         at = self._loops_at()
         for j in range(len(self.prog.instrs)):
             for lp in at.get(j, ()):
-                self._loop_cuda(lines, lp)
-            self._instr(lines, j, self.prog, "  ")
+                self._loop_cuda(lines, lp, plan)
+            self._instr(lines, j, self.prog, "  ", plan)
         for lp in at.get(len(self.prog.instrs), ()):
-            self._loop_cuda(lines, lp)
+            self._loop_cuda(lines, lp, plan)
         self._outputs_cuda(lines)
         return "\n".join(lines) + "\n"
 
-    def _point_loop(self, lines, lay, rows, masked):
+    def _point_loop(self, lines, lay, rows, masked, plan):
         """Each lane's ``lay.points`` points of the tile ``_t``: the loop
         body per point, each data-sum's value into ``_b<i>[p]``."""
         T, P = lay.tile, lay.points
@@ -1214,7 +1356,7 @@ class StagedLogp:
         for row in range(rows):
             lines.append(f"        const float d{row} = _t[{row * T} + _o];")
         for j in range(len(self.pprog.instrs)):
-            self._instr(lines, j, self.pprog, "        ")
+            self._instr(lines, j, self.pprog, "        ", plan)
         if masked:
             lines.append("        const bool _live = _base + _o < n_pts;")
         for i, e in enumerate(self.sums):
@@ -1222,7 +1364,7 @@ class StagedLogp:
             lines.append(f"        _b{i}[_p] = {v};")
         lines.append("      }")
 
-    def _render_stream_cuda(self, lay: StreamLayout) -> str:
+    def _render_stream_cuda(self, lay: StreamLayout, plan) -> str:
         """``staged_partial`` (the program before the loop, and the loop in
         ``lay``), ``staged_finish`` (the program before and after the loop;
         the compiler keeps one copy of the part before where both are
@@ -1235,8 +1377,9 @@ class StagedLogp:
                  f"__device__ {q} void staged_partial("
                  "const float* x, const float* r, float* s, "
                  "const float* __restrict__ sd, int n_pts, int g0, int gs) {"]
+        self._coord_rcps(lines, plan)
         for j in pre:
-            self._instr(lines, j, self.prog, "  ")
+            self._instr(lines, j, self.prog, "  ", plan)
         lines.append(f"  __shared__ __align__(16) float _tile[{S}]"
                      f"[{rows * T}];")
         if W > 1:
@@ -1275,9 +1418,9 @@ class StagedLogp:
         # point's select is the point); the last tile selects 0.0 past
         # n_pts
         lines.append(f"    if (_base + {T} <= n_pts) {{")
-        self._point_loop(lines, lay, rows, masked=False)
+        self._point_loop(lines, lay, rows, False, plan)
         lines.append("    } else {")
-        self._point_loop(lines, lay, rows, masked=True)
+        self._point_loop(lines, lay, rows, True, plan)
         lines.append("    }")
         # the pairwise tree, written out: constant indices keep the blocks
         # in registers
@@ -1314,12 +1457,13 @@ class StagedLogp:
         lines.append(f"__device__ {q} void staged_finish("
                      "const float* x, const float* r, const float* s, "
                      "float& lp, float* g) {")
+        self._coord_rcps(lines, plan)
         for j in pre:
-            self._instr(lines, j, self.prog, "  ")
+            self._instr(lines, j, self.prog, "  ", plan)
         for i in range(k):
             lines.append(f"  const float s{i} = s[{i}];")
         for j in post:
-            self._instr(lines, j, self.prog, "  ")
+            self._instr(lines, j, self.prog, "  ", plan)
         self._outputs_cuda(lines)
         lines.append(f"__device__ {q} void staged_vag("
                      "const float* x, const float* r, float& lp, float* g, "
@@ -1564,7 +1708,8 @@ class SplitProgram:
         self._class_of = {k: c for c, ks in enumerate(self.classes)
                           for k in ks}
         self._lists = per_k
-        self._leaf: Dict[Tuple[int, int, int], str] = {}
+        self._leaf: Dict[Tuple[int, int, Any], str] = {}
+        self._exact: Dict[Tuple[int, int], bool] = {}
         for c, ks in enumerate(self.classes):
             for p in range(len(per_k[ks[0]])):
                 args = self._args(per_k[ks[0]][p])[1]
@@ -1576,6 +1721,14 @@ class SplitProgram:
                     elif isinstance(a, float):
                         self._leaf[(c, p, ai)] = self._literal(
                             ks, col, extra)
+                rcps = [self.staged.staged_rcp(*self._args(per_k[k][p]))
+                        for k in ks]
+                if all(i is not None for i in rcps):
+                    # the division's reciprocal, and whether every
+                    # member's is exact
+                    self._leaf[(c, p, "rcp")] = self._r_index(
+                        ks, [i for i, _ in rcps], extra)
+                    self._exact[(c, p)] = all(e for _, e in rcps)
         self._order = self._schedule()
 
     def _signature(self, j, k):
@@ -1828,7 +1981,10 @@ class SplitProgram:
             L.append(f"  const float a{j} = {acc};")
             return
         ctype = "bool" if P.dtypes[j] == "b" else "float"
-        L.append(f"  const {ctype} a{j} = {_OPS[op][2].format(*lits)};")
+        rcp = self.staged.staged_rcp(op, args)
+        expr = (_OPS[op][2].format(*lits) if rcp is None
+                else _div_expr(lits[0], lits[1], f"r[{rcp[0]}]", rcp[1]))
+        L.append(f"  const {ctype} a{j} = {expr};")
 
     def _cuda_class(self, L, ci, positions):
         ks = self.classes[ci]
@@ -1857,7 +2013,10 @@ class SplitProgram:
                     lits.append(self._leaf[(ci, p, ai)])
                 else:
                     lits.append(_cuda_lit(a))
-            L.append(f"    v{ci}_{p}[c] = {_OPS[op][2].format(*lits)};")
+            rcp = self._leaf.get((ci, p, "rcp"))
+            expr = (_OPS[op][2].format(*lits) if rcp is None else
+                    _div_expr(lits[0], lits[1], rcp, self._exact[(ci, p)]))
+            L.append(f"    v{ci}_{p}[c] = {expr};")
         L.append("  } }")
 
     def _cuda_outputs(self, L):
@@ -2918,6 +3077,45 @@ class _GraphEval:
         return out
 
 
+_FLT_MIN = 2.0 ** -126
+
+
+def _stage_reciprocals(st: _Stager, ev: _GraphEval):
+    """The correctly rounded float32 reciprocal ``1 / b`` of every residual
+    constant ``b`` that a program divides by, staged (computed here, once)
+    after all other residual constants, the scans' data included, so that
+    no index the torch rendering reads moves; ``st.rcp_res`` maps ``b``'s
+    index to its reciprocal's. A ``b`` that is not a normal number, or
+    whose reciprocal is not one
+    (zero, subnormal, infinite, NaN, or above 2^126), gets none: the CUDA
+    rendering divides by it as IEEE division. Where ``1 / b`` is exact (a
+    power of two), ``a / b`` and ``a * (1 / b)`` are the same real number
+    for every ``a``, so they round alike: ``st.rcp_exact`` holds such
+    ``b``, which the CUDA rendering multiplies by."""
+    progs = [st.prog, st.pprog] + [lp.body for lp in st.loops]
+    dens = sorted({a[1].idx for P in progs for op, a in P.instrs
+                   if op == "div" and isinstance(a[1], Sym)
+                   and a[1].kind == "r"})
+    if not dens:
+        return
+    vals = torch.cat([t.detach().reshape(-1).to(torch.float32).cpu()
+                      for t in ev.res_vals]).numpy()
+    base = sum(int(t.numel()) for t in ev.res_vals)
+    rcps = []
+    with np.errstate(all="ignore"):
+        for k in dens:
+            b = np.float32(vals[k])
+            y = np.float32(1.0) / b
+            if (np.isfinite(b) and abs(b) >= _FLT_MIN and np.isfinite(y)
+                    and abs(y) >= _FLT_MIN):
+                st.rcp_res[k] = base + len(rcps)
+                rcps.append(y)
+                if np.float64(b) * np.float64(y) == 1.0:
+                    st.rcp_exact.add(k)
+    if rcps:
+        ev.res_vals.append(torch.from_numpy(np.array(rcps, np.float32)))
+
+
 def stage_scalarized(logp, d: int, device=None,
                      max_residual_scalars: int = MAX_RESIDUAL_SCALARS,
                      stream_threshold: int = STREAM_THRESHOLD,
@@ -2945,6 +3143,7 @@ def stage_scalarized(logp, d: int, device=None,
                         allow_stream)
         grad_out, val_out = ev.run(gm, [x], st)
     ev.stage_data(st.loops)
+    _stage_reciprocals(st, ev)
     grad_out, val_out = _as_sa(grad_out), _as_sa(val_out)
     if val_out.size != 1 or grad_out.shape != (d,):
         raise ValueError(f"scalarize: logp must map (d,) to a scalar; got "

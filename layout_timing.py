@@ -68,12 +68,41 @@ substitution into a shared-memory slab (blocks of ``KALMAN_SHARED_BLOCK``
 threads, :func:`shared_tape`), and K1 and K3 built
 asking for one block an SM at least (``__launch_bounds__``' second
 argument; ptxas's own choice spills a few bytes in some of their
-instantiations). Prints the staging and
+instantiations); this tree also times the staged-code kernel, K1 and K3
+with the run-time reciprocals undone (``REPEATED_DIVISIONS`` set out of
+reach). Prints the staging and
 ``nvcc`` seconds, each kernel's ptxas report, the staged-code kernel's
-SASS opcode counts, every timing, a summary, and the card's name and
+and K3's SASS opcode counts, every timing, a summary, and the card's name and
 power limit.
+
+K1 mode times the fused HMC kernel (K1) in two trees of the package, each
+in its own process, in the order other, this, this, other on one card:
+
+    python3 layout_timing.py --k1 OTHER_ROOT
+
+``OTHER_ROOT`` holds an earlier ``gen_tpu_torch`` package, as for
+``--stream``. Each process stages chip_smoke.py's headline regression
+and eight_schools (d = 10), builds K1 for both (one ``nvcc`` each, in
+parallel), prints the main instantiation's ptxas report and SASS census
+(``chip_smoke.k1_census``: instructions per chain-step, per leapfrog and
+by class, MUFU and FCHK per leapfrog, blocks an SM, waves), runs
+``K1_CHECK_STEPS`` steps from the same start under the same key at both
+shapes and prints a digest of every output (the two trees must agree bit
+for bit), then times K1 per step (median of three calls of ``K1_STEPS``
+steps after a warm call) at 524,288 chains (L = 10, the headline's step
+size, the slope collected) and at 131,072 chains of eight_schools
+(``K1_D10``, every coordinate collected, as the ``hmc_fused`` engine
+does), with the SM clock read while the timed calls run and the issue
+rate achieved. In this tree it also times the variants of
+``K1_VARIANTS`` (the run-time reciprocals undone, the
+repeated-denominator rule from two divisions, the step size drawn in the
+chain loop in place of the prologue's table, another block size, launch
+bounds), whose outputs must agree bit for bit too; a variant that fails
+to build or run is reported and skipped. The parent checks the digests and prints a
+summary per tree and variant.
 """
 
+import hashlib
 import json
 import re
 import subprocess
@@ -110,6 +139,10 @@ KALMAN_K1_STEPS, KALMAN_L, KALMAN_EPS = 20, 10, 0.05
 KALMAN_SHARED_BLOCK = 32
 # other split counts of the staged-code kernel timed beside its rule's
 STREAM_SPLITS = {(1_000_000, 128): (33, 200), (1_000_000, 1024): (5, 26)}
+# --k1: the timed calls' steps, the identity check's steps, and
+# eight_schools' shape (chains, leapfrogs, step size)
+K1_STEPS, K1_CHECK_STEPS = 200, 20
+K1_D10 = (131072, 10, 0.25)
 
 
 def main(other: Path):
@@ -198,25 +231,16 @@ def time_splits(torch, staged_eval, st, x, splits):
         staged_eval.layout = rule
 
 
-def sass_summary(_cuda_build, job, kernel="staged_stream_kernel") -> str:
+def sass_summary(job, kernel="staged_stream_kernel") -> str:
     """Opcode counts of ``kernel`` in the built library of ``job``
-    (``cuobjdump -sass``): FCHK marks an IEEE division, MUFU a reciprocal
-    or logarithm, CALL a division's slow path, STL/LDL local memory."""
-    so = (_cuda_build.BUILD_DIR
-          / f"{job[0]}_{_cuda_build.source_hash(job[1])}.so")
-    tool = Path(_cuda_build.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    body = text.split(kernel)[-1]
-    ops = [re.sub(r"^@!?U?P[T0-9]+\s+", "",
-                  ln.split("*/", 1)[1].strip()).split()[0]
-           for ln in body.splitlines()
-           if ln.strip().startswith("/*") and "*/" in ln and ";" in ln]
-    counts = {}
-    for op in ops:
-        counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
+    (``chip_smoke.sass_functions``): FCHK marks an IEEE division, MUFU a
+    reciprocal or logarithm, CALL a division's slow path, STL/LDL local
+    memory."""
+    instrs = next(v for k, v in C.sass_functions(job).items()
+                  if kernel in k)
+    counts = C.sass_classes(instrs)[1]
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:12]
-    return (f"{len(ops)} instructions; " + ", ".join(
+    return (f"{len(instrs)} instructions; " + ", ".join(
         f"{k} {v}" for k, v in top) + f"; FCHK {counts.get('FCHK', 0)}, "
         f"MUFU {counts.get('MUFU', 0)}, CALL {counts.get('CALL', 0)}, "
         f"STL {counts.get('STL', 0)}, LDL {counts.get('LDL', 0)}")
@@ -325,8 +349,8 @@ def stream_child(label: str, root: str, point_variants):
                       f"{g} splits: {ms:.4f} ms per gradient", flush=True)
         if new:
             print(f"{label}{tag} staged-code kernel SASS: "
-                  + sass_summary(_cuda_build, staged_eval.build_job(
-                      staged[1_000_000])), flush=True)
+                  + sass_summary(staged_eval.build_job(staged[1_000_000])),
+                  flush=True)
         for n_pts, n, eps in STREAM_FUSED_SHAPES:
             st = staged[n_pts]
             target, xs, ys = models[n_pts]
@@ -509,63 +533,55 @@ def kalman_child(label: str, root: str):
     # a tree with scan loops also builds the staged-code kernel with the
     # tape in a shared-memory slab, and K1 and K3 asking for one block an SM
     rolled = bool(getattr(st, "loops", None))
-    jobs = [("staged code", staged_eval.build_job(st)),
-            ("K1", hmc_fused.build_job(st)),
-            ("K3", nf.build_job(st, 6, True))]
-    if rolled:
-        jobs.append(("staged code, tape shared",
-                     shared_tape(jobs[0][1], staged_eval.BLOCK,
-                                 KALMAN_SHARED_BLOCK)))
-    _, out["build_s"] = C.timed(torch, lambda: _cuda_build.build_all(
-        [job for _, job in jobs]))
-    secs_of = {h: secs for h, secs, _ in _cuda_build.BUILD_LOG}
-    for name, job in jobs:
-        secs = secs_of.get(_cuda_build.source_hash(job[1]), float("nan"))
-        out[f"nvcc_s {name}"] = secs
-        print(f"{label} {name}: nvcc {secs:.2f} s, {len(job[1])} B of "
-              "source; ptxas: " + " | ".join(
-                  ln.strip() for ln in ptxas_report(_cuda_build, job)
-                  .splitlines()
-                  if "registers" in ln or "spill" in ln or "stack" in ln),
-              flush=True)
-    print(f"{label} staged-code kernel SASS: " + sass_summary(
-        _cuda_build, jobs[0][1], "staged_eval_kernel"), flush=True)
     g = torch.Generator(dev).manual_seed(9)
     v0 = (torch.tensor([0.6, -1.2, -0.7], device=dev)
           + 0.05 * torch.randn(C.AR1_CHAINS, 3, device=dev, generator=g))
     xt = v0.T.contiguous()
-    places = [("staged_ms", jobs[0][1])] + (
-        [("staged_ms tape shared", jobs[3][1])] if rolled else [])
-    for key, job in places:
-        st.libs["staged_eval"] = _cuda_build.build(*job)
-        staged_eval.staged_vag(st, xt)
-        out[key] = C.gpu_ms(torch, lambda: staged_eval.staged_vag(st, xt),
-                            20)
-        print(f"{label} {key}: {out[key]:.4f} ms per gradient of "
-              f"{C.AR1_CHAINS} chains", flush=True)
-    st.libs.clear()
     key = random.PRNGKey(5, dev)
     kw = dict(n_steps=KALMAN_K1_STEPS, L=KALMAN_L, eps=KALMAN_EPS,
               collect_idx=0)
-    k1_src, nf_src = hmc_fused.kernel_source, nf.kernel_source
-    for tag, bounds in [("", False)] + ([(" min blocks 1", True)] if rolled
-                                         else []):
-        if bounds:
-            # K1 and K3 asking ptxas for one block an SM at least
-            hmc_fused.kernel_source = lambda s_: k1_src(s_).replace(
-                "__launch_bounds__(HMC_BLOCK)",
-                "__launch_bounds__(HMC_BLOCK, 1)")
-            nf.kernel_source = lambda s_, md, p: nf_src(s_, md, p).replace(
-                "__launch_bounds__(NUTS_BLOCK)",
-                "__launch_bounds__(NUTS_BLOCK, 1)")
-            st.libs.clear()
-            jobs = [hmc_fused.build_job(st), nf.build_job(st, 6, True)]
-            _cuda_build.build_all(jobs)
-            for name, job in zip(("K1", "K3"), jobs):
-                print(f"{label} {name}{tag} ptxas: " + " | ".join(
-                    ln.strip() for ln in ptxas_report(_cuda_build, job)
-                    .splitlines()
-                    if "registers" in ln or "spill" in ln), flush=True)
+
+    def build(tag, shared):
+        """Build the staged-code kernel, K1 and K3 (and the shared-tape
+        variant); print nvcc seconds, ptxas and the SASS summaries."""
+        st.libs.clear()
+        getattr(st, "_cuda_src", {}).clear()
+        jobs = [("staged code", staged_eval.build_job(st)),
+                ("K1", hmc_fused.build_job(st)),
+                ("K3", nf.build_job(st, 6, True))]
+        if shared:
+            jobs.append(("staged code, tape shared",
+                         shared_tape(jobs[0][1], staged_eval.BLOCK,
+                                     KALMAN_SHARED_BLOCK)))
+        _, out[f"build_s{tag}"] = C.timed(torch, lambda: _cuda_build.build_all(
+            [job for _, job in jobs]))
+        secs_of = {h: secs for h, secs, _ in _cuda_build.BUILD_LOG}
+        for name, job in jobs:
+            secs = secs_of.get(_cuda_build.source_hash(job[1]), float("nan"))
+            out[f"nvcc_s {name}{tag}"] = secs
+            print(f"{label} {name}{tag}: nvcc {secs:.2f} s, {len(job[1])} B "
+                  "of source; ptxas: " + " | ".join(
+                      ln.strip() for ln in ptxas_report(_cuda_build, job)
+                      .splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "stack" in ln), flush=True)
+        print(f"{label} staged-code kernel{tag} SASS: " + sass_summary(
+            jobs[0][1], "staged_eval_kernel"), flush=True)
+        print(f"{label} K3{tag} SASS: " + sass_summary(
+            jobs[2][1], "nuts_pair_kernel"), flush=True)
+        return jobs
+
+    def time_staged(places):
+        for name, job in places:
+            st.libs["staged_eval"] = _cuda_build.build(*job)
+            staged_eval.staged_vag(st, xt)
+            out[name] = C.gpu_ms(
+                torch, lambda: staged_eval.staged_vag(st, xt), 20)
+            print(f"{label} {name}: {out[name]:.4f} ms per gradient of "
+                  f"{C.AR1_CHAINS} chains", flush=True)
+        st.libs.clear()
+
+    def time_k1_k3(tag):
         hmc_fused.hmc_chains_fused(key, target.logp, v0, **kw)
         _, secs = C.timed(torch, lambda: hmc_fused.hmc_chains_fused(
             key, target.logp, v0, **kw))
@@ -576,7 +592,45 @@ def kalman_child(label: str, root: str):
         print(f"{label} K1{tag}: {out[f'k1_ms_per_step{tag}']:.4f} ms per "
               f"step of {KALMAN_L} leapfrogs; K3{tag}: {per_slot:.4f} ms per "
               f"slot (mean depth {depth:.2f})", flush=True)
-    hmc_fused.kernel_source, nf.kernel_source = k1_src, nf_src
+
+    jobs = build("", rolled)
+    time_staged([("staged_ms", jobs[0][1])] + (
+        [("staged_ms tape shared", jobs[3][1])] if rolled else []))
+    time_k1_k3("")
+    if rolled:
+        # K1 and K3 asking ptxas for one block an SM at least
+        k1_src, nf_src = hmc_fused.kernel_source, nf.kernel_source
+        hmc_fused.kernel_source = lambda s_: k1_src(s_).replace(
+            "__launch_bounds__(HMC_BLOCK)",
+            "__launch_bounds__(HMC_BLOCK, 1)")
+        nf.kernel_source = lambda s_, md, p: nf_src(s_, md, p).replace(
+            "__launch_bounds__(NUTS_BLOCK)",
+            "__launch_bounds__(NUTS_BLOCK, 1)")
+        st.libs.clear()
+        bjobs = [hmc_fused.build_job(st), nf.build_job(st, 6, True)]
+        _cuda_build.build_all(bjobs)
+        for name, job in zip(("K1", "K3"), bjobs):
+            print(f"{label} {name} min blocks 1 ptxas: " + " | ".join(
+                ln.strip() for ln in ptxas_report(_cuda_build, job)
+                .splitlines()
+                if "registers" in ln or "spill" in ln), flush=True)
+        time_k1_k3(" min blocks 1")
+        hmc_fused.kernel_source, nf.kernel_source = k1_src, nf_src
+    if label == "this":
+        # the run-time reciprocals undone (the residual rule alone, which
+        # this model, dividing by no residual constant, does not take)
+        from gen_tpu_torch.ops import scalarize
+        saved = scalarize.REPEATED_DIVISIONS
+        scalarize.REPEATED_DIVISIONS = 10 ** 9
+        try:
+            tag = " [residual rule only]"
+            jobs = build(tag, False)
+            time_staged([(f"staged_ms{tag}", jobs[0][1])])
+            time_k1_k3(tag)
+        finally:
+            scalarize.REPEATED_DIVISIONS = saved
+            st.libs.clear()
+            st._cuda_src.clear()
     print("KALMAN_RESULT " + json.dumps(out), flush=True)
 
 
@@ -637,10 +691,286 @@ def stream_main(other: Path, point_variants):
     print(card)
 
 
+def _setting(module, name, value):
+    """A variant of ``--k1``: ``module.name = value`` in the package
+    (``module`` relative to ``gen_tpu_torch.ops``); returns the undo."""
+    def change(modules):
+        mod = modules[f"gen_tpu_torch.ops.{module}"]
+        saved = getattr(mod, name)
+        setattr(mod, name, value)
+        return lambda: setattr(mod, name, saved)
+    return change
+
+
+def _bounds(blocks_by_d):
+    """A variant of ``--k1``: K1 built asking ptxas for
+    ``blocks_by_d[d]`` blocks an SM (``__launch_bounds__``' second
+    argument) for a model of ``d`` coordinates."""
+    def change(modules):
+        hf = modules["gen_tpu_torch.ops.hmc_fused"]
+        source = hf.kernel_source
+
+        def edited(staged):
+            src = source(staged)
+            if staged.d not in blocks_by_d:
+                return src
+            return src.replace(
+                "__launch_bounds__(HMC_BLOCK)",
+                f"__launch_bounds__(HMC_BLOCK, {blocks_by_d[staged.d]})")
+        hf.kernel_source = edited
+        return lambda: setattr(hf, "kernel_source", source)
+    return change
+
+
+def _eps_in_loop():
+    """A variant of ``--k1``: K1 with the jittered step size drawn by every
+    chain in its step loop (one Philox call a step, as before the prologue
+    kernel existed) in place of ``hmc_eps_kernel``'s table; injected step
+    sizes are still read from the table."""
+    edits = [
+        ("int n, int n_steps, int L, int collect_idx,",
+         "int n, int n_steps, int L, float eps, float eps_jitter, "
+         "int collect_idx,"),
+        ("    const float eps_s = __ldg(eps_tab + s);\n",
+         "    float eps_s;\n    if (INJECTED) {\n"
+         "      eps_s = __ldg(eps_tab + s);\n    } else {\n"
+         "      const uint4 jb = philox4x32_10(make_uint4(0xFFFFFFFFu, s, 0u,"
+         " 0u), key);\n      eps_s = eps * (1.0f - eps_jitter + 2.0f * "
+         "eps_jitter * u01(jb.x));\n    }\n"),
+        ("n_steps, L, collect_idx, seed0,",
+         "n_steps, L, eps, eps_jitter, collect_idx, seed0,"),
+        ("  if (!injected) {\n    hmc_eps_kernel<<<",
+         "  if (false) {\n    hmc_eps_kernel<<<")]
+
+    def change(modules):
+        hf = modules["gen_tpu_torch.ops.hmc_fused"]
+        source = hf.kernel_source
+
+        def edited(staged):
+            src = source(staged)
+            for old, new in edits:
+                if src.count(old) != 1:
+                    raise RuntimeError(f"K1's source lacks {old!r}")
+                src = src.replace(old, new)
+            return src
+        hf.kernel_source = edited
+        return lambda: setattr(hf, "kernel_source", source)
+    return change
+
+
+# variants of this tree's K1 timed beside it: one design step undone, or
+# another launch shape (the regression is d = 3, eight_schools d = 10)
+K1_VARIANTS = {
+    "residual rule only": _setting("scalarize", "REPEATED_DIVISIONS",
+                                   10 ** 9),
+    "repeated from 2 divisions": _setting("scalarize",
+                                          "REPEATED_DIVISIONS", 2),
+    "step size drawn in the loop": _eps_in_loop(),
+    "block 256": _setting("hmc_fused", "BLOCK", 256),
+    "8 and 4 blocks an SM asked": _bounds({3: 8, 10: 4}),
+}
+
+
+def k1_models(torch, tt, dev):
+    """(name, logp, d, chains, L, eps, collect_idx, prior start, start near
+    the posterior) of the headline regression and eight_schools d = 10:
+    the prior starts drawn with fixed keys (the identity check's, whose
+    first steps also meet extreme values), the others from the exact
+    posterior moments, each coordinate normal (the timed calls' state, as
+    the main paths' after warmup)."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch._verify import exact_posterior_moments, schools_exact
+    from gen_tpu_torch.inference import FlatTarget
+
+    def near(tr, sel, moments, n, seed):
+        paths, offsets = C.flat_layout(tt, tr, sel)
+        mean = np.concatenate([np.atleast_1d(moments[p][0]) for p in paths])
+        sd = np.concatenate([np.atleast_1d(moments[p][1]) for p in paths])
+        z = np.random.default_rng(seed).standard_normal((n, len(mean)))
+        return torch.tensor((mean + sd * z).astype(np.float32), device=dev)
+
+    model, X, obs, sel, xs, ys = C.regression_setup(torch, tt, dev)
+    tr = model.generate(random.PRNGKey(1, dev), (X,), obs)[0]
+    mb, sb, ml, sl = exact_posterior_moments(
+        np.stack([xs, np.ones_like(xs)], axis=1), ys)
+    moments = {("slope",): (mb[0], sb[0]), ("intercept",): (mb[1], sb[1]),
+               ("log_noise",): (ml, sl)}
+    v_reg = C.init_values(torch, model, (X,), obs, sel, random.split(
+        random.PRNGKey(12, dev), C.N_CHAINS))
+    m10, a10, o10, s10 = C.schools_setup(torch, tt, C.YS_8, C.SIGMAS_8, dev)
+    tr10 = m10.generate(random.PRNGKey(1, dev), a10, o10)[0]
+    n10, l10, e10 = K1_D10
+    v10 = C.init_values(torch, m10, a10, o10, s10, random.split(
+        random.PRNGKey(11, dev), n10))
+    return [("regression", FlatTarget(tr, sel).logp, 3, C.N_CHAINS, C.L,
+             C.EPS, 0, v_reg, near(tr, sel, moments, C.N_CHAINS, 1)),
+            ("eight_schools d=10", FlatTarget(tr10, s10).logp, 10, n10,
+             l10, e10, None, v10,
+             near(tr10, s10, schools_exact(C.YS_8, C.SIGMAS_8), n10, 2))]
+
+
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k1_child(label: str, root: str):
+    """One tree's K1 census, digests and timings, with the package under
+    ``root``; prints them as one JSON line."""
+    sys.path.insert(0, root)
+    import torch
+    import gen_tpu_torch as tt
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import _cuda_build, hmc_fused
+
+    dev = torch.device("cuda", 0)
+    print(f"{label}: gen_tpu_torch from {Path(tt.__file__).parent}",
+          flush=True)
+    models = k1_models(torch, tt, dev)
+    staged = {m[0]: hmc_fused.stage(m[1], m[2], dev) for m in models}
+    variants = {"": None}
+    if label == "this":
+        variants.update(K1_VARIANTS)
+    out = {"label": label}
+    for vname, change in variants.items():
+        restore = change(sys.modules) if change else None
+        try:
+            k1_variant(torch, random, _cuda_build, hmc_fused, models,
+                       staged, vname, out, label)
+        except Exception as e:      # a variant that fails is reported only
+            if not vname:
+                raise
+            print(f"{label} [{vname}] failed: {type(e).__name__}: "
+                  f"{str(e)[-3000:]}", flush=True)
+        finally:
+            if restore:
+                restore()
+    print("K1_RESULT " + json.dumps(out), flush=True)
+
+
+def k1_variant(torch, random, _cuda_build, hmc_fused, models, staged, vname,
+               out, label):
+    """K1 of this build (``vname`` names a variant; "" the tree as it is):
+    build, census, digests and timings of both models into ``out``."""
+    tag = f" [{vname}]" if vname else ""
+    for st in staged.values():
+        st.libs.clear()
+        getattr(st, "_cuda_src", {}).clear()
+    jobs = {name: hmc_fused.build_job(staged[name]) for name, *_ in models}
+    _cuda_build.build_all(list(jobs.values()))
+    key = random.PRNGKey(5, models[0][-1].device)
+    for name, logp, d, n, L_, eps, cidx, v0, v_post in models:
+        cen = C.k1_census(jobs[name], cidx is None, L_)
+        waves, eff = C.k1_waves(cen, n)
+        print(f"{label}{tag} K1 {name}: {cen.get('registers')} registers, "
+              f"{cen.get('spill_bytes')} B spills, {cen.get('stack_bytes')} "
+              f"B stack, block {cen['block']}, {cen.get('blocks_per_sm')} "
+              f"blocks an SM, {waves:.2f} waves at {n} chains "
+              f"({eff:.1%} of the last round busy); SASS per chain-step "
+              f"{cen['per_chain_step']} on the hot path (leapfrog "
+              f"{cen['leapfrog']} x {L_} + {cen['step_rest']}; static "
+              f"{cen['static_per_chain_step']}, leapfrog "
+              f"{cen['static_leapfrog']}), MUFU {cen['mufu_per_leapfrog']} "
+              "and "
+              f"FCHK {cen['fchk_per_leapfrog']} per leapfrog; leapfrog "
+              f"classes {cen['leapfrog_classes']}; rest of the step "
+              f"{cen['step_rest_classes']}", flush=True)
+        print(f"{label}{tag} K1 {name} leapfrog opcodes: "
+              f"{cen['leapfrog_ops']}; rest {cen['step_rest_ops']}",
+              flush=True)
+        kw = dict(L=L_, eps=eps, collect_idx=cidx)
+        res = hmc_fused.hmc_chains_fused(key, logp, v0, K1_CHECK_STEPS, **kw)
+        dig = digest(*res)
+        vals, _, acc = hmc_fused.hmc_chains_fused(
+            random.fold_in(key, 1), logp, v_post, K1_STEPS, **kw)
+        times = []
+        for rep in range(3):
+            _, t = C.timed(torch, lambda: hmc_fused.hmc_chains_fused(
+                random.fold_in(key, 2 + rep), logp, vals, K1_STEPS, **kw))
+            times.append(t)
+        us = float(np.median(times)) / K1_STEPS * 1e6
+        # the SM clock under this load: calls queued for a few tenths of a
+        # second, read while they run
+        for rep in range(max(1, int(0.3 / min(times)))):
+            hmc_fused.hmc_chains_fused(random.fold_in(key, 9), logp, vals,
+                                       K1_STEPS, **kw)
+        clock = float(np.median([C.sm_clock_mhz() for _ in range(3)]))
+        torch.cuda.synchronize()
+        ib = C.issue_bound_ms(cen["per_chain_step"], n, clock) * 1e3
+        rate = (cen["per_chain_step"] * n / 32
+                / (us * 1e-6 * clock * 1e6 * C.SM_COUNT))
+        print(f"{label}{tag} K1 {name}: {us:.2f} us per step of {n} chains "
+              f"(reps " + ", ".join(f"{t * 1e3:.2f}" for t in times)
+              + f" ms for {K1_STEPS} steps; accept "
+              f"{float(acc.mean()) / K1_STEPS:.3f}); SM clock {clock:.0f} "
+              "MHz; issue "
+              f"bound {ib:.2f} us; {rate:.2f} warp instructions per clock "
+              f"an SM; digest {dig}", flush=True)
+        out[f"{name}{tag}"] = dict(
+            us=us, digest=dig, mhz=clock, issue_bound_us=ib, rate=rate,
+            waves=waves, busy=eff, **{k: cen.get(k) for k in (
+                "registers", "spill_bytes", "stack_bytes", "block",
+                "blocks_per_sm", "per_chain_step", "leapfrog",
+                "static_per_chain_step", "static_leapfrog",
+                "mufu_per_leapfrog", "fchk_per_leapfrog",
+                "lds_per_leapfrog")})
+
+
+def k1_main(other: Path):
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("layout_timing.py needs a CUDA device")
+    card = C.phase_env(torch)
+    here = Path(__file__).resolve().parent
+    roots = {"other": other.resolve(), "this": here}
+    results = []
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, __file__, "--k1-child",
+                               which, str(roots[which])],
+                              capture_output=True, text=True, cwd=here)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:])
+            raise RuntimeError(f"the {which} tree's timing failed")
+        results += [json.loads(ln.split(" ", 1)[1])
+                    for ln in proc.stdout.splitlines()
+                    if ln.startswith("K1_RESULT ")]
+    digests = {}
+    for r in results:
+        for shape, v in r.items():
+            if shape != "label":
+                digests.setdefault(shape.split(" [")[0], set()).add(
+                    v["digest"])
+    for shape, ds in digests.items():
+        print(f"K1 {shape}: outputs of every run "
+              + ("identical" if len(ds) == 1 else f"DIFFER {sorted(ds)}"))
+    for which in ("other", "this"):
+        rows = [r for r in results if r["label"] == which]
+        for shape in rows[0]:
+            if shape != "label":
+                print(f"summary {which} {shape}: us per step "
+                      + ", ".join(f"{r[shape]['us']:.2f}" for r in rows)
+                      + "; " + ", ".join(
+                          f"{k} {rows[0][shape][k]}" for k in (
+                              "registers", "spill_bytes", "blocks_per_sm",
+                              "waves", "per_chain_step",
+                              "static_per_chain_step", "mufu_per_leapfrog",
+                              "fchk_per_leapfrog", "lds_per_leapfrog")))
+    print(card)
+    if any(len(ds) > 1 for ds in digests.values()):
+        raise RuntimeError("K1's outputs differ between the trees")
+
+
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--stream":
         stream_main(Path(sys.argv[2]), tuple(int(a) for a in sys.argv[3:])
                     or STREAM_POINT_VARIANTS)
+    elif len(sys.argv) == 3 and sys.argv[1] == "--k1":
+        k1_main(Path(sys.argv[2]))
+    elif len(sys.argv) == 4 and sys.argv[1] == "--k1-child":
+        k1_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--kalman":
         kalman_main(Path(sys.argv[2]))
     elif len(sys.argv) == 4 and sys.argv[1] == "--kalman-child":

@@ -19,9 +19,9 @@ that follow the kernels' lane order.
   randomness: the serial layout's completed counts, its values within
   1e-5, and gen_tpu's ``nuts_fsm_paired``/``nuts_fsm`` the same way.
 - The kernel sources: the warp layout at d=102 (its defines, shuffles, the
-  split program); at d=10 the code of the one-thread layout, byte for byte
-  once comments are removed, and for a streamed likelihood the code of
-  the tiled stream layout.
+  split program); at d=10 the code of the one-thread layout, and for a
+  streamed likelihood the code of the tiled stream layout, byte for byte
+  once comments are removed (pinned hashes).
 - The ``cuda``-marked test holds both kernels to their plain versions at
   d=40 on a card.
 """
@@ -227,17 +227,18 @@ def _hash(text):
 
 
 # sha256 prefixes of the kernels' code (comments removed; the notes
-# changed): eight_schools d=10 at max_depth 8 as rendered before the
-# warp-per-chain layout existed (its code has not changed since; the
-# staged-code kernel's since its unused stream arguments went), and the
-# robust-t stream at n=4,096 and max_depth 6 in the tiled stream layout
+# changed): eight_schools d=10 at max_depth 8 in the one-thread layout, and
+# the robust-t stream at n=4,096 and max_depth 6 in the tiled stream
+# layout, as rendered with the staged code's division rule
+# (scalarize._div_rcp) and K1's step-size table; an edit of that
+# code must update them
 BEFORE = {
-    ("d10", "K3"): "4e05987a7c3bab0a", ("d10", "K6"): "1f3db0637740fe13",
-    ("d10", "K1"): "e4a06f73aad64e27", ("d10", "SE"): "65a3bf8f3cfce426",
-    ("robust", "K3"): "da3fe09f856fcfb7",
-    ("robust", "K6"): "f55d724b3368ff3f",
-    ("robust", "K1"): "5fd9f9e2fd250642",
-    ("robust", "SE"): "8e64b08816454f67",
+    ("d10", "K3"): "8e99df6426b840de", ("d10", "K6"): "a55f21a4b4735c71",
+    ("d10", "K1"): "eb79a35b79c667d7", ("d10", "SE"): "9c5df9775f2ca3e3",
+    ("robust", "K3"): "8766bcd838cef841",
+    ("robust", "K6"): "e0ae2532d4fc69d3",
+    ("robust", "K1"): "3b5fc9788ba8764d",
+    ("robust", "SE"): "4ead9d3d804cb36f",
 }
 
 

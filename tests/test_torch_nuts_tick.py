@@ -32,7 +32,7 @@ from gen_tpu.inference.target import FlatTarget as JFlatTarget  # noqa: E402
 from gen_tpu.ops.nuts_fused import (  # noqa: E402
     nuts_chains_fused_chunked as j_chunked)
 from gen_tpu_torch.inference import FlatTarget  # noqa: E402
-from gen_tpu_torch.ops import nuts_fused  # noqa: E402
+from gen_tpu_torch.ops import _cuda_build, nuts_fused  # noqa: E402
 from gen_tpu_torch.ops.hmc_fused import stage  # noqa: E402
 from gen_tpu_torch.ops.nuts_fused import (  # noqa: E402
     extract_completed_draws, nuts_chains_fused, nuts_chains_fused_chunked,
@@ -242,11 +242,12 @@ def test_k6_cuda_source_renders():
     assert "#define NUTS_D 4" in src and "#define NUTS_MD 6" in src
     assert 'extern "C" int nuts_tick_launch(' in src
     assert "philox4x32_10" in src and "uturn_block" in src
-    # the shared helpers (the lines of this model's layout) are spliced into
-    # both kernels' sources, so an edit of the header changes both build
-    # hashes
-    common = nuts_fused.keep_layout(
-        (nuts_fused._CSRC_DIR / "nuts_common.cuh").read_text(), "thread")
+    # the shared helpers (the lines of this model's layout, with the Philox
+    # header spliced in) are spliced into both kernels' sources, so an edit
+    # of either header changes both build hashes
+    common = nuts_fused.keep_layout(_cuda_build.csrc_text(
+        nuts_fused._CSRC_DIR / "nuts_common.cuh"), "thread")
+    assert (nuts_fused._CSRC_DIR / "philox.cuh").read_text() in common
     assert common in src
     assert common in nuts_fused.kernel_source(staged, 6, paired=True)
 
