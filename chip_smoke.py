@@ -9,14 +9,18 @@ nonzero and no result line is printed):
 
 1. Environment and build: card name and power limit, torch/CUDA/nvcc
    versions; the staging of every model and the build of every kernel
-   variant from ``gen_tpu_torch/ops/csrc`` (nine K1, fourteen K3, nine
+   variant from ``gen_tpu_torch/ops/csrc`` (nine K1, fifteen K3, ten
    K6, seven staged-code kernels, K4 in float32 and float64, K5, and the
    division sweep of phase 1b; one ``nvcc`` per source, all at once),
    with registers, spills and stack from
    ptxas. K3 and K6 above 32 coordinates (the 100-school model, the d=33
    and d=40 Gaussians, the mixed regression's extended logp) run one warp
    per chain; for those the split program's largest per-lane instruction
-   count, hubs and classes are printed beside the serial count.
+   count, hubs and classes are printed beside the serial count. K3's and
+   K6's census on eight_schools d=10 (``nuts_census``): registers, spills,
+   shared bytes a block, blocks and warps an SM (the runtime's occupancy
+   calculator), waves at 131,072 chains, SASS counts of local and shared
+   loads and stores and MUFU.
 1b. The division rule of the staged code (``_div_rcp``): all 2^32
    float32 numerators of every residual constant that a staged model
    divides by through a staged reciprocal, and of edge and random
@@ -29,17 +33,18 @@ nonzero and no result line is printed):
      131,072 chains. Accept counts equal, values and histories bit for
      bit.
    - K3 (pair-scheduled NUTS) and K6 (one leapfrog per tick), each on
-     seven configurations at the same leapfrog slots: eight_schools d=10
+     nine configurations at the same leapfrog slots: eight_schools d=10
      at 8,192 chains (all coordinates) and at 131,072 chains, the
      100-school model (d=102, one warp per chain) at 32,768 chains, a 4-d
      Gaussian (8,000 chains, a ragged last block) at eps 0.9 with
      divergence threshold 4 (the divergence paths), the same Gaussian
-     with one frozen coordinate, which must never move, and in the
+     with one frozen coordinate, which must never move, a d=32 Gaussian
+     coupling coordinates 0 and 31 (5,000 chains; all coordinates and
+     coordinate 31 collected), and in the
      warp-per-chain layout a d=33 Gaussian (lane 8 owns one coordinate)
      coupling coordinates 0 and 32 across lanes, and a d=40 one whose
      coordinate 7 is frozen (8,000 chains each). Completed and history
-     counts equal, values, histories and stats within 1e-5; each line
-     says whether the comparison was bit for bit.
+     counts equal, values, histories and stats bit for bit.
    - K5 (batched categorical) against its plain version with injected
      uniforms (with exact zeros, a row of ties and a NaN row): index
      equality at (300, 37), decode's (432, 27) and (4,672, 27), (16,384,
@@ -418,6 +423,57 @@ def k1_waves(census, n_chains):
     return waves, waves / math.ceil(waves)
 
 
+def nuts_census(job, n_chains):
+    """K3's or K6's library built from ``job``: for each instantiation
+    with Philox draws (one coordinate collected, all collected) the
+    registers, spill bytes and stack (ptxas), the SASS count of local
+    (LDL/STL) and shared (LDS/STS) loads and stores and of MUFU, the
+    block, the shared bytes a block (static, and the "thread" layout's
+    dynamic columns), the blocks and warps an SM (the runtime's occupancy
+    calculator where the library reports it, else
+    :func:`resident_blocks`) and the waves of ``n_chains`` chains."""
+    from gen_tpu_torch.ops import _cuda_build
+    name, src = job[0], job[1]
+
+    def define(key, default=0):
+        m = re.search(rf"#define {key} (\d+)", src)
+        return int(m.group(1)) if m else default
+
+    block, d = define("NUTS_BLOCK"), define("NUTS_D")
+    static = 4 * (define("NUTS_R") + 2 * d)
+    words = define("NUTS_COLD_WORDS", None)
+    fns = ptxas_functions(_cuda_build.ptxas_report(name, src) or "")
+    sass = sass_functions(job)
+    lib = _cuda_build.build(*job)
+    out = {}
+    for all_ in (False, True):
+        fn = next(f for f in fns if f"{name}_kernelILb0ELb{int(all_)}E" in f)
+        ops = sass_classes(sass[fn])[1]
+        dyn = 0 if words is None else 4 * block * words
+        occ = getattr(lib, f"{name}_occupancy", None) if words else None
+        blocks = (occ(int(all_)) if occ is not None
+                  else resident_blocks(fns[fn]["registers"], block))
+        if blocks <= 0:
+            raise RuntimeError(f"{name}: occupancy query failed ({blocks})")
+        out["all" if all_ else "one"] = dict(
+            fns[fn], block=block, shared_bytes=static + dyn,
+            blocks_per_sm=blocks, warps_per_sm=blocks * block // 32,
+            waves=n_chains / (SM_COUNT * blocks * block),
+            **{k: ops.get(k, 0) for k in ("LDL", "STL", "LDS", "STS",
+                                          "MUFU")})
+    return out
+
+
+def census_line(c):
+    """One instantiation's :func:`nuts_census` as a line."""
+    return (f"{c['registers']} registers, {c['spill_bytes']} B spills, "
+            f"{c['stack_bytes']} B stack; block {c['block']}, "
+            f"{c['shared_bytes']} B shared a block, {c['blocks_per_sm']} "
+            f"blocks ({c['warps_per_sm']} warps) an SM, {c['waves']:.2f} "
+            f"waves; SASS LDL {c['LDL']}, STL {c['STL']}, LDS {c['LDS']}, "
+            f"STS {c['STS']}, MUFU {c['MUFU']}")
+
+
 def k3_ops(n_instr, d, pairs, n, completed, divergent):
     """Operations of one fused NUTS call that this run's data needs (a lower
     bound, conventions as :func:`k1_ops`): per computed leapfrog the staged
@@ -620,6 +676,7 @@ def compare_nuts(torch, nf, logp, values0, steps, eps, max_depth,
     for s in sk:
         check(torch.allclose(sk[s].float(), sp[s].float(), rtol=NUTS_TOL,
                              atol=NUTS_TOL), f"{label}: stats {s} differ")
+    check(bitwise, f"{label}: {kname} is not bit for bit its plain version")
     return out_k, max(errs)
 
 
@@ -867,7 +924,7 @@ def nuts_kernel_path(torch, run, paired, k_err):
 
     hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
     nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
-    nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0,
+    nf.nuts_chains_fused.layout_launches.update(thread=0, wide=0, warp=0,
                                                   stream=0)
     layout = nf.kernel_layout(staged)
     (values, hist, _, _, _), first_s = timed(
@@ -1080,8 +1137,8 @@ def phase_sample(torch, tt, dev, tag, s8, s100):
             random.split(k_init, chains)))
         hmc_chains_fused.launches = nf.nuts_chains_fused.launches = 0
         nf.nuts_chains_fused.kernel_launches.update(nuts_pair=0, nuts_tick=0)
-        nf.nuts_chains_fused.layout_launches.update(thread=0, warp=0,
-                                                  stream=0)
+        nf.nuts_chains_fused.layout_launches.update(thread=0, wide=0,
+                                                  warp=0, stream=0)
         clock = PhaseClock(torch, [
             ("gen_tpu_torch.inference.chees", "chees_warmup_flat"),
             ("gen_tpu_torch.inference.nuts_fsm", "nuts_fsm"),
@@ -1126,7 +1183,8 @@ def phase_sample(torch, tt, dev, tag, s8, s100):
             check(launches[kernel] >= 1,
                   f"{engine}: the path did not launch {kernel}")
         if d > 32 and kernel in ("nuts_pair", "nuts_tick"):
-            check(layouts["warp"] >= 1 and layouts["thread"] == 0,
+            check(layouts["warp"] >= 1 and layouts["thread"] == 0
+                  and layouts["wide"] == 0,
                   f"{engine} at d={d}: K3/K6 did not run one warp per chain")
         check(n_draws >= 2 and all(bool(torch.isfinite(v).all())
                                    for v in out.samples.values()),
@@ -2658,6 +2716,13 @@ def phase_build(torch, tt, dev, tag):
                     - 0.3 * x[0] * x[d_ - 1])
         return logp
     wide_logps = {d_: wide_logp(d_) for d_ in WARP_DS}
+    # the one-thread layouts' top: d=32, whose couplings span it
+    g32_sds = torch.tensor(np.random.default_rng(32).uniform(
+        0.5, 2.0, 32).astype(np.float32), device=dev)
+
+    def gauss32_logp(x):
+        return (-0.5 * torch.sum((x / g32_sds) ** 2) - 0.3 * x[0] * x[31]
+                - 0.1 * x[1] * x[2])
 
     s8 = (schools_setup(torch, tt, YS_8, SIGMAS_8, dev), YS_8, SIGMAS_8)
     ys100, sig100 = make_schools(100, seed=0)
@@ -2674,6 +2739,7 @@ def phase_build(torch, tt, dev, tag):
         hmc_fused.stage(school_targets["d102"].logp, 102, dev),
         hmc_fused.stage(gauss4_logp, 4, dev)))
     st_w = {d_: hmc_fused.stage(wide_logps[d_], d_, dev) for d_ in WARP_DS}
+    st_g32 = hmc_fused.stage(gauss32_logp, 32, dev)
     mixed = mixed_setup(torch, tt, dev)
     t_stage = time.perf_counter()
     mixed_builds = mixed_jobs(torch, tt, dev, mixed)
@@ -2689,7 +2755,8 @@ def phase_build(torch, tt, dev, tag):
         builds += [
             (f"{k} eight_schools d=10", st_10, nf.build_job(st_10, 8, paired)),
             (f"{k} schools d=102", st_102, nf.build_job(st_102, 8, paired)),
-            (f"{k} gaussian d=4", st_g4, nf.build_job(st_g4, 5, paired))]
+            (f"{k} gaussian d=4", st_g4, nf.build_job(st_g4, 5, paired)),
+            (f"{k} gaussian d=32", st_g32, nf.build_job(st_g32, 6, paired))]
         builds += [(f"{k} gaussian d={d_}", st_w[d_],
                     nf.build_job(st_w[d_], 6, paired)) for d_ in WARP_DS]
     staged_all = list({id(st): st for _, st, _ in builds
@@ -2714,18 +2781,26 @@ def phase_build(torch, tt, dev, tag):
         print(f"{name}: {staged}nvcc {secs:.2f} s; " + " | ".join(regs))
     print(f"{tag} staging {stage_s:.3f} s, parallel nvcc build of "
           f"{len(builds)} sources {build_s:.2f} s")
+    # K3 and K6 on metric 2's model (eight_schools d=10, 131,072 chains)
+    census = {}
+    for paired, k in ((True, "K3"), (False, "K6")):
+        census[k] = nuts_census(nf.build_job(st_10, 8, paired), 131072)
+        for which, c in census[k].items():
+            print(f"{tag} {k} eight_schools d=10 ({nf.kernel_layout(st_10)} "
+                  f"layout, collect {which}): {census_line(c)}")
     return dict(k1=(model, X, obs, sel, xs, ys, target, gauss_logp, sds),
                 s8=s8, s100=s100, school_targets=school_targets,
                 gauss4_logp=gauss4_logp, gsds=gsds, st_10=st_10,
+                gauss32_logp=gauss32_logp, g32_sds=g32_sds, census=census,
                 wide_logps=wide_logps, wsds=wsds,
                 st_102=st_102, stage_s=stage_s, build_s=build_s,
                 mixed=mixed, k2=k2, staged_all=staged_all)
 
 
 def phase_compare(torch, ctx, dev, paired):
-    """Phase 2: K3 (``paired``) or K6 against its plain version on the five
+    """Phase 2: K3 (``paired``) or K6 against its plain version on the nine
     injected configurations, at the same leapfrog slots (a K3 pair is two
-    K6 ticks). Returns the largest difference."""
+    K6 ticks), bit for bit. Returns the largest difference."""
     from gen_tpu_torch import random
     from gen_tpu_torch.ops import nuts_fused as nf
 
@@ -2765,6 +2840,15 @@ def phase_compare(torch, ctx, dev, paired):
     check(not torch.equal(vk[:, 0], g4[:, 0]),
           f"{k}: free coordinate never moved")
     print(f"{k} frozen coordinate: unchanged in every chain and step")
+    # the one-thread layouts' top, d=32 (a ragged last block), both ways of
+    # collecting
+    g32 = torch.randn(5000, 32, device=dev) * ctx["g32_sds"]
+    for cidx, seed in ((None, 32), (31, 33)):
+        errs.append(compare_nuts(
+            torch, nf, ctx["gauss32_logp"], g32, 30 * per, 0.4, 6, cidx,
+            ctx["g32_sds"] ** 2, 1000.0, seed,
+            f"gaussian d=32 collect={'all' if cidx is None else cidx}",
+            paired)[1])
     # the warp-per-chain layout: d=33 with a coupling across lanes, d=40
     # with coordinate 7 frozen (a ragged last block of chains in both)
     for d_ in WARP_DS:
@@ -2819,6 +2903,11 @@ def main():
     errs = {True: k3_err, False: k6_err}
     k3_10, k6_10 = phase_nuts_path(torch, tt, dev, "eight_schools d=10",
                                    ctx["s8"], 131072, tag, errs, ctx["st_10"])
+    for entry, k in ((k3_10, "K3"), (k6_10, "K6")):
+        c = ctx["census"][k]["one"]         # the path collects coordinate 0
+        entry.update({key: c[key] for key in (
+            "registers", "spill_bytes", "shared_bytes", "warps_per_sm",
+            "waves")})
     k3_102, k6_102 = phase_nuts_path(torch, tt, dev, "schools d=102",
                                      ctx["s100"], 32768, tag, errs,
                                      ctx["st_102"])

@@ -14,14 +14,17 @@
 // define NUTS_D, NUTS_UNROLL, NUTS_VAG_INLINE and staged_vag first; the
 // helpers that need them exist only where NUTS_D is defined.
 //
-// The NUTS kernels have two layouts, and ops/nuts_fused.py keeps the lines
-// of one: those between a "LAYOUT thread" marker line and the next "LAYOUT
-// end" (one thread per chain: d <= 32, or a streamed likelihood) or those
-// between "LAYOUT warp" and "LAYOUT end" (one warp per chain, 32 < d <=
-// 128: lane l owns coordinates 4l .. 4l+3, in registers, and every sum over
-// coordinates is the lanes' partial sums, each in coordinate order, then a
-// fixed butterfly of shuffles). K5 splices the whole file; neither layout's
-// helpers exist there (it defines neither NUTS_D nor NUTS_CPL).
+// The NUTS kernels have four layouts (ops/nuts_fused.py::kernel_layout),
+// and ops/nuts_fused.py keeps the lines of one: those after a "LAYOUT"
+// marker line that names it, up to the next marker. One thread per chain
+// ("thread": d <= THREAD_MAX_D, the cold state in a column of shared
+// memory; "wide": the chain's whole state in per-thread arrays, d > 128 and
+// the rest; "stream": a streamed likelihood), or one warp per chain
+// ("warp", 32 < d <= 128: lane l owns coordinates 4l .. 4l+3, in
+// registers, and every sum over coordinates is the lanes' partial sums,
+// each in coordinate order, then a fixed butterfly of shuffles). K5
+// splices the whole file; no layout's helpers exist there (it defines
+// neither NUTS_D nor NUTS_CPL).
 
 namespace {
 
@@ -29,7 +32,7 @@ namespace {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// @@LAYOUT thread stream@@
+// @@LAYOUT thread wide stream@@
 #ifdef NUTS_D
 __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
                                     float& lp, float* g,
@@ -39,7 +42,7 @@ __device__ NUTS_VAG_INLINE void vag(const float* x, const float* r,
 #endif
 // @@LAYOUT end@@
 
-// @@LAYOUT thread stream@@
+// @@LAYOUT thread wide stream@@
 #ifdef NUTS_D
 // NUTS_D standard normals from Philox counters (i, step, tag0 + c, 0),
 // c = 0..ceil(NUTS_D / 4) - 1
@@ -86,7 +89,7 @@ __device__ __forceinline__ float unpack_lo(uint32_t p) {
   return __uint_as_float(p << 16);
 }
 
-// @@LAYOUT thread stream@@
+// @@LAYOUT thread wide stream@@
 #ifdef NUTS_D
 // sum_j (inv_j a_j) b_j, j = 0..D-1 in order
 __device__ __forceinline__ float dot_im(const float* inv, const float* a,
@@ -126,6 +129,100 @@ __device__ __forceinline__ bool uturn_block(const float* inv, const float* rs,
 __device__ __forceinline__ void copy(float* dst, const float* src) {
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) dst[k] = src[k];
+}
+#endif  // NUTS_D
+// @@LAYOUT end@@
+
+// @@LAYOUT thread@@
+#ifdef NUTS_D
+// The "thread" layout keeps a chain's cold state in its thread's column of
+// the block's dynamic shared memory: word w of thread t at w * NUTS_BLOCK +
+// t, so a warp's 32 threads read 32 consecutive words (no bank conflict)
+// and a thread's words sit at constant offsets from its column's start.
+// The words: the far end of the trajectory (position, momentum, gradient),
+// the tree's candidate (position, gradient), the subtree's candidate, their
+// two log densities, and the checkpoint levels 2 .. NUTS_MD - 1.
+constexpr int kFarT = 0, kFarR = NUTS_D, kFarG = 2 * NUTS_D;
+constexpr int kCT = 3 * NUTS_D, kCG = 4 * NUTS_D, kCS = 5 * NUTS_D,
+              kCSG = 6 * NUTS_D, kCLP = 7 * NUTS_D, kCSLP = 7 * NUTS_D + 1;
+constexpr int kCK = 7 * NUTS_D + 2;   // level l at kCK + (l - 2) NUTS_D
+static_assert(kCK + (NUTS_LEVELS - 1) * NUTS_D == NUTS_COLD_WORDS,
+              "nuts_fused.cold_words disagrees");
+
+// zero, which the compiler cannot see through: the block's constants
+// (residuals, inverse mass, momentum scale) read at an offset of it are
+// loaded from shared memory where a slot uses them, not hoisted out of the
+// chain's loop into registers, where they would crowd out its state
+__device__ __forceinline__ int opaque_zero() {
+  int z = 0;
+  asm volatile("" : "+r"(z));
+  return z;
+}
+
+__device__ __forceinline__ float& word(float* col, int w) {
+  return col[w * NUTS_BLOCK];
+}
+
+__device__ __forceinline__ void col_load(float* dst, float* col, int w) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) dst[k] = word(col, w + k);
+}
+
+__device__ __forceinline__ void col_store(float* col, int w,
+                                          const float* src) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) word(col, w + k) = src[k];
+}
+
+__device__ __forceinline__ void col_copy(float* col, int dst, int src) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) word(col, dst + k) = word(col, src + k);
+}
+
+// checkpoints keep their packed bits (a move, no float operation)
+__device__ __forceinline__ void ck_load(uint32_t* dst, float* col, int w) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) dst[k] = __float_as_uint(word(col, w + k));
+}
+
+__device__ __forceinline__ void ck_store(float* col, int w,
+                                         const uint32_t* src) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) word(col, w + k) = __uint_as_float(src[k]);
+}
+
+// the multinomial take of the subtree's candidate into the tree
+__device__ __forceinline__ void take_subtree(float* col) {
+  col_copy(col, kCT, kCS);
+  word(col, kCLP) = word(col, kCSLP);
+  col_copy(col, kCG, kCSG);
+}
+
+// the trajectory's U-turn test: the near end is the integration point's
+// momentum rn (the old layouts' uturn(inv, rho, lr, rr), whose two tests
+// are the same whichever side is which)
+__device__ __forceinline__ bool uturn_far(const float* inv, const float* rho,
+                                          float* col, const float* rn) {
+  float fr[NUTS_D];
+  col_load(fr, col, kFarR);
+  return uturn(inv, rho, fr, rn);
+}
+
+// a subtree that turns back: the far end becomes the integration point,
+// and the end just reached (t, r, g) becomes the far end
+__device__ __forceinline__ void swap_far(float* col, float* t, float* r,
+                                         float* g) {
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) {
+    const float a = word(col, kFarT + k), b = word(col, kFarR + k),
+                c = word(col, kFarG + k);
+    word(col, kFarT + k) = t[k];
+    word(col, kFarR + k) = r[k];
+    word(col, kFarG + k) = g[k];
+    t[k] = a;
+    r[k] = b;
+    g[k] = c;
+  }
 }
 #endif  // NUTS_D
 // @@LAYOUT end@@

@@ -14,18 +14,21 @@
 // per-trajectory NUTS as K3 (nuts_pair.cu) on a different schedule.
 //
 // The design is Hopper's, not the TPU's, and K3's. ops/nuts_fused.py
-// keeps one of three layouts of the kernel (the lines after a "LAYOUT"
+// keeps one of four layouts of the kernel (the lines after a "LAYOUT"
 // marker that names it, up to the next marker; kernel_layout picks), as
 // for K3:
 //
-// - One thread per chain (d <= 32, a streamed likelihood, or d > 128):
-//   layout (d, n) with chains contiguous, so every history row and state
-//   read coalesces across a warp. The chain's state is per-thread arrays:
-//   16 d-vectors (current sample, left/right ends, tree momentum sum,
+// - One thread per chain, cold state in shared memory ("thread", d <= 32):
+//   layout (d, n) with chains contiguous. Registers hold what a leapfrog
+//   touches; the far end of the trajectory, both candidates and checkpoint
+//   levels >= 2 sit in the thread's column of dynamic shared memory
+//   (nuts_common.cuh); the near end is the integration point.
+// - One thread per chain, whole state in per-thread arrays ("wide": d >
+//   128, scan models above 32; "stream": a streamed likelihood): 16
+//   d-vectors (current sample, left/right ends, tree momentum sum,
 //   candidate, integration point, subtree momentum sum, subtree
 //   candidate, plus the momentum scratch z) and max_depth-1 packed
-//   checkpoint vectors. nvcc keeps in registers what fits under the
-//   255-register cap; above d=32 the arrays are indexed dynamically and
+//   checkpoint vectors; above d=32 the arrays are indexed dynamically and
 //   live in local memory.
 // - One warp per chain (32 < d <= 128, no stream): lane l owns coordinates
 //   4l..4l+3 of every d-vector, in registers; sums over coordinates are
@@ -77,7 +80,7 @@
 
 // @@STAGED_VAG@@
 
-// @@LAYOUT thread stream@@
+// @@LAYOUT thread wide stream@@
 #if NUTS_D <= 32
 #define NUTS_UNROLL _Pragma("unroll")
 #define NUTS_VAG_INLINE __forceinline__
@@ -91,16 +94,16 @@
 
 // @@NUTS_COMMON@@
 
-// @@LAYOUT thread stream@@
+// @@LAYOUT wide stream@@
 namespace {
 
 template <bool INJECTED, bool COLLECT_ALL>
-// @@LAYOUT thread@@
+// @@LAYOUT wide@@
 __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
 // @@LAYOUT stream@@
 __global__ void __launch_bounds__(NUTS_BLOCK, NUTS_MIN_BLOCKS)
 nuts_tick_kernel(
-// @@LAYOUT thread stream@@
+// @@LAYOUT wide stream@@
     const float* __restrict__ v0,        // (D, n)
     float* __restrict__ vout,            // (D, n)
     float* __restrict__ hist,            // (T, n) or (T, D, n)
@@ -301,6 +304,246 @@ nuts_tick_kernel(
   }
   NUTS_UNROLL
   for (int k = 0; k < NUTS_D; ++k) vout[k * N + i] = cur[k];
+  cnt_out[i] = count;
+  stats[i] = acc_sum;
+  stats[N + i] = depth_sum;
+  stats[2 * N + i] = (float)div;
+  stats[3 * N + i] = asum;
+  stats[4 * N + i] = (float)nlf;
+}
+
+}  // namespace
+// @@LAYOUT end@@
+// @@LAYOUT thread@@
+namespace {
+
+// One thread per chain at d <= THREAD_MAX_D, as K3's "thread" layout
+// (nuts_pair.cu): registers hold what a leapfrog touches (the integration
+// point ptv/pr/pg, on which the leapfrog runs in place, the momentum sums
+// rs and rho, checkpoint level 1); the thread's column of shared memory
+// (nuts_common.cuh) holds the far end of the trajectory, both candidates
+// with their log densities and checkpoint levels >= 2. The near end is the
+// integration point; a subtree that turns back exchanges it with the far
+// end (swap_far). The current sample lives in vout (its collected
+// coordinate in cur_c). Every value is computed as in the "wide" layout.
+template <bool INJECTED, bool COLLECT_ALL>
+__global__ void __launch_bounds__(NUTS_BLOCK, NUTS_MIN_BLOCKS)
+nuts_tick_kernel(
+    const float* __restrict__ v0,        // (D, n)
+    float* __restrict__ vout,            // (D, n)
+    float* __restrict__ hist,            // (T, n) or (T, D, n)
+    int* __restrict__ hist_cnt,          // (T, n)
+    int* __restrict__ cnt_out,           // (n,)
+    float* __restrict__ stats,           // (5, n)
+    const float* __restrict__ res,       // (R,)
+    const float* __restrict__ inv_mass,  // (D,)
+    const float* __restrict__ mom_scale, // (D,) sqrt_mass_safe(inv_mass)
+    const float* __restrict__ sd,        // unused (no stream table)
+    int n_pts, int n, int num_ticks, float eps, float div_threshold, int collect_idx,
+    uint32_t seed0, uint32_t seed1,
+    const float* __restrict__ inj_z,     // (T, D, n)
+    const float* __restrict__ inj_u) {   // (T, 4, n)
+  extern __shared__ float nuts_cold[];
+  __shared__ float r_s[NUTS_R];
+  __shared__ float inv_s[NUTS_D];
+  __shared__ float msc_s[NUTS_D];
+  for (int k = threadIdx.x; k < NUTS_R; k += blockDim.x) r_s[k] = res[k];
+  for (int k = threadIdx.x; k < NUTS_D; k += blockDim.x) {
+    inv_s[k] = inv_mass[k];
+    msc_s[k] = mom_scale[k];
+  }
+  __syncthreads();
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x)
+                      / NUTS_LANES);
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  const uint2 key = make_uint2(seed0, seed1);
+  float* const col = nuts_cold + threadIdx.x;
+
+  // ptv/pr/pg: the integration point; after the tick's leapfrog it holds
+  // the new position, momentum and gradient
+  float ptv[NUTS_D], pr[NUTS_D], pg[NUTS_D], rho[NUTS_D], rs[NUTS_D],
+      z[NUTS_D];
+  uint32_t ck1[NUTS_D];
+
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) ptv[k] = v0[k * N + i];
+  float lp;
+  vag(ptv, r_s, lp, pg, sd, n_pts);
+  float cur_c = ptv[0];
+  NUTS_UNROLL
+  for (int k = 0; k < NUTS_D; ++k) {
+    vout[k * N + i] = ptv[k];
+    if (k == collect_idx) cur_c = ptv[k];
+    pr[k] = rho[k] = rs[k] = 0.0f;
+    ck1[k] = 0u;
+  }
+  col_store(col, kFarT, ptv);
+  col_store(col, kFarR, pr);
+  col_store(col, kFarG, pg);
+  col_store(col, kCT, ptv);
+  col_store(col, kCG, pg);
+  col_store(col, kCS, ptv);
+  col_store(col, kCSG, pg);
+  word(col, kCLP) = word(col, kCSLP) = lp;
+#pragma unroll
+  for (int l = 2; l < NUTS_MD; ++l) ck_store(col, kCK + (l - 2) * NUTS_D, ck1);
+  int count = 0, depth = 0, nlf = 0, sn = 0, nl = 1, div = 0;
+  float energy0 = 0.0f, lwt = 0.0f, asum = 0.0f, de = eps;
+  float lws = neg_inf(), acc_sum = 0.0f, depth_sum = 0.0f;
+  bool fresh = true;
+  const float thr = -div_threshold;
+
+  for (int t = 0; t < num_ticks; ++t) {
+    int o = opaque_zero();
+    const float* r = r_s + o;
+    const float* inv = inv_s + o;
+    const float* msc = msc_s + o;
+    float u[4];
+    if (INJECTED) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) u[j] = inj_u[((size_t)t * 4 + j) * N + i];
+    } else {
+      const uint4 b = philox4x32_10(make_uint4(i, t, 0u, 0u), key);
+      u[0] = u01(b.x); u[1] = u01(b.y); u[2] = u01(b.z); u[3] = u01(b.w);
+    }
+    const float u_take = fmaxf(u[1], kTiny), u_bias = fmaxf(u[2], kTiny);
+
+    // -- trajectory init: momentum refresh at the current sample ----------
+    if (fresh) {
+      if (INJECTED) {
+        NUTS_UNROLL
+        for (int k = 0; k < NUTS_D; ++k)
+          z[k] = inj_z[((size_t)t * NUTS_D + k) * N + i];
+      } else {
+        philox_normals(z, i, t, 1u, key);
+      }
+      col_load(ptv, col, kCT);
+      col_load(pg, col, kCG);
+      NUTS_UNROLL
+      for (int k = 0; k < NUTS_D; ++k) {
+        const float r0 = msc[k] * z[k];
+        rho[k] = pr[k] = r0;
+        rs[k] = 0.0f;
+      }
+      col_store(col, kFarT, ptv);
+      col_store(col, kFarR, pr);
+      col_store(col, kFarG, pg);
+      energy0 = word(col, kCLP) - kinetic(inv, pr);
+      lwt = 0.0f;
+      depth = 0;
+      asum = 0.0f;
+      nlf = 0;
+      de = u[0] < 0.5f ? eps : -eps;
+      sn = 0;
+      nl = 1;
+      lws = neg_inf();
+    }
+
+    // -- ONE leapfrog, in place on the integration point -----------------
+    const float half = 0.5f * de;
+    NUTS_UNROLL
+    for (int k = 0; k < NUTS_D; ++k) {
+      pr[k] = pr[k] + half * pg[k];
+      ptv[k] = ptv[k] + de * (inv[k] * pr[k]);
+    }
+    vag(ptv, r, lp, pg, sd, n_pts);
+    NUTS_UNROLL
+    for (int k = 0; k < NUTS_D; ++k) pr[k] = pr[k] + half * pg[k];
+    // checkpoint writes at every level whose block starts here; rs is
+    // still the pre-leapfrog subtree momentum sum
+    {
+      uint32_t pk[NUTS_D];
+      NUTS_UNROLL
+      for (int k = 0; k < NUTS_D; ++k) pk[k] = pack2(pr[k], rs[k]);
+      if ((sn & 1) == 0) {
+        NUTS_UNROLL
+        for (int k = 0; k < NUTS_D; ++k) ck1[k] = pk[k];
+      }
+#pragma unroll
+      for (int l = 2; l < NUTS_MD; ++l)
+        if ((sn & ((1 << l) - 1)) == 0) ck_store(col, kCK + (l - 2) * NUTS_D, pk);
+    }
+    float delta = (lp - kinetic(inv, pr)) - energy0;
+    if (isnan(delta)) delta = neg_inf();
+    const bool dv = delta < thr;
+    asum = asum + fminf(expf(delta), 1.0f);
+    nlf += 1;
+    // progressive multinomial candidate within the subtree
+    lws = logaddexp(lws, delta);
+    if (logf(u_take) < delta - lws) {
+      col_store(col, kCS, ptv);
+      word(col, kCSLP) = lp;
+      col_store(col, kCSG, pg);
+    }
+    NUTS_UNROLL
+    for (int k = 0; k < NUTS_D; ++k) rs[k] = rs[k] + pr[k];
+    // block-end U-turn tests at every level whose block ends here, each
+    // while none before it has turned (the wide layout's ||)
+    bool turning_sub = false;
+#pragma unroll
+    for (int l = 1; l < NUTS_MD; ++l) {
+      if (((sn + 1) & ((1 << l) - 1)) != 0 || turning_sub) continue;
+      if (l == 1) {
+        turning_sub = uturn_block(inv, rs, ck1, pr);
+      } else {
+        uint32_t ck[NUTS_D];
+        ck_load(ck, col, kCK + (l - 2) * NUTS_D);
+        turning_sub = uturn_block(inv, rs, ck, pr);
+      }
+    }
+    const bool sub_done = sn + 1 >= nl || turning_sub || dv;
+
+    // -- subtree merge into the tree: its end is the integration point ---
+    bool traj_done = false;
+    if (sub_done) {
+      const bool ok = !turning_sub && !dv;
+      if (ok && logf(u_bias) < lws - lwt) take_subtree(col);
+      if (ok) {
+        lwt = logaddexp(lwt, lws);
+        NUTS_UNROLL
+        for (int k = 0; k < NUTS_D; ++k) rho[k] = rho[k] + rs[k];
+      }
+      traj_done = turning_sub || dv || (ok && uturn_far(inv, rho, col, pr))
+          || depth + 1 >= NUTS_MD;
+    }
+    // -- next subtree: continue from the end it extends ------------------
+    if (sub_done && !traj_done) {
+      depth += 1;
+      const bool right = de > 0.0f;
+      de = u[3] < 0.5f ? eps : -eps;
+      if ((de > 0.0f) != right) swap_far(col, ptv, pr, pg);
+      nl = 1 << depth;
+      NUTS_UNROLL
+      for (int k = 0; k < NUTS_D; ++k) rs[k] = 0.0f;
+      lws = neg_inf();
+    }
+    sn = sub_done ? 0 : sn + 1;
+    // -- trajectory finish: emit the sample, refresh on the next tick ----
+    if (traj_done) {
+      NUTS_UNROLL
+      for (int k = 0; k < NUTS_D; ++k) {
+        const float c = word(col, kCT + k);
+        vout[k * N + i] = c;
+        if (k == collect_idx) cur_c = c;
+      }
+      count += 1;
+      acc_sum = acc_sum + asum / (float)max(nlf, 1);
+      depth_sum = depth_sum + ((float)depth + 1.0f);
+      if (dv) div += 1;
+    }
+    fresh = traj_done;
+
+    if (COLLECT_ALL) {
+      // the current sample, which this thread last wrote to vout
+      NUTS_UNROLL
+      for (int k = 0; k < NUTS_D; ++k)
+        hist[((size_t)t * NUTS_D + k) * N + i] = vout[k * N + i];
+    } else {
+      hist[(size_t)t * N + i] = cur_c;
+    }
+    hist_cnt[(size_t)t * N + i] = count;
+  }
   cnt_out[i] = count;
   stats[i] = acc_sum;
   stats[N + i] = depth_sum;
@@ -536,6 +779,7 @@ __global__ void __launch_bounds__(NUTS_BLOCK) nuts_tick_kernel(
 }  // namespace
 // @@LAYOUT end@@
 
+// @@LAYOUT wide stream warp@@
 // Launches on the caller's stream and returns cudaGetLastError(): a launch
 // that is refused never runs, and a later synchronize would not report it.
 extern "C" int nuts_tick_launch(
@@ -565,3 +809,76 @@ extern "C" int nuts_tick_launch(
 #undef NUTS_ARGS
   return static_cast<int>(cudaGetLastError());
 }
+// @@LAYOUT end@@
+// @@LAYOUT thread@@
+// Launches on the caller's stream and returns the first CUDA error: a
+// launch that is refused never runs, and a later synchronize would not
+// report it. The block's dynamic shared memory is its threads' columns
+// (NUTS_COLD_WORDS words each), which above 48 KB the kernel must be
+// allowed first.
+template <bool INJECTED, bool COLLECT_ALL>
+int nuts_tick_start(dim3 grid, cudaStream_t st, int* blocks_per_sm,
+                  const float* v0, float* vout, float* hist, int* hist_cnt,
+                  int* cnt_out, float* stats, const float* res,
+                  const float* inv_mass, const float* mom_scale,
+                  const float* sd, int n_pts, int n, int num_ticks, float eps,
+                  float div_threshold, int collect_idx, unsigned int seed0,
+                  unsigned int seed1, const float* inj_z,
+                  const float* inj_u) {
+  const size_t smem = sizeof(float) * NUTS_BLOCK * NUTS_COLD_WORDS;
+  cudaError_t e = cudaFuncSetAttribute(
+      nuts_tick_kernel<INJECTED, COLLECT_ALL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks_per_sm != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, nuts_tick_kernel<INJECTED, COLLECT_ALL>, NUTS_BLOCK,
+        smem));
+  nuts_tick_kernel<INJECTED, COLLECT_ALL><<<grid, NUTS_BLOCK, smem, st>>>(
+      v0, vout, hist, hist_cnt, cnt_out, stats, res, inv_mass, mom_scale,
+      sd, n_pts, n, num_ticks, eps, div_threshold, collect_idx, seed0, seed1,
+      inj_z, inj_u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nuts_tick_launch(
+    const float* v0, float* vout, float* hist, int* hist_cnt, int* cnt_out,
+    float* stats, const float* res, const float* inv_mass,
+    const float* mom_scale, const float* sd, int n_pts, int n, int num_ticks,
+    float eps, float div_threshold, int collect_idx, unsigned int seed0,
+    unsigned int seed1, const float* inj_z, const float* inj_u,
+    void* stream) {
+  const dim3 grid((unsigned)(((size_t)n * NUTS_LANES + NUTS_BLOCK - 1)
+                             / NUTS_BLOCK));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool injected = inj_z != nullptr;
+  const bool all = collect_idx < 0;
+#define NUTS_ARGS grid, st, nullptr, v0, vout, hist, hist_cnt, cnt_out, \
+    stats, res, inv_mass, mom_scale, sd, n_pts, n, num_ticks, eps, \
+    div_threshold, collect_idx, seed0, seed1, inj_z, inj_u
+  if (injected && all) return nuts_tick_start<true, true>(NUTS_ARGS);
+  if (injected) return nuts_tick_start<true, false>(NUTS_ARGS);
+  if (all) return nuts_tick_start<false, true>(NUTS_ARGS);
+  return nuts_tick_start<false, false>(NUTS_ARGS);
+#undef NUTS_ARGS
+}
+
+// Blocks of the main instantiation (Philox draws; COLLECT_ALL or not) that
+// an SM holds at once, by the runtime's occupancy calculator, or a
+// negative CUDA error.
+extern "C" int nuts_tick_occupancy(int collect_all) {
+  int blocks = 0;
+  const int e = collect_all
+      ? nuts_tick_start<false, true>(dim3(1), nullptr, &blocks, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, 0, 0, 0, 0.0f, 0.0f, -1, 0u, 0u,
+                                   nullptr, nullptr)
+      : nuts_tick_start<false, false>(dim3(1), nullptr, &blocks, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, 0, 0, 0, 0.0f, 0.0f, 0, 0u, 0u,
+                                    nullptr, nullptr);
+  return e != 0 ? -e : blocks;
+}
+// @@LAYOUT end@@

@@ -28,12 +28,17 @@ Where PyTorch and Hopper forced differences:
   tiles (a launch fills the last block with copies of the last chain and
   drops them, since the loop's barriers need every warp); K3's hold one,
   as its slot 2 is conditional per chain.
-- Layouts (:func:`kernel_layout`): one thread per chain holds the
-  chain's state where it fits (d <= 32, streams, and for now d > 128);
+- Layouts (:func:`kernel_layout`): for d <= ``THREAD_MAX_D`` one thread
+  runs a chain with what a leapfrog touches in registers and the cold
+  state (the trajectory's far end, the candidates, checkpoint levels >= 2)
+  in a column of shared memory, one trajectory end kept instead of two, in
+  a launch shape chosen from the card's resources (:func:`thread_shape`);
   for 32 < d <= 128 a warp runs one chain, lane l holding coordinates
   ``4l .. 4l+3`` in registers, every sum over coordinates split into lane
   partials and a butterfly, the staged program split over the lanes
-  (:class:`~gen_tpu_torch.ops.scalarize.SplitProgram`). The plain version
+  (:class:`~gen_tpu_torch.ops.scalarize.SplitProgram`); the rest (d >
+  128, scan models above ``THREAD_MAX_D``) keep the whole state in
+  per-thread arrays (``"wide"``), as streams do. The plain version
   follows the layout's order of sums (``run_pairs``/``run_ticks``
   ``layout=``), so it stays the kernel's plain version at every d.
 - The plain versions are :func:`gen_tpu_torch.inference.nuts_fsm.run_ticks`
@@ -68,7 +73,18 @@ from .hmc_fused import stage
 from .scalarize import (LANES, WARP_CPL, StagedLogp, StreamLayout,
                         block_size, pad_chains)
 
-BLOCK = 128                    # threads (chains) per block; tuning is later
+BLOCK = 128                    # threads (chains) a block: wide, warp layouts
+# the "thread" layout: the largest d it takes (scan models too, whose tape
+# stays in local memory), the blocks it chooses among (the first of those
+# that hold the most threads an SM), and the registers a thread may use at
+# most, which set the blocks an SM asked of ptxas (PERF.md)
+THREAD_MAX_D = 32
+THREAD_BLOCKS = (64, 128, 32)
+THREAD_REGS = 168
+# an H100 SM (sm_90): registers, threads, blocks, shared memory, the most
+# shared memory a block may take, and the runtime's reserve a block
+SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+SM_SMEM, BLOCK_SMEM, BLOCK_SMEM_RESERVED = 228 * 1024, 227 * 1024, 1024
 # points a lane of K3's stream loop where a chain is one warp: at 8 its
 # 128 registers spilled 200 bytes; 4 ran 24% faster at 10^4 points and
 # 8,192 chains on the H100, 2 slower (PERF.md)
@@ -111,16 +127,53 @@ def extract_completed_draws(hist, hist_cnt, m: int):
 
 
 def kernel_layout(staged: StagedLogp) -> str:
-    """``"stream"`` for a streamed likelihood (the one-thread layout's
-    code, run by the warps of :func:`stream_layout`); ``"warp"`` (one warp
-    per chain, lane l holding coordinates ``4l .. 4l+3``) for ``32 < d <=
-    128`` without scan loops (``SplitProgram`` does not split them); else
-    ``"thread"``: one thread per chain."""
+    """``"stream"`` for a streamed likelihood (the ``"wide"`` code, run by
+    the warps of :func:`stream_layout`); ``"warp"`` (one warp per chain,
+    lane l holding coordinates ``4l .. 4l+3``) for ``32 < d <= 128``
+    without scan loops (``SplitProgram`` does not split them); ``"thread"``
+    (one thread per chain, the cold state in shared memory) for ``d <=
+    THREAD_MAX_D``; else ``"wide"``: one thread per chain holding its
+    whole state."""
     if staged.streams:
         return "stream"
     if LANES < staged.d <= LANES * WARP_CPL and not staged.loops:
         return "warp"
-    return "thread"
+    return "thread" if staged.d <= THREAD_MAX_D else "wide"
+
+
+def cold_words(d: int, max_depth: int) -> int:
+    """Words of a chain's cold state in the ``"thread"`` layout's column
+    (``nuts_common.cuh``): the far end (3d), the two candidates (4d) and
+    their log densities (2), checkpoint levels 2 .. max_depth - 1."""
+    levels = max(int(max_depth) - 1, 1)
+    return 7 * d + 2 + (levels - 1) * d
+
+
+def thread_shape(d: int, max_depth: int, static_bytes: int = 0):
+    """``(block, min_blocks, shared_bytes)`` of the ``"thread"`` layout:
+    of ``THREAD_BLOCKS``, the first block whose blocks an SM hold the most
+    threads, the blocks an SM that both the block's dynamic shared memory
+    (``shared_bytes``, beside ``static_bytes`` of static shared memory)
+    and ``THREAD_REGS`` registers a thread allow, which the kernel asks of
+    ptxas (``__launch_bounds__``). Raises where no block fits in the
+    shared memory the card gives one."""
+    best = None
+    for block in THREAD_BLOCKS:
+        smem = 4 * block * cold_words(d, max_depth)
+        need = smem + int(static_bytes)
+        if need > BLOCK_SMEM:
+            continue
+        blocks = max(1, min(SM_SMEM // (need + BLOCK_SMEM_RESERVED),
+                            SM_REGS // (block * THREAD_REGS),
+                            SM_THREADS // block, SM_BLOCKS))
+        if best is None or blocks * block > best[0] * best[1]:
+            best = (block, blocks, smem)
+    if best is None:
+        raise ValueError(
+            f"the thread layout at d={d}, max_depth={max_depth} needs more "
+            f"than the {BLOCK_SMEM} bytes of shared memory the card gives "
+            f"a block of {min(THREAD_BLOCKS)}")
+    return best
 
 
 def stream_layout(staged: StagedLogp, paired: bool) -> StreamLayout:
@@ -161,16 +214,28 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
     program spliced in (the build hashes this whole text)."""
     layout = kernel_layout(staged)
     if layout == "thread":
+        block, min_blocks, _ = thread_shape(
+            staged.d, max_depth, 4 * (staged.n_res + 2 * staged.d))
         defines = (f"#define NUTS_D {staged.d}\n"
                    f"#define NUTS_R {staged.n_res}\n"
                    f"#define NUTS_MD {int(max_depth)}\n"
-                   f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
+                   f"#define NUTS_BLOCK {block}\n"
+                   f"#define NUTS_MIN_BLOCKS {min_blocks}\n"
+                   f"#define NUTS_COLD_WORDS "
+                   f"{cold_words(staged.d, max_depth)}\n"
                    f"#define NUTS_LANES {staged.lanes}")
         # K3 takes the scan loops' bodies without run-time reciprocals:
         # each _div_rcp keeps an IEEE division as its slow path, and with
         # them K3's code grew 9% and ran 1-2% slower a slot on the AR(1)
         # model, while K1 and the staged-code kernel ran 22% and 8%
         # faster (PERF.md)
+        vag_src = staged.cuda_source(scan_rcps=not paired)
+    elif layout == "wide":
+        defines = (f"#define NUTS_D {staged.d}\n"
+                   f"#define NUTS_R {staged.n_res}\n"
+                   f"#define NUTS_MD {int(max_depth)}\n"
+                   f"#define NUTS_BLOCK {block_size(staged, BLOCK)}\n"
+                   f"#define NUTS_LANES {staged.lanes}")
         vag_src = staged.cuda_source(scan_rcps=not paired)
     elif layout == "stream":
         lay = stream_layout(staged, paired)
@@ -198,10 +263,13 @@ def kernel_source(staged: StagedLogp, max_depth: int, paired: bool) -> str:
 
 
 def build_job(staged: StagedLogp, max_depth: int, paired: bool):
-    """``(name, source, signatures)`` for :func:`_cuda_build.build_all`."""
+    """``(name, source, signatures)`` for :func:`_cuda_build.build_all`;
+    the ``"thread"`` layout's library also reports its occupancy."""
     name = _KERNELS[paired][0]
-    return (name, kernel_source(staged, max_depth, paired),
-            {f"{name}_launch": _ARGTYPES})
+    sigs = {f"{name}_launch": _ARGTYPES}
+    if kernel_layout(staged) == "thread":
+        sigs[f"{name}_occupancy"] = [ctypes.c_int]
+    return name, kernel_source(staged, max_depth, paired), sigs
 
 
 def build(staged: StagedLogp, max_depth: int, paired: bool) -> ctypes.CDLL:
@@ -329,10 +397,11 @@ def nuts_chains_fused(key, logp: Callable, values0: torch.Tensor,
 
 
 # launches of either kernel, of each (K3 "nuts_pair", K6 "nuts_tick") and
-# in each layout (kernel_layout: "thread", "warp" or "stream")
+# in each layout (kernel_layout: "thread", "wide", "warp" or "stream")
 nuts_chains_fused.launches = 0
 nuts_chains_fused.kernel_launches = {"nuts_pair": 0, "nuts_tick": 0}
-nuts_chains_fused.layout_launches = {"thread": 0, "warp": 0, "stream": 0}
+nuts_chains_fused.layout_launches = {"thread": 0, "wide": 0, "warp": 0,
+                                     "stream": 0}
 
 
 def nuts_chains_fused_plain(key, logp: Callable, values0: torch.Tensor,

@@ -100,6 +100,33 @@ chain loop in place of the prologue's table, another block size, launch
 bounds), whose outputs must agree bit for bit too; a variant that fails
 to build or run is reported and skipped. The parent checks the digests and prints a
 summary per tree and variant.
+
+Thread mode times K3 and K6 in the one-thread layout at small d in two
+trees of the package, each in its own process, in the order other, this,
+this, other on one card:
+
+    python3 layout_timing.py --thread OTHER_ROOT
+
+``OTHER_ROOT`` holds an earlier ``gen_tpu_torch`` package, as for
+``--stream``. The parent warms up each model of ``THREAD_MODELS``
+(eight_schools d = 10 at 131,072 chains, the 15-, 22- and 30-school
+models, d = 17, 24 and 32, at 32,768) once with ChEES, with this tree's
+package, and hands every process the same warmed state. Each process
+builds K3 and K6 at max_depth 8 for every model (one ``nvcc`` each, in
+parallel), prints their ptxas report and census (``chip_smoke.
+nuts_census``: registers, spills, shared bytes a block, blocks and warps
+an SM, waves, SASS counts of LDL/STL, LDS/STS and MUFU), runs
+``THREAD_CHECK_SLOTS`` slots under one key with one coordinate and with
+every coordinate collected and prints a digest of the outputs (every
+tree and variant must agree bit for bit), then times K3 per pair and K6
+per tick (median of three calls of ``SLOTS`` slots after a warm call,
+coordinate 0 collected, as metric 2). This tree takes the one-thread
+layout at every d of the models (``THREAD_MAX_D`` set to 32) and also
+times the variants of ``THREAD_VARIANTS`` (blocks of 32, 64 and 128,
+ptxas's own registers, at most 128 registers, the block's constants left
+to the compiler to hoist into registers); a variant that fails to build
+or run is reported and skipped. The parent checks the digests and prints a
+summary per tree, variant, model and kernel.
 """
 
 import hashlib
@@ -107,6 +134,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -143,6 +171,10 @@ STREAM_SPLITS = {(1_000_000, 128): (33, 200), (1_000_000, 1024): (5, 26)}
 # eight_schools' shape (chains, leapfrogs, step size)
 K1_STEPS, K1_CHECK_STEPS = 200, 20
 K1_D10 = (131072, 10, 0.25)
+# --thread: (schools, chains) of each model (d = schools + 2), and the
+# slots of the identity check
+THREAD_MODELS = ((8, 131072), (15, 32768), (22, 32768), (30, 32768))
+THREAD_CHECK_SLOTS = 200
 
 
 def main(other: Path):
@@ -173,7 +205,15 @@ def main(other: Path):
     staged = stage(target.logp, 102, dev)
     layouts = ("@@LAYOUT warp@@" in (other / "nuts_pair.cu").read_text()
                and nf.kernel_layout)
-    builds = {"other": (other.resolve(), layouts or (lambda s: "thread")),
+    if "@@LAYOUT wide" not in (other / "nuts_pair.cu").read_text():
+        # an earlier csrc names its one-thread code "thread", which this
+        # tree renders as "wide": a copy with the markers renamed
+        renamed = Path(tempfile.mkdtemp())
+        for f in other.iterdir():
+            (renamed / f.name).write_text(f.read_text().replace(
+                "// @@LAYOUT thread", "// @@LAYOUT wide"))
+        other = renamed
+    builds = {"other": (other.resolve(), layouts or (lambda s: "wide")),
               "this": (nf._CSRC_DIR, nf.kernel_layout)}
 
     def use(which):
@@ -603,9 +643,9 @@ def kalman_child(label: str, root: str):
         hmc_fused.kernel_source = lambda s_: k1_src(s_).replace(
             "__launch_bounds__(HMC_BLOCK)",
             "__launch_bounds__(HMC_BLOCK, 1)")
-        nf.kernel_source = lambda s_, md, p: nf_src(s_, md, p).replace(
-            "__launch_bounds__(NUTS_BLOCK)",
-            "__launch_bounds__(NUTS_BLOCK, 1)")
+        nf.kernel_source = lambda s_, md, p: re.sub(
+            r"__launch_bounds__\(NUTS_BLOCK(, NUTS_MIN_BLOCKS)?\)",
+            "__launch_bounds__(NUTS_BLOCK, 1)", nf_src(s_, md, p))
         st.libs.clear()
         bjobs = [hmc_fused.build_job(st), nf.build_job(st, 6, True)]
         _cuda_build.build_all(bjobs)
@@ -963,6 +1003,246 @@ def k1_main(other: Path):
         raise RuntimeError("K1's outputs differ between the trees")
 
 
+def _thread_cap(registers):
+    """A variant of ``--thread``: the "thread" layout asking ptxas for as
+    many blocks an SM as ``registers`` registers a thread allow, whatever
+    the shared memory allows."""
+    def change(modules):
+        nf = modules["gen_tpu_torch.ops.nuts_fused"]
+        shape = nf.thread_shape
+
+        def capped(*a, **k):
+            block, blocks, smem = shape(*a, **k)
+            return block, max(blocks, 65536 // (block * registers)), smem
+        nf.thread_shape = capped
+        return lambda: setattr(nf, "thread_shape", shape)
+    return change
+
+
+def _constants_hoisted():
+    """A variant of ``--thread``: the block's constants no longer read at
+    an offset the compiler cannot see (``opaque_zero`` replaced by 0), so
+    that it may keep them in registers across the chain's loop."""
+    def change(modules):
+        nf = modules["gen_tpu_torch.ops.nuts_fused"]
+        source = nf.kernel_source
+
+        def edited(staged, md, paired):
+            src = source(staged, md, paired)
+            if nf.kernel_layout(staged) != "thread":
+                return src
+            if "o = opaque_zero();" not in src:
+                raise RuntimeError("the thread layout lacks opaque_zero")
+            return src.replace("o = opaque_zero();", "o = 0;")
+        nf.kernel_source = edited
+        return lambda: setattr(nf, "kernel_source", source)
+    return change
+
+
+# variants of this tree's "thread" layout timed beside it
+THREAD_VARIANTS = {
+    "blocks of 32": _setting("nuts_fused", "THREAD_BLOCKS", (32,)),
+    "blocks of 64": _setting("nuts_fused", "THREAD_BLOCKS", (64,)),
+    "blocks of 128": _setting("nuts_fused", "THREAD_BLOCKS", (128,)),
+    "ptxas's own registers": _setting("nuts_fused", "THREAD_REGS", 255),
+    "at most 128 registers": _thread_cap(128),
+    "constants hoisted": _constants_hoisted(),
+}
+
+
+def thread_models(torch, tt, dev):
+    """``{d: (logp, chains)}`` of ``THREAD_MODELS``, each the schools model
+    (eight_schools' data for 8 schools, ``chip_smoke.make_schools``
+    otherwise) as a flat target."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import FlatTarget
+    out = {}
+    for k, chains in THREAD_MODELS:
+        ys, sig = ((C.YS_8, C.SIGMAS_8) if k == 8
+                   else C.make_schools(k, seed=0))
+        model, args, obs, sel = C.schools_setup(torch, tt, ys, sig, dev)
+        out[k + 2] = (model, args, obs, sel, chains, FlatTarget(
+            model.generate(random.PRNGKey(1, dev), args, obs)[0], sel))
+    return out
+
+
+def thread_warm(path: Path):
+    """Warm every model of ``THREAD_MODELS`` up once (ChEES, this tree's
+    package) and save the states, step sizes and inverse masses to
+    ``path`` for every process."""
+    import torch
+    import gen_tpu_torch as tt
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import chees_hmc_warmup_and_sample
+
+    dev = torch.device("cuda", 0)
+    states = {}
+    for d, (model, args, obs, sel, chains, _) in thread_models(
+            torch, tt, dev).items():
+        k_init, k_warm = random.split(random.PRNGKey(d, dev))
+        traces, _ = torch.func.vmap(lambda k: model.generate(k, args, obs))(
+            random.split(k_init, chains))
+        _, values, winfo = chees_hmc_warmup_and_sample(
+            k_warm, traces, sel, num_warmup=C.NUTS_WARMUP, num_samples=1,
+            target_accept=0.8)
+        states[d] = dict(values=values.cpu(),
+                         eps=float(winfo["step_size"]),
+                         inv_mass=winfo["inv_mass"].cpu())
+        print(f"warmup d={d} at {chains} chains: eps {states[d]['eps']:.4f}",
+              flush=True)
+        del traces
+    torch.save(states, path)
+
+
+def thread_child(label: str, root: str, warm: str):
+    """One tree's K3 and K6 census, digests and timings in the one-thread
+    layout, with the package under ``root`` and the warmed states in
+    ``warm``; prints them as one JSON line."""
+    sys.path.insert(0, root)
+    import torch
+    import gen_tpu_torch as tt
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import _cuda_build
+    from gen_tpu_torch.ops import nuts_fused as nf
+
+    dev = torch.device("cuda", 0)
+    print(f"{label}: gen_tpu_torch from {Path(tt.__file__).parent}",
+          flush=True)
+    if hasattr(nf, "THREAD_MAX_D"):
+        nf.THREAD_MAX_D = 32
+    models = thread_models(torch, tt, dev)
+    states = torch.load(warm)
+    staged = {d: nf.stage(m[5].logp, d, dev) for d, m in models.items()}
+    variants = {"": None}
+    if label == "this":
+        variants.update(THREAD_VARIANTS)
+    out = {"label": label}
+    for vname, change in variants.items():
+        restore = change(sys.modules) if change else None
+        try:
+            thread_variant(torch, random, _cuda_build, nf, models, staged,
+                           states, vname, out, label)
+        except Exception as e:      # a variant that fails is reported only
+            if not vname:
+                raise
+            print(f"{label} [{vname}] failed: {type(e).__name__}: "
+                  f"{str(e)[-3000:]}", flush=True)
+        finally:
+            if restore:
+                restore()
+    print("THREAD_RESULT " + json.dumps(out), flush=True)
+
+
+def thread_variant(torch, random, _cuda_build, nf, models, staged, states,
+                   vname, out, label):
+    """K3 and K6 of this build (``vname`` names a variant; "" the tree as it
+    is) on every model: build, census, digests and timings into ``out``."""
+    tag = f" [{vname}]" if vname else ""
+    for st in staged.values():
+        st.libs.clear()
+    jobs = {(d, p): nf.build_job(staged[d], 8, p) for d in models
+            for p in (True, False)}
+    _cuda_build.build_all(list(jobs.values()))
+    for (d, paired), job in jobs.items():
+        chains = models[d][4]
+        kname = "K3" if paired else "K6"
+        layout = nf.kernel_layout(staged[d])
+        print(f"{label}{tag} {kname} d={d} ({layout} layout) ptxas: "
+              + " | ".join(ln.strip() for ln in ptxas_report(
+                  _cuda_build, job).splitlines()
+                  if "registers" in ln or "spill" in ln), flush=True)
+        cen = C.nuts_census(job, chains)
+        for which, c in cen.items():
+            print(f"{label}{tag} {kname} d={d} collect {which}: "
+                  + C.census_line(c), flush=True)
+        s = states[d]
+        v0 = s["values"].to(torch.device("cuda", 0))
+        kw = dict(eps=s["eps"], max_depth=8,
+                  inv_mass_diag=s["inv_mass"].to(v0.device), paired=paired)
+        logp = models[d][5].logp
+        key = random.PRNGKey(7, v0.device)
+        digests = {}
+        for cidx in (0, None):
+            res = nf.nuts_chains_fused(key, logp, v0, THREAD_CHECK_SLOTS,
+                                       collect_idx=cidx, **kw)
+            digests["one" if cidx == 0 else "all"] = digest(
+                res[0], res[1], res[2], res[3], *res[4].values())
+        steps = SLOTS // 2 if paired else SLOTS
+        vals = nf.nuts_chains_fused(random.fold_in(key, 1), logp, v0,
+                                    SLOTS, collect_idx=0, **kw)[0]
+        times = []
+        for rep in range(3):
+            res, t = C.timed(torch, lambda: nf.nuts_chains_fused(
+                random.fold_in(key, 2 + rep), logp, vals, SLOTS,
+                collect_idx=0, **kw))
+            times.append(t)
+        us = float(np.median(times)) / steps * 1e6
+        depth = float(res[4]["mean_depth"].mean())
+        print(f"{label}{tag} {kname} d={d} {chains} chains: {us:.2f} us per "
+              f"{'pair' if paired else 'tick'} (reps "
+              + ", ".join(f"{x * 1e3:.2f}" for x in times)
+              + f" ms for {SLOTS} slots; mean depth {depth:.2f}); digests "
+              f"{digests}", flush=True)
+        out[f"{kname} d={d}{tag}"] = dict(
+            us=us, digests=digests, layout=layout, **{
+                k: cen["one"][k] for k in (
+                    "registers", "spill_bytes", "shared_bytes",
+                    "blocks_per_sm", "warps_per_sm", "waves", "LDL", "STL",
+                    "LDS", "STS", "MUFU")})
+
+
+def thread_main(other: Path):
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("layout_timing.py needs a CUDA device")
+    card = C.phase_env(torch)
+    here = Path(__file__).resolve().parent
+    roots = {"other": other.resolve(), "this": here}
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = Path(tmp) / "warm.pt"
+        thread_warm(warm)
+        torch.cuda.empty_cache()
+        results = []
+        for which in ("other", "this", "this", "other"):
+            proc = subprocess.run(
+                [sys.executable, __file__, "--thread-child", which,
+                 str(roots[which]), str(warm)],
+                capture_output=True, text=True, cwd=here)
+            print(proc.stdout, end="")
+            if proc.returncode != 0:
+                print(proc.stderr[-6000:])
+                raise RuntimeError(f"the {which} tree's timing failed")
+            results += [json.loads(ln.split(" ", 1)[1])
+                        for ln in proc.stdout.splitlines()
+                        if ln.startswith("THREAD_RESULT ")]
+    digests = {}
+    for r in results:
+        for name, v in r.items():
+            if name != "label":
+                for which, dg in v["digests"].items():
+                    digests.setdefault((name.split(" [")[0], which),
+                                       set()).add(dg)
+    for (name, which), ds in digests.items():
+        print(f"{name} collect {which}: outputs of every run "
+              + ("identical" if len(ds) == 1 else f"DIFFER {sorted(ds)}"))
+    for which in ("other", "this"):
+        rows = [r for r in results if r["label"] == which]
+        for name in rows[0]:
+            if name != "label":
+                print(f"summary {which} {name}: us "
+                      + ", ".join(f"{r[name]['us']:.2f}" for r in rows
+                                  if name in r)
+                      + "; " + ", ".join(
+                          f"{k} {rows[0][name][k]}" for k in (
+                              "layout", "registers", "spill_bytes",
+                              "shared_bytes", "warps_per_sm", "LDL", "STL",
+                              "LDS", "STS", "MUFU"))
+                      + f", waves {rows[0][name]['waves']:.2f}")
+    print(card)
+    if any(len(ds) > 1 for ds in digests.values()):
+        raise RuntimeError("K3's or K6's outputs differ between the trees")
+
+
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--stream":
         stream_main(Path(sys.argv[2]), tuple(int(a) for a in sys.argv[3:])
@@ -971,6 +1251,10 @@ if __name__ == "__main__":
         k1_main(Path(sys.argv[2]))
     elif len(sys.argv) == 4 and sys.argv[1] == "--k1-child":
         k1_child(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--thread":
+        thread_main(Path(sys.argv[2]))
+    elif len(sys.argv) == 5 and sys.argv[1] == "--thread-child":
+        thread_child(sys.argv[2], sys.argv[3], sys.argv[4])
     elif len(sys.argv) == 3 and sys.argv[1] == "--kalman":
         kalman_main(Path(sys.argv[2]))
     elif len(sys.argv) == 4 and sys.argv[1] == "--kalman-child":

@@ -146,7 +146,7 @@ def test_split_wide_models_match_serial(d):
     # the couplings read their other lane's operand by a shuffle
     assert src.count("__shfl_sync(") >= len(coupling)
     wide = stage_scalarized(_gauss(200, torch.ones(200), ()), 200, "cpu")
-    assert nuts_fused.kernel_layout(wide) == "thread"
+    assert nuts_fused.kernel_layout(wide) == "wide"
 
 
 def _streams(seed, steps, n, d, n_u):
@@ -227,13 +227,13 @@ def _hash(text):
 
 
 # sha256 prefixes of the kernels' code (comments removed; the notes
-# changed): eight_schools d=10 at max_depth 8 in the one-thread layout, and
-# the robust-t stream at n=4,096 and max_depth 6 in the tiled stream
-# layout, as rendered with the staged code's division rule
-# (scalarize._div_rcp) and K1's step-size table; an edit of that
-# code must update them
+# changed): eight_schools d=10 at max_depth 8 in the one-thread layout
+# (K3/K6 with the cold state in shared memory), and the robust-t stream at
+# n=4,096 and max_depth 6 in the tiled stream layout, as rendered with the
+# staged code's division rule (scalarize._div_rcp) and K1's step-size
+# table; an edit of that code must update them
 BEFORE = {
-    ("d10", "K3"): "8e99df6426b840de", ("d10", "K6"): "a55f21a4b4735c71",
+    ("d10", "K3"): "c0be56aeb739ad85", ("d10", "K6"): "13208d8cae6c02c6",
     ("d10", "K1"): "eb79a35b79c667d7", ("d10", "SE"): "9c5df9775f2ca3e3",
     ("robust", "K3"): "8766bcd838cef841",
     ("robust", "K6"): "e0ae2532d4fc69d3",

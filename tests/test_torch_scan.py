@@ -231,7 +231,7 @@ def test_kernel_sources_splice_the_rolled_body():
         return base(x[:3]) - 0.5 * torch.sum(x[3:] ** 2)
 
     st40 = stage_scalarized(wide, 40, "cpu")
-    assert st40.loops and nuts_fused.kernel_layout(st40) == "thread"
+    assert st40.loops and nuts_fused.kernel_layout(st40) == "wide"
     with pytest.raises(ValueError, match="with scan loops"):
         st40.warp_split()
     assert "#define NUTS_LANES 1\n" in nuts_fused.kernel_source(st40, 6, True)
