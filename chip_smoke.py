@@ -199,7 +199,7 @@ SMC_N_BIG = 1048576    # benchmarks/RESULTS.md's second SMC row
 SMC_T = 32
 SMC_SEEDS = 20         # seeds per path for the Kalman gates
 OTHER_SEEDS = 20       # seeds for multinomial and residual resampling
-K4_NS = (1, 1000, 4096, 32768, SMC_N, SMC_N_BIG)
+K4_NS = (1, 2, 33, 1000, 4096, 32768, SMC_N, SMC_N_BIG)
 K4_US = (0.0, 0.5, 1.0 - 2.0 ** -24)
 K4_REPS = 100
 LML_TOL, MEAN_TOL, VAR_TOL = 0.05, 0.02, 0.03
@@ -1229,9 +1229,12 @@ def k4_log_weights(n, case, rng):
 def k4_ops(n):
     """Operations of K4 on N positions (conventions as :func:`k1_ops`):
     per position the reciprocal, the index conversion, the add and the
-    multiply (4), ceil(log2(N + 1)) binary-search steps of a comparison
-    and an index update (2 each), and the clamp (1)."""
-    return n * (4 + 2 * math.ceil(math.log2(n + 1)) + 1)
+    multiply (4), its count in a window of at most 1,024 cdf entries (10
+    halving steps of a comparison and a select, and the last comparison
+    and add: 22), the clamp (1); the blocks' 32-ary rounds add less than 1
+    a position. Below 1,024 particles the window is the whole cdf."""
+    steps = math.ceil(math.log2(min(n, 1024))) if n > 1 else 0
+    return n * (4 + 2 * steps + 2 + 1)
 
 
 def gpu_ms(torch, fn, reps):
@@ -1250,13 +1253,41 @@ def gpu_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def launch_floor_ms(torch, dev, reps, timings=1):
+    """The launch floor: device time of one launch of the empty kernel
+    (``ops/launch_floor.py``), through the same ``ctypes`` path and
+    ``torch.empty`` as K4 and K5, by :func:`gpu_ms` at ``reps`` launches
+    (the median of ``timings`` such timings)."""
+    from gen_tpu_torch.ops import launch_floor as lf
+    lf.launch_floor(dev)
+    return float(np.median([gpu_ms(torch, lambda: lf.launch_floor(dev), reps)
+                            for _ in range(timings)]))
+
+
+def small_waves(blocks, threads, registers, smem_bytes):
+    """Rounds of the card that ``blocks`` blocks of ``threads`` take:
+    blocks an SM by :func:`resident_blocks` and by the shared memory (228
+    KB an SM, 1 KB reserved a block)."""
+    per_sm = min(resident_blocks(registers, threads),
+                 233472 // (smem_bytes + 1024))
+    return per_sm, blocks / (per_sm * SM_COUNT)
+
+
+def ptxas_function(job, part):
+    """ptxas's numbers (registers, spill and stack bytes) of the function
+    of ``job``'s library whose mangled name holds ``part``."""
+    from gen_tpu_torch.ops import _cuda_build
+    fns = ptxas_functions(_cuda_build.ptxas_report(job[0], job[1]) or "")
+    return next(v for k, v in fns.items() if part in k)
+
+
 def phase_compare_k4(torch, dev):
     """Phase 2 for K4: the kernel against its plain version (the literal
     count) and against torch.searchsorted + clamp, integer equality, at
     every N of ``K4_NS`` and u of ``K4_US``, float32 and float64, with
-    random weights, zero-weight runs and one dominant particle (at
-    1,048,576 only zero-weight runs: the literal count is O(N^2)).
-    Returns the largest difference (0 when all agree)."""
+    random weights, zero-weight runs and one dominant particle (the
+    literal count is O(N^2): ~1 s a count at 1,048,576). Returns the
+    largest difference (0 when all agree)."""
     from gen_tpu_torch.ops import resample as rs
     rng = np.random.default_rng(4)
     runs = dips = 0
@@ -1264,9 +1295,7 @@ def phase_compare_k4(torch, dev):
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         for n in K4_NS:
-            cases = (("zero_runs",) if n > SMC_N
-                     else ("random", "zero_runs", "dominant"))
-            for case in cases:
+            for case in ("random", "zero_runs", "dominant"):
                 lw = torch.tensor(k4_log_weights(n, case, rng), dtype=dtype,
                                   device=dev)
                 cdf = rs.normalized_cdf(lw)
@@ -1532,34 +1561,45 @@ def phase_smc_gates(torch, tt, dev, tag):
 
 
 def k4_entry(torch, dev, tag, smc_a, k4_err):
-    """Phase 7 for K4: its device time at 131,072 and 1,048,576 float32
-    particles, the literal count's time, torch.searchsorted + clamp's
-    time and the bound. Returns its JSON entry."""
+    """Phase 9 for K4: its device time at 131,072 and 1,048,576 float32
+    particles in each weight case of :func:`k4_log_weights` (random, the
+    headline; zero-weight runs; one dominant particle), the launch floor,
+    the literal count's time, torch.searchsorted + clamp's time, the bound,
+    registers, spills and waves. Returns its JSON entry."""
     from gen_tpu_torch.ops import resample as rs
     rng = np.random.default_rng(5)
+    floor = launch_floor_ms(torch, dev, K4_REPS)
+    fn = ptxas_function(rs.build_job(), "IfE")      # the float32 kernel
     t = {}
     for n in (SMC_N, SMC_N_BIG):
-        lw = torch.tensor(rng.standard_normal(n) * 2.0, dtype=torch.float32,
-                          device=dev)
-        cdf = rs.normalized_cdf(lw)
-        u = torch.tensor(0.5, dtype=torch.float32, device=dev)
-        pos = rs.positions(n, u, torch.float32, dev)
-        rs.resample_cdf(cdf, u)
-        k_ms = gpu_ms(torch, lambda: rs.resample_cdf(cdf, u), K4_REPS)
-        lib_ms = gpu_ms(torch, lambda: torch.searchsorted(
-            cdf, pos, out_int32=True).clamp_(max=n - 1), K4_REPS)
-        plain_ms = None
-        if n == SMC_N:
-            _, plain_s = timed(torch, lambda: rs.systematic_parents_count(
-                cdf, u))
-            plain_ms = plain_s * 1e3
-        b_ms, b_by = bound_ms(k4_ops(n), 4 * n + 4 * n + 4)
-        t[n] = (k_ms, lib_ms, plain_ms, b_ms, b_by)
-        print(f"{tag} K4 N={n} float32: kernel {k_ms * 1e3:.2f} us, "
-              f"searchsorted+clamp {lib_ms * 1e3:.2f} us, bound "
-              f"{b_ms * 1e3:.3f} us ({b_by})"
-              + (f", literal count {plain_ms:.2f} ms" if plain_ms else ""))
-    k_ms, lib_ms, plain_ms, b_ms, b_by = t[SMC_N]
+        run, threads, blocks, smem = rs.launch_shape(n)
+        per_sm, waves = small_waves(blocks, threads, fn["registers"], smem)
+        for case in ("random", "zero_runs", "dominant"):
+            lw = torch.tensor(k4_log_weights(n, case, rng),
+                              dtype=torch.float32, device=dev)
+            cdf = rs.normalized_cdf(lw)
+            u = torch.tensor(0.5, dtype=torch.float32, device=dev)
+            pos = rs.positions(n, u, torch.float32, dev)
+            rs.resample_cdf(cdf, u)
+            k_ms = gpu_ms(torch, lambda: rs.resample_cdf(cdf, u), K4_REPS)
+            lib_ms = gpu_ms(torch, lambda: torch.searchsorted(
+                cdf, pos, out_int32=True).clamp_(max=n - 1), K4_REPS)
+            plain_ms = None
+            if n == SMC_N and case == "random":
+                _, plain_s = timed(torch, lambda: rs.systematic_parents_count(
+                    cdf, u))
+                plain_ms = plain_s * 1e3
+            b_ms, b_by = bound_ms(k4_ops(n), 4 * n + 4 * n + 4)
+            t[n, case] = (k_ms, lib_ms, plain_ms, b_ms, b_by)
+            print(f"{tag} K4 N={n} float32 {case}: kernel {k_ms * 1e3:.2f} "
+                  f"us (launch floor {floor * 1e3:.2f} us), "
+                  f"searchsorted+clamp {lib_ms * 1e3:.2f} us, bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}); {fn['registers']} "
+                  f"registers, {fn['spill_bytes']} B spills, {blocks} blocks "
+                  f"of {threads} ({run} positions a block), {per_sm} blocks "
+                  f"an SM, {waves:.2f} waves"
+                  + (f", literal count {plain_ms:.2f} ms" if plain_ms else ""))
+    k_ms, lib_ms, plain_ms, b_ms, b_by = t[SMC_N, "random"]
     return dict(name="resample_systematic", route="cuda",
                 source="gen_tpu_torch/ops/csrc/resample.cu",
                 replaces="gen_tpu/ops/resample.py:40",
@@ -1568,8 +1608,13 @@ def k4_entry(torch, dev, tag, smc_a, k4_err):
                 launches_per_filter=smc_a["launches"] / smc_a["filters"],
                 max_abs_err=k4_err, ms=k_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                ms_1m=t[SMC_N_BIG][0], library_ms_1m=t[SMC_N_BIG][1],
-                bound_ms_1m=t[SMC_N_BIG][3])
+                floor_ms=floor, registers=fn["registers"],
+                spill_bytes=fn["spill_bytes"],
+                ms_1m=t[SMC_N_BIG, "random"][0],
+                library_ms_1m=t[SMC_N_BIG, "random"][1],
+                bound_ms_1m=t[SMC_N_BIG, "random"][3],
+                cases={f"{n}_{case}": dict(ms=v[0], library_ms=v[1])
+                       for (n, case), v in t.items()})
 
 
 # -- phase 8: the mixed discrete + continuous slice and K5 --------------------
@@ -1920,51 +1965,66 @@ def k5_ops(n, k):
     per column a quarter of a Philox4x32-10 call (10 rounds of two 32-bit
     products, two high products, four XORs and two key adds: 25), the
     uniform (shift, or, subtract: 3), the clamp, two logs, two negations
-    and the add (6), the comparison and select (3); per row five shuffle
-    steps of a comparison, a select and two moves (20) and the clamp."""
-    return n * k * (25 + 3 + 6 + 3) + n * 21
+    and the add (6), the comparison and select (3); per row log2(G)
+    shuffle steps of a comparison, a select and two moves (4 each; G lanes
+    a row, ``categorical.launch_shape``) and the clamp."""
+    from gen_tpu_torch.ops import categorical as cat
+    g = cat.launch_shape(n, k)[0]
+    return n * k * (25 + 3 + 6 + 3) + n * (4 * int(math.log2(g)) + 1)
 
 
 def k5_entry(torch, dev, tag, decode_run, k5_err):
     """Phase 9 for K5: device time per launch (CUDA events, median of 3
-    timings of 20 launches) of the kernel (the custom op on prepared key
-    words) and of the whole wrapper ``batched_categorical`` (plus the key
-    words' conversion) at every shape, its plain version's time, the
-    library call's time (torch.multinomial of torch.softmax: the same
-    distribution from other noise) and the bound. Returns its JSON entry,
-    with decode's shape as the headline."""
+    timings of 20 launches) of the kernel (the custom op, given the key as
+    the port holds it) and of the whole wrapper ``batched_categorical`` at
+    every shape, the launch floor timed the same way, its plain version's
+    time, the library call's time (torch.multinomial of torch.softmax: the
+    same distribution from other noise), the bound, registers, spills and
+    the launch shape. Returns its JSON entry, with decode's shape as the
+    headline."""
     from gen_tpu_torch import random
     from gen_tpu_torch.ops import categorical as cat
     rows = {}
+    floor = launch_floor_ms(torch, dev, 20, timings=3)
+    print(f"{tag} launch floor (an empty kernel through ctypes): "
+          f"{floor * 1e3:.2f} us a launch")
+
+    def med(fn):
+        fn()
+        return float(np.median([gpu_ms(torch, fn, 20) for _ in range(3)]))
+
     for n, k in K5_SHAPES + (K5_TIMED_ONLY,):
         logits, u = k5_inputs(torch, n, k, dev, n * k)
         logits = torch.nan_to_num(logits)
         key = random.PRNGKey(9, dev)
-        words = cat._key_words(key)
-
-        def med(fn):
-            fn()
-            return float(np.median([gpu_ms(torch, fn, 20) for _ in range(3)]))
-
-        k_ms = med(lambda: cat._categorical_op(logits, words, None, n))
+        g, threads, blocks = cat.launch_shape(n, k)
+        fn = ptxas_function(cat.build_job(), f"ILb0ELi{g}E")   # Philox, G
+        per_sm, waves = small_waves(blocks, threads, fn["registers"], 0)
+        k_ms = med(lambda: cat._categorical_op(logits, key, None, n))
         w_ms = med(lambda: cat.batched_categorical(key, logits))
         plain_ms = med(lambda: cat.batched_categorical_plain(logits, u))
         lib_ms = med(lambda: torch.multinomial(torch.softmax(logits, -1), 1))
         b_ms, b_by = bound_ms(k5_ops(n, k), 4 * n * k + 4 * n)
         rows[(n, k)] = dict(ms=k_ms, wrapper_ms=w_ms, plain_ms=plain_ms,
-                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            lanes_a_row=g, blocks=blocks,
+                            registers=fn["registers"],
+                            spill_bytes=fn["spill_bytes"], waves=waves)
         print(f"{tag} K5 ({n}, {k}): kernel {k_ms * 1e3:.2f} us (wrapper "
-              f"{w_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
-              f"multinomial(softmax) {lib_ms * 1e3:.2f} us, bound "
-              f"{b_ms * 1e3:.3f} us ({b_by})")
+              f"{w_ms * 1e3:.2f} us, launch floor {floor * 1e3:.2f} us), "
+              f"plain {plain_ms * 1e3:.2f} us, multinomial(softmax) "
+              f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}); "
+              f"{g} lanes a row, {blocks} blocks of {threads}, "
+              f"{fn['registers']} registers, {fn['spill_bytes']} B spills, "
+              f"{per_sm} blocks an SM, {waves:.2f} waves")
     head = rows[K5_MAIN_SHAPE]
     return dict(name="categorical", route="cuda",
                 source="gen_tpu_torch/ops/csrc/categorical.cu",
                 replaces="gen_tpu/ops/categorical.py:46",
                 per=f"launch at {K5_MAIN_SHAPE} float32 logits",
                 launches=decode_run["launches"], max_abs_err=k5_err,
-                **head, library="torch.multinomial(torch.softmax(logits, "
-                "-1), 1)",
+                **head, floor_ms=floor,
+                library="torch.multinomial(torch.softmax(logits, -1), 1)",
                 shapes={f"{n}x{k}": v for (n, k), v in rows.items()})
 
 
@@ -2690,6 +2750,7 @@ def phase_build(torch, tt, dev, tag):
     from gen_tpu_torch import random
     from gen_tpu_torch.inference import FlatTarget
     from gen_tpu_torch.ops import _cuda_build, categorical, hmc_fused, resample
+    from gen_tpu_torch.ops import launch_floor
     from gen_tpu_torch.ops import nuts_fused as nf
 
     model, X, obs, sel, xs, ys = regression_setup(torch, tt, dev)
@@ -2749,7 +2810,9 @@ def phase_build(torch, tt, dev, tag):
     builds = [("K1 regression", st_reg, hmc_fused.build_job(st_reg)),
               ("K1 gaussian", st_g3, hmc_fused.build_job(st_g3)),
               ("K4 resample (float32, float64)", None, resample.build_job()),
-              ("K5 categorical", None, categorical.build_job())]
+              ("K5 categorical", None, categorical.build_job()),
+              ("launch floor (empty kernel)", None,
+               launch_floor.build_job())]
     builds += mixed_builds + k2_builds
     for paired, k in ((True, "K3"), (False, "K6")):
         builds += [

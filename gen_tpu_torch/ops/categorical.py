@@ -17,6 +17,10 @@ Where PyTorch and Hopper forced differences:
   so on the card the draws equal gen_tpu's in distribution, not bit for
   bit. With ``injected_u`` the kernel and :func:`batched_categorical_plain`
   consume the same uniforms and agree index for index.
+- The kernel packs rows into sub-warps (``G`` lanes a row, 4 columns a
+  lane: :func:`launch_shape`) where gen_tpu's kernel padded each row to a
+  128-lane tile, and reads the key as the port holds it (int64 words with
+  uint32 values), so a call on the card launches K5 and nothing else.
 - The kernel is registered as the custom op ``gen_tpu_torch::categorical``
   with a ``torch.func.vmap`` rule, because the cipher-decode example calls
   :func:`categorical_fast` inside a vmap over restarts, as gen_tpu vmaps
@@ -29,8 +33,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -78,30 +83,46 @@ def batched_categorical_plain(logits: torch.Tensor,
     return torch.clamp(idx, max=k - 1).to(torch.int32)
 
 
-def _key_words(keys: torch.Tensor) -> torch.Tensor:
-    """``(B, 2)`` uint32 key words held in int64 -> int32 with the same
-    bits (the kernel reads them as uint32)."""
-    k = keys.reshape(-1, 2).to(torch.int64)
-    return torch.where(k >= 2 ** 31, k - 2 ** 32, k).to(torch.int32)
+def launch_shape(n: int, k: int,
+                 src: Optional[str] = None) -> Tuple[int, int, int]:
+    """K5's launch over ``(n, k)`` logits, as its source (``src``, or the
+    module's) computes it: ``(lanes a row, threads a block, blocks)``. A
+    row takes the smallest power of two >= ceil(k / 4) lanes, at most
+    32."""
+    g = 1
+    while g < 32 and 4 * g < k:
+        g *= 2
+    src = (_CSRC_DIR / "categorical.cu").read_text() if src is None else src
+    warps = int(re.search(r"#define CAT_WARPS (\d+)", src).group(1))
+    rows = warps * (32 // g)
+    return g, 32 * warps, -(-n // rows)
 
 
 @torch.library.custom_op("gen_tpu_torch::categorical", mutates_args=(),
                          device_types="cuda")
-def _categorical_op(logits: torch.Tensor, keys: torch.Tensor,
+def _categorical_op(logits: torch.Tensor, keys: Optional[torch.Tensor],
                     u: Optional[torch.Tensor],
                     rows_per_key: int) -> torch.Tensor:
-    """Launch K5 on ``logits`` ``(N, K)`` float32 with key words ``keys``
-    ``(N / rows_per_key, 2)`` int32 (or uniforms ``u`` ``(N, K)``)."""
+    """Launch K5 on ``logits`` ``(N, K)`` float32 with keys ``keys``
+    (``N / rows_per_key`` keys of two int64 words with uint32 values, as
+    the port holds them), or uniforms ``u`` ``(N, K)`` and no keys."""
     n, k = logits.shape
-    if keys.shape != (n // rows_per_key, 2) or n % rows_per_key:
-        raise ValueError("categorical: keys must be (N / rows_per_key, 2)")
+    if n % rows_per_key:
+        raise ValueError("categorical: rows_per_key must divide N")
+    if u is None and (keys is None or keys.dtype != torch.int64
+                      or keys.numel() != 2 * (n // rows_per_key)
+                      or keys.device != logits.device):
+        raise ValueError("categorical: keys must be N / rows_per_key int64 "
+                         "word pairs on the logits' device")
+    keys = None if u is not None else keys.contiguous()
     lib = build()
     with torch.cuda.device(logits.device):
         out = torch.empty(n, dtype=torch.int32, device=logits.device)
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         rc = lib.categorical_launch(
             logits.data_ptr(), 0 if u is None else u.data_ptr(),
-            keys.data_ptr(), n, k, rows_per_key, out.data_ptr(), stream)
+            0 if keys is None else keys.data_ptr(), n, k, rows_per_key,
+            out.data_ptr(), stream)
     _cuda_build.check_launch(rc, "categorical")
     batched_categorical.launches += 1
     return out
@@ -132,8 +153,9 @@ def _categorical_vmap(info, in_dims, logits, keys, u, rows_per_key):
     u = _batch_first(u, u_dim, b)
     out = _categorical_op(
         logits.reshape(b * n, k).contiguous(),
-        keys.reshape(-1, 2).contiguous(), None if u is None
-        else u.reshape(b * n, k).contiguous(), rows_per_key)
+        None if keys is None else keys.reshape(-1, 2).contiguous(),
+        None if u is None else u.reshape(b * n, k).contiguous(),
+        rows_per_key)
     return out.reshape(b, n), 0
 
 
@@ -157,13 +179,17 @@ def batched_categorical(key, logits: torch.Tensor,
     if logits.device.type != "cuda":
         raise ValueError(f"batched_categorical: unsupported device "
                          f"{logits.device}")
-    if injected_u is None:
-        u, keys = None, _key_words(key)
-    else:                       # the kernel reads no key in injected mode
-        u = injected_u.to(torch.float32).contiguous()
-        keys = torch.zeros((1, 2), dtype=torch.int32, device=logits.device)
-    return _categorical_op(logits.to(torch.float32).contiguous(), keys, u,
-                           logits.shape[0])
+    return _launch(key, logits, injected_u)
+
+
+def _launch(key, logits, injected_u):
+    """K5's launch for :func:`batched_categorical`: the key goes to the
+    kernel as it is, float32 contiguous logits and uniforms as they are
+    (no copy), and in injected mode no key at all."""
+    u = None if injected_u is None else \
+        injected_u.to(torch.float32).contiguous()
+    return _categorical_op(logits.to(torch.float32).contiguous(),
+                           key if u is None else None, u, logits.shape[0])
 
 
 batched_categorical.launches = 0

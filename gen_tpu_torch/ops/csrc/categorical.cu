@@ -1,4 +1,5 @@
-// K5: batched categorical draws by Gumbel-argmax, one warp per row.
+// K5: batched categorical draws by Gumbel-argmax, rows packed into
+// sub-warps.
 //
 // Replaces gen_tpu/ops/categorical.py::_kernel (line 46; the Pallas TPU
 // kernel behind batched_categorical and categorical_fast). For each row r
@@ -14,32 +15,47 @@
 // the kernel equals ops/categorical.py::batched_categorical_plain index
 // for index (precise logf, -fmad=false).
 //
-// The design is Hopper's, not the TPU's:
+// The design is Hopper's, not the TPU's. What bounds it at the port's
+// shapes (the cipher-decode example's 432 and 4,672 rows of 27) is issue,
+// not bytes: a lane takes 4 columns, so one warp per row kept 7 of 32
+// lanes busy at K = 27 while the warp issued the whole Philox call, eight
+// logs and a five-step shuffle tree. So:
 //
-// - One warp per row, 8 rows per 256-thread block. Lane l takes the
-//   column groups 4l, 4l + 128, ... in a loop, so K has no cap (the TPU
-//   padded K to 128 lanes, a VMEM tile). Each lane keeps its running
+// - A row takes G lanes, the smallest power of two >= ceil(K / 4), at most
+//   32 (cat_group): K = 27 gives 8 lanes and 4 rows a warp, K <= 4 one
+//   lane and 32 rows. Lane g of a group takes the column groups 4g, 4g +
+//   4G, ...: one pass where G < 32, a loop for K > 128 (K has no cap; the
+//   TPU padded K to 128 lanes, a VMEM tile). Each lane keeps its running
 //   (largest value, lowest index) and whether it saw a NaN; a shuffle tree
-//   reduces them with the same tie rule.
+//   of log2(G) steps within the group (width G) reduces them with the same
+//   tie rule, and one ballot gives the group's NaN flag. Rows past N are
+//   masked, never returned from, so every shuffle runs with a full mask.
+// - The logits are loaded before the Philox call, which does not depend on
+//   them, so their latency hides behind it.
 // - The noise never touches device memory: Philox keyed by the row's key
-//   (two 32-bit words; keys[b] serves rows b * rows_per_key ..
-//   (b + 1) * rows_per_key - 1, one key per leading batch index of a
-//   vmapped call), counter (row within its key's rows, column group, 0, 0),
-//   one call per 4 columns. gen_tpu mixed the tile id into the seed
-//   instead.
-// - The logits are read once, coalesced (a warp reads 128 consecutive
-//   floats per step); one int32 is written per row.
+//   (keys[b] serves rows b * rows_per_key .. (b + 1) * rows_per_key - 1,
+//   one key per leading batch index of a vmapped call), counter (row within
+//   its key's rows, column group, 0, 0), one call per 4 columns. gen_tpu
+//   mixed the tile id into the seed instead. The kernel reads the key as
+//   the port holds it, int64 words with uint32 values, and takes their low
+//   32 bits, so a call launches this kernel and nothing else.
 //
 // Bound: bytes at large N (N * K * 4 read + N * 4 written at 3.35 TB/s);
-// at the decode example's shapes (432 and 4,672 rows of 27) a launch costs
-// more than either bound.
+// at the decode example's shapes a launch costs more than either bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 // @@NUTS_COMMON@@
 
-#define CAT_WARPS 8
+#define CAT_WARPS 4   // warps a block
+
+// lanes a row: the smallest power of two >= ceil(k / 4), at most 32
+static inline int cat_group(int k) {
+  int g = 1;
+  while (g < 32 && 4 * g < k) g *= 2;
+  return g;
+}
 
 namespace {
 
@@ -51,31 +67,40 @@ __device__ __forceinline__ void take(float& bv, int& bi, float v, int i) {
   }
 }
 
-template <bool INJECTED>
+template <bool INJECTED, int G>
 __global__ void __launch_bounds__(32 * CAT_WARPS) categorical_kernel(
     const float* __restrict__ logits, const float* __restrict__ u_in,
-    const uint32_t* __restrict__ keys, int n, int k, int rows_per_key,
+    const long long* __restrict__ keys, int n, int k, int rows_per_key,
     int32_t* __restrict__ out) {
+  constexpr int kRowsPerWarp = 32 / G;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * CAT_WARPS + (threadIdx.x >> 5);
-  if (row >= n) return;  // uniform across the warp
+  const int g = lane & (G - 1);
+  const int row0 = (blockIdx.x * CAT_WARPS + (threadIdx.x >> 5)) *
+                   kRowsPerWarp;
+  if (row0 >= n) return;  // uniform across the warp
+  const int row = row0 + lane / G;
+  const bool live = row < n;
   const size_t base = static_cast<size_t>(row) * k;
   uint2 key = make_uint2(0u, 0u);
   uint32_t local = 0u;
-  if (!INJECTED) {
+  if (!INJECTED && live) {
     const int b = row / rows_per_key;
-    key = make_uint2(keys[2 * b], keys[2 * b + 1]);
+    key = make_uint2(static_cast<uint32_t>(__ldg(keys + 2 * b)),
+                     static_cast<uint32_t>(__ldg(keys + 2 * b + 1)));
     local = static_cast<uint32_t>(row - b * rows_per_key);
   }
   float bv = neg_inf();
   int bi = k;
   bool nan = false;
-  for (int c0 = 4 * lane; c0 < k; c0 += 128) {
-    float u[4];
+  for (int c0 = 4 * g; live && c0 < k; c0 += 4 * G) {
+    float x[4], u[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      x[t] = c0 + t < k ? __ldg(logits + base + c0 + t) : 0.0f;
     if (INJECTED) {
 #pragma unroll
       for (int t = 0; t < 4; ++t)
-        u[t] = c0 + t < k ? u_in[base + c0 + t] : 0.0f;
+        u[t] = c0 + t < k ? __ldg(u_in + base + c0 + t) : 0.0f;
     } else {
       const uint4 b = philox4x32_10(
           make_uint4(local, static_cast<uint32_t>(c0 >> 2), 0u, 0u), key);
@@ -88,45 +113,73 @@ __global__ void __launch_bounds__(32 * CAT_WARPS) categorical_kernel(
     for (int t = 0; t < 4; ++t) {
       const int c = c0 + t;
       if (c < k) {
-        const float g = -logf(-logf(fmaxf(u[t], kTiny)));
-        const float x = logits[base + c] + g;
-        nan = nan || isnan(x);
-        take(bv, bi, x, c);
+        const float gum = -logf(-logf(fmaxf(u[t], kTiny)));
+        const float v = x[t] + gum;
+        nan = nan || isnan(v);
+        take(bv, bi, v, c);
       }
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, bv, off, G);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off, G);
     take(bv, bi, ov, oi);
   }
-  nan = __any_sync(0xffffffffu, nan);
-  if (lane == 0) out[row] = nan ? k - 1 : (bi < k - 1 ? bi : k - 1);
+  const unsigned nans = __ballot_sync(0xffffffffu, nan);
+  const unsigned group =
+      G == 32 ? 0xffffffffu : ((1u << (G & 31)) - 1u) << (lane & ~(G - 1));
+  if (live && g == 0)
+    out[row] = (nans & group) ? k - 1 : (bi < k - 1 ? bi : k - 1);
 }
 
 }  // namespace
 
-// logits (n, k) float32; u (n, k) float32 or null (Philox); keys
-// (n / rows_per_key, 2) uint32; out (n,) int32. Returns cudaGetLastError().
+// blocks of a launch over n rows of k columns
+static int cat_blocks(int n, int k) {
+  const int rows = CAT_WARPS * (32 / cat_group(k));
+  return (n + rows - 1) / rows;
+}
+
+template <bool INJECTED>
+static void launch(int grid, cudaStream_t st, const float* logits,
+                   const float* u, const long long* keys, int n, int k,
+                   int rows_per_key, int32_t* out) {
+  const dim3 block(32 * CAT_WARPS);
+#define CAT_CASE(G)                                                      \
+  case G:                                                                \
+    categorical_kernel<INJECTED, G><<<grid, block, 0, st>>>(            \
+        logits, u, keys, n, k, rows_per_key, out);                      \
+    break;
+  switch (cat_group(k)) {
+    CAT_CASE(1)
+    CAT_CASE(2)
+    CAT_CASE(4)
+    CAT_CASE(8)
+    CAT_CASE(16)
+    CAT_CASE(32)
+  }
+#undef CAT_CASE
+}
+
+// logits (n, k) float32; u (n, k) float32, or null for Philox noise from
+// keys (n / rows_per_key, 2) int64 words with uint32 values (not read in
+// injected mode); out (n,) int32. Returns cudaGetLastError().
 extern "C" int categorical_launch(const void* logits, const void* u,
                                   const void* keys, int n, int k,
                                   int rows_per_key, void* out,
                                   void* stream) {
-  if (n <= 0 || k <= 0 || rows_per_key <= 0)
+  if (n <= 0 || k <= 0 || rows_per_key <= 0 || (u == nullptr && !keys))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + CAT_WARPS - 1) / CAT_WARPS);
-  const dim3 block(32 * CAT_WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lg = static_cast<const float*>(logits);
+  const long long* ks = static_cast<const long long*>(keys);
+  int32_t* o = static_cast<int32_t*>(out);
   if (u != nullptr)
-    categorical_kernel<true><<<grid, block, 0, st>>>(
-        static_cast<const float*>(logits), static_cast<const float*>(u),
-        static_cast<const uint32_t*>(keys), n, k, rows_per_key,
-        static_cast<int32_t*>(out));
+    launch<true>(cat_blocks(n, k), st, lg, static_cast<const float*>(u), ks,
+                 n, k, rows_per_key, o);
   else
-    categorical_kernel<false><<<grid, block, 0, st>>>(
-        static_cast<const float*>(logits), nullptr,
-        static_cast<const uint32_t*>(keys), n, k, rows_per_key,
-        static_cast<int32_t*>(out));
+    launch<false>(cat_blocks(n, k), st, lg, nullptr, ks, n, k, rows_per_key,
+                  o);
   return static_cast<int>(cudaGetLastError());
 }

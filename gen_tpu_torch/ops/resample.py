@@ -20,16 +20,22 @@ Where PyTorch and Hopper forced differences:
 - Positions are ``(i + u) * (1/N)`` with the reciprocal rounded once: XLA
   compiles gen_tpu's ``/ n`` into that product, and on the card torch
   divides by a Python number the same way.
-- K4 runs a binary search per position where the TPU kernel counted all
-  N x N comparisons; :func:`systematic_parents_count` is that count, the
-  plain version K4 is held to on the card.
+- K4 counts within a window of the cdf where the TPU kernel counted all
+  N x N comparisons: a block narrows the bracket of its run of positions
+  by a 32-ary search (one pivot a lane, two ballots a round), reads a
+  window of it into shared memory once and counts there, in more passes
+  where a run's parents lie far apart (:func:`launch_shape`).
+  :func:`systematic_parents_count` is the TPU kernel's count, the plain
+  version K4 is held to on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,6 +60,19 @@ def build_job():
 def build() -> ctypes.CDLL:
     """Compile (once per source) and load the kernel library."""
     return _cuda_build.build(*build_job())
+
+
+def launch_shape(n: int, src: Optional[str] = None
+                 ) -> Tuple[int, int, int, int]:
+    """K4's launch over ``n`` positions, as its source (``src``, or the
+    module's) computes it: ``(positions a block, threads a block, blocks,
+    bytes of shared memory a block in float32)`` (the block's window of
+    the cdf)."""
+    src = _CSRC.read_text() if src is None else src
+    warps, r, tile = (int(re.search(rf"#define {name} (\d+)", src).group(1))
+                      for name in ("RESAMPLE_WARPS", "RESAMPLE_R",
+                                   "RESAMPLE_TILE"))
+    return 32 * warps * r, 32 * warps, -(-n // (32 * warps * r)), 4 * tile
 
 
 def normalized_cdf(log_weights: torch.Tensor) -> torch.Tensor:

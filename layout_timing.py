@@ -127,8 +127,36 @@ ptxas's own registers, at most 128 registers, the block's constants left
 to the compiler to hoist into registers); a variant that fails to build
 or run is reported and skipped. The parent checks the digests and prints a
 summary per tree, variant, model and kernel.
+
+Small mode times the small kernels K4 (systematic resampling) and K5
+(batched categorical draws) in two trees of the package, each in its own
+process, in the order other, this, this, other on one card:
+
+    python3 layout_timing.py --small OTHER_ROOT
+
+``OTHER_ROOT`` holds an earlier ``gen_tpu_torch`` package, as for
+``--stream``. Each process builds K4, K5 and the launch floor (the empty
+kernel of this checkout's ``ops/csrc/launch_floor.cu``, launched through
+``ctypes`` and ``torch.empty`` as K4 and K5 are; one ``nvcc`` each, in
+parallel), prints their ptxas reports, each launch's shape and waves
+(blocks an SM by ``chip_smoke.small_waves`` from ptxas's registers),
+then times (``chip_smoke.gpu_ms``, median of three timings) the launch
+floor, K4 at ``SMALL_K4_NS`` float32 particles in each weight case of
+``chip_smoke.k4_log_weights`` (random, zero-weight runs, one dominant
+particle) at u = 0.5, and K5's kernel (the custom op) and wrapper
+(``batched_categorical``) at every shape of ``chip_smoke.K5_SHAPES`` and
+``K5_TIMED_ONLY`` under one key. It prints a digest of the outputs: K4
+in every case at u in ``chip_smoke.K4_US``, float32 and float64, on cdfs
+made on the host (the card's cumsum is not reproducible in the last ulp
+from run to run), and K5's Philox draws at every shape under one key;
+both trees must agree. In this tree it also times the variants of
+``SMALL_VARIANTS`` (other warps a block, positions a lane or window for K4,
+warps a block for K5, by text substitution of the sources' defines),
+whose digests must agree too. The parent checks the digests and prints a
+summary per tree and variant.
 """
 
+import ctypes
 import hashlib
 import json
 import re
@@ -175,6 +203,15 @@ K1_D10 = (131072, 10, 0.25)
 # slots of the identity check
 THREAD_MODELS = ((8, 131072), (15, 32768), (22, 32768), (30, 32768))
 THREAD_CHECK_SLOTS = 200
+# --small: K4's particle counts, and this tree's variants: name ->
+# {(source, define): value}
+SMALL_K4_NS = (131072, 1048576)
+SMALL_VARIANTS = {
+    "K4 8 positions a lane, window 2048": {("resample", "RESAMPLE_R"): 8,
+                                           ("resample", "RESAMPLE_TILE"):
+                                           2048},
+    "K5 8 warps": {("categorical", "CAT_WARPS"): 8},
+}
 
 
 def main(other: Path):
@@ -1243,6 +1280,216 @@ def thread_main(other: Path):
         raise RuntimeError("K3's or K6's outputs differ between the trees")
 
 
+def _median_ms(fn, reps):
+    import torch
+    fn()
+    return float(np.median([C.gpu_ms(torch, fn, reps) for _ in range(3)]))
+
+
+def _with_define(src: str, name: str, value: int) -> str:
+    """``src`` with ``#define name <value>``."""
+    out, n = re.subn(rf"#define {name} \d+", f"#define {name} {value}", src)
+    if n != 1:
+        raise ValueError(f"no single #define {name}")
+    return out
+
+
+def small_shapes(rs, cat, n, k, srcs):
+    """(K4 positions a block, threads, blocks, shared bytes at n particles)
+    and (K5 lanes a row, threads, blocks at (n, k)) under the sources
+    ``srcs``; the earlier tree's launch shapes where its modules have no
+    ``launch_shape``."""
+    k4 = rs.launch_shape(n, srcs[0]) if hasattr(rs, "launch_shape") else \
+        (256, 256, -(-n // 256), 0)
+    k5 = cat.launch_shape(n, k, srcs[1]) if hasattr(cat, "launch_shape") \
+        else (32, 256, -(-n // 8))
+    return k4, k5
+
+
+def small_run(torch, random, rs, cat, floor, label, tag, out):
+    """Digests, census and timings of one build of K4 and K5 (the
+    modules' ``build`` as they stand) into ``out[tag]``."""
+    dev = torch.device("cuda", 0)
+    res = dict(k4={}, k5={})
+    rng = np.random.default_rng(5)
+    h4 = hashlib.sha256()
+    for dtype in (torch.float32, torch.float64):
+        for n in SMALL_K4_NS:
+            for case in ("random", "zero_runs", "dominant"):
+                lw = torch.tensor(C.k4_log_weights(n, case, rng),
+                                  dtype=dtype)
+                cdf = rs.normalized_cdf(lw).to(dev)   # made on the host
+                for u in C.K4_US:
+                    ut = torch.tensor(u, dtype=dtype, device=dev)
+                    h4.update(rs.resample_cdf(cdf, ut).cpu().numpy()
+                              .tobytes())
+                if dtype == torch.float32:
+                    ut = torch.tensor(0.5, dtype=dtype, device=dev)
+                    res["k4"][f"{n} {case}"] = _median_ms(
+                        lambda: rs.resample_cdf(cdf, ut), C.K4_REPS) * 1e3
+    res["k4_digest"] = h4.hexdigest()[:16]
+    h5 = hashlib.sha256()
+    key = random.PRNGKey(9, dev)
+    key_arg = cat._key_words(key) if hasattr(cat, "_key_words") else key
+    for n, k in C.K5_SHAPES + (C.K5_TIMED_ONLY,):
+        logits, _ = C.k5_inputs(torch, n, k, dev, n * k)
+        h5.update(cat.batched_categorical(key, logits).cpu().numpy()
+                  .tobytes())
+        logits = torch.nan_to_num(logits)
+        res["k5"][f"{n}x{k}"] = dict(
+            kernel=_median_ms(lambda: cat._categorical_op(
+                logits, key_arg, None, n), 20) * 1e3,
+            wrapper=_median_ms(lambda: cat.batched_categorical(key, logits),
+                               20) * 1e3)
+    res["k5_digest"] = h5.hexdigest()[:16]
+    res["floor_us_100"] = _median_ms(floor, C.K4_REPS) * 1e3
+    res["floor_us_20"] = _median_ms(floor, 20) * 1e3
+    for name, v in res["k4"].items():
+        print(f"{label}{tag} K4 {name} float32: {v:.2f} us", flush=True)
+    for name, v in res["k5"].items():
+        print(f"{label}{tag} K5 {name}: kernel {v['kernel']:.2f} us, wrapper "
+              f"{v['wrapper']:.2f} us", flush=True)
+    print(f"{label}{tag} launch floor {res['floor_us_100']:.2f} us (100 "
+          f"launches), {res['floor_us_20']:.2f} us (20); digests K4 "
+          f"{res['k4_digest']}, K5 {res['k5_digest']}", flush=True)
+    out[tag or "tree"] = res
+
+
+def small_census(_cuda_build, rs, cat, label, tag, jobs):
+    """ptxas's numbers of K4's and K5's functions, and the launch shapes
+    and waves of K4 at ``SMALL_K4_NS`` and K5 at its shapes."""
+    fns = {}
+    for job in jobs:
+        fns.update(C.ptxas_functions(_cuda_build.ptxas_report(job[0],
+                                                              job[1]) or ""))
+    for name, f in fns.items():
+        print(f"{label}{tag} ptxas {name}: {f['registers']} registers, "
+              f"{f['spill_bytes']} B spills, {f['stack_bytes']} B stack",
+              flush=True)
+    srcs = (jobs[0][1], jobs[1][1])
+    f4 = next(v for k, v in fns.items() if "resample" in k and "IfE" in k)
+    for n in SMALL_K4_NS:
+        (run, threads, blocks, smem), _ = small_shapes(rs, cat, n, 1, srcs)
+        per_sm, waves = C.small_waves(blocks, threads, f4["registers"],
+                                      smem)
+        print(f"{label}{tag} K4 at {n}: {blocks} blocks of {threads}, {run} "
+              f"positions a block, {per_sm} blocks an SM, {waves:.2f} waves",
+              flush=True)
+    for n, k in C.K5_SHAPES + (C.K5_TIMED_ONLY,):
+        _, (g, threads, blocks) = small_shapes(rs, cat, n, k, srcs)
+        f5 = [v for kk, v in fns.items() if "categorical" in kk
+              and "ILb0E" in kk and (f"Li{g}E" in kk or "Li" not in kk)]
+        per_sm, waves = C.small_waves(blocks, threads, f5[0]["registers"], 0)
+        print(f"{label}{tag} K5 ({n}, {k}): {g} lanes a row, {blocks} "
+              f"blocks of {threads}, {f5[0]['registers']} registers, "
+              f"{per_sm} blocks an SM, {waves:.2f} waves", flush=True)
+
+
+def small_child(label: str, root: str):
+    """One tree's K4 and K5 (and this tree's variants), with the package
+    under ``root``; prints the results as one JSON line."""
+    sys.path.insert(0, root)
+    import torch
+    import gen_tpu_torch as tt
+    from gen_tpu_torch import random
+    from gen_tpu_torch.ops import _cuda_build
+    from gen_tpu_torch.ops import categorical as cat
+    from gen_tpu_torch.ops import resample as rs
+
+    dev = torch.device("cuda", 0)
+    print(f"{label}: gen_tpu_torch from {Path(tt.__file__).parent}",
+          flush=True)
+    here = Path(__file__).resolve().parent
+    floor_job = ("launch_floor", (here / "gen_tpu_torch" / "ops" / "csrc" /
+                                  "launch_floor.cu").read_text(),
+                 {"launch_floor": [ctypes.c_void_p, ctypes.c_void_p]})
+    base = {"resample": rs.build_job(), "categorical": cat.build_job()}
+    variants = {"": {}}
+    if label == "this":
+        variants.update(SMALL_VARIANTS)
+    jobs = {}
+    for vname, change in variants.items():
+        jobs[vname] = dict(base)
+        for (which, define), value in change.items():
+            name, src, sigs = jobs[vname][which]
+            jobs[vname][which] = (name, _with_define(src, define, value),
+                                  sigs)
+    _cuda_build.build_all([floor_job] + [j for v in jobs.values()
+                                         for j in v.values()])
+    floor_lib = _cuda_build.build(*floor_job)
+
+    def floor():
+        with torch.cuda.device(dev):
+            o = torch.empty(1, dtype=torch.int32, device=dev)
+            rc = floor_lib.launch_floor(
+                o.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _cuda_build.check_launch(rc, "launch_floor")
+
+    out = {"label": label}
+    for vname, vjobs in jobs.items():
+        tag = f" [{vname}]" if vname else ""
+        libs = {w: _cuda_build.build(*j) for w, j in vjobs.items()}
+        rs.build, cat.build = (lambda: libs["resample"]), \
+            (lambda: libs["categorical"])
+        small_census(_cuda_build, rs, cat, label, tag,
+                     [vjobs["resample"], vjobs["categorical"]])
+        small_run(torch, random, rs, cat, floor, label, tag, out)
+    print("SMALL_RESULT " + json.dumps(out), flush=True)
+
+
+def small_main(other: Path):
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("layout_timing.py needs a CUDA device")
+    card = C.phase_env(torch)
+    here = Path(__file__).resolve().parent
+    roots = {"other": other.resolve(), "this": here}
+    results = []
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, __file__, "--small-child",
+                               which, str(roots[which])],
+                              capture_output=True, text=True, cwd=here)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:])
+            raise RuntimeError(f"the {which} tree's timing failed")
+        results += [json.loads(ln.split(" ", 1)[1])
+                    for ln in proc.stdout.splitlines()
+                    if ln.startswith("SMALL_RESULT ")]
+    digests = {}
+    for r in results:
+        for tag, v in r.items():
+            if tag != "label":
+                for kname in ("k4_digest", "k5_digest"):
+                    digests.setdefault(kname, set()).add(v[kname])
+    for kname, ds in digests.items():
+        print(f"{kname[:2].upper()}: outputs of every run and variant "
+              + ("identical" if len(ds) == 1 else f"DIFFER {sorted(ds)}"))
+    for which in ("other", "this"):
+        rows = [r for r in results if r["label"] == which]
+        for tag in rows[0]:
+            if tag == "label":
+                continue
+            v0 = rows[0][tag]
+            for name in v0["k4"]:
+                print(f"summary {which} {tag} K4 {name}: us "
+                      + ", ".join(f"{r[tag]['k4'][name]:.2f}" for r in rows))
+            for name in v0["k5"]:
+                print(f"summary {which} {tag} K5 {name}: kernel us "
+                      + ", ".join(f"{r[tag]['k5'][name]['kernel']:.2f}"
+                                  for r in rows)
+                      + "; wrapper us " + ", ".join(
+                          f"{r[tag]['k5'][name]['wrapper']:.2f}"
+                          for r in rows))
+            print(f"summary {which} {tag} launch floor us (100 launches) "
+                  + ", ".join(f"{r[tag]['floor_us_100']:.2f}" for r in rows)
+                  + "; (20) " + ", ".join(f"{r[tag]['floor_us_20']:.2f}"
+                                          for r in rows))
+    print(card)
+    if any(len(ds) > 1 for ds in digests.values()):
+        raise RuntimeError("K4's or K5's outputs differ between the trees")
+
+
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--stream":
         stream_main(Path(sys.argv[2]), tuple(int(a) for a in sys.argv[3:])
@@ -1255,6 +1502,10 @@ if __name__ == "__main__":
         thread_main(Path(sys.argv[2]))
     elif len(sys.argv) == 5 and sys.argv[1] == "--thread-child":
         thread_child(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--small":
+        small_main(Path(sys.argv[2]))
+    elif len(sys.argv) == 4 and sys.argv[1] == "--small-child":
+        small_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--kalman":
         kalman_main(Path(sys.argv[2]))
     elif len(sys.argv) == 4 and sys.argv[1] == "--kalman-child":

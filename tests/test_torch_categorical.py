@@ -7,7 +7,8 @@ the TPU interpreter with injected uniforms, index for index, at (300, 37)
 ``jax.random.categorical`` under the same key; a vmapped call equals its
 per-key calls. The kernel itself runs only on the card: the
 ``cuda``-marked test holds it to its plain version with injected
-uniforms, and its vmap rule to per-key calls."""
+uniforms (ties and a NaN row, K from 4 to 256: every sub-warp width), and
+its vmap rule to per-key calls."""
 
 import pytest
 
@@ -87,7 +88,7 @@ def test_vmap_rule_folds_the_batch_into_rows(monkeypatch):
         batch_size = 3
 
     logits = torch.randn(5, 3, 4)        # batch on dim 1
-    keys = torch.arange(6, dtype=torch.int32).reshape(3, 1, 2)
+    keys = torch.arange(6, dtype=torch.int64).reshape(3, 1, 2)
     out, out_dim = C._categorical_vmap(Info(), (1, 0, None, None), logits,
                                        keys, None, 5)
     (lg, ks, u, rpk), = calls
@@ -111,8 +112,12 @@ def test_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    for n, k in ((300, 37), (432, 27), (4672, 27), (1000, 256)):
+    for n, k in ((300, 37), (432, 27), (4672, 27), (1000, 256), (64, 4),
+                 (64, 256), (16384, 27), (131072, 64), (4096, 256),
+                 (50, 6), (77, 9), (33, 130)):
         logits, u = _inputs(n, k, seed=n)
+        logits[1], u[1] = 0.0, 0.5            # a row of ties
+        logits[2, k // 2] = np.nan            # a NaN row
         lt = torch.tensor(logits, device=dev)
         ut = torch.tensor(u, device=dev)
         before = C.batched_categorical.launches
@@ -120,6 +125,7 @@ def test_kernel_matches_plain_on_cuda():
         assert C.batched_categorical.launches == before + 1
         torch.testing.assert_close(got, C.batched_categorical_plain(lt, ut),
                                    rtol=0, atol=0)
+        assert int(got[1]) == 0 and int(got[2]) == k - 1
     # the vmap rule: one launch, each batch index with its own key
     lt = torch.tensor(_inputs(27, 27, seed=9)[0], device=dev)
     keys = random.split(random.PRNGKey(3, dev), 16)

@@ -13,10 +13,10 @@ CPU.
   ``"thread"`` layout byte for byte once comments are removed (its pinned
   hashes).
 - Where ``g++`` is present: the rendered d=10 K3 and K6 (eight_schools,
-  max_depth 8) built as C++ against a host shim of the CUDA runtime (one
-  ``std::thread`` per CUDA thread of a block, ``__syncthreads`` a
-  ``std::barrier``, the dynamic shared memory a per-block buffer filled
-  with NaNs) under injected randomness, against the plain versions
+  max_depth 8) built as C++ against the host shim of the CUDA runtime in
+  ``torch_cuda_shim.py`` (one ``std::thread`` per CUDA thread of a block,
+  ``__syncthreads`` a ``std::barrier``, the dynamic shared memory a
+  per-block buffer filled with NaNs) under injected randomness, against the plain versions
   (``run_pairs``/``run_ticks`` in the thread layout): completed counts
   equal, values within 1e-5 (glibc's ``expf``/``logf`` are not CUDA's),
   with one coordinate collected and with all.
@@ -42,6 +42,7 @@ from gen_tpu_torch.inference.nuts_fsm import summary_stats  # noqa: E402
 from gen_tpu_torch.ops import nuts_fused  # noqa: E402
 from gen_tpu_torch.ops.scalarize import stage_scalarized  # noqa: E402
 from gen_tpu_torch.utils import sqrt_mass_safe  # noqa: E402
+from torch_cuda_shim import SHIM  # noqa: E402
 from torch_port_models import (SCHOOL_ADDRS, SIGMAS_8, YS_8,  # noqa: E402
                                torch_eight_schools)
 
@@ -49,47 +50,6 @@ TOL = 1e-5
 # the one-thread code of eight_schools d=10 at max_depth 8 from before the
 # "thread" layout (comments removed), which the "wide" layout keeps
 WIDE_D10 = {True: "8e99df6426b840de", False: "a55f21a4b4735c71"}
-
-# a host shim of the CUDA runtime: one std::thread per CUDA thread of a
-# block, one block at a time, __syncthreads a std::barrier, static shared
-# memory as function statics (shared by the block's threads), the dynamic
-# shared memory a per-block buffer
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
-#include <cstring>
-using std::isnan;
-using std::max;
-using std::min;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __noinline__
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __syncthreads() shim_barrier->arrive_and_wait()
-struct uint2 { uint32_t x, y; };
-struct uint4 { uint32_t x, y, z, w; };
-struct shim_idx { unsigned x, y, z; };
-inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
-inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return {a, b, c, d};
-}
-inline thread_local shim_idx threadIdx, blockIdx;
-inline shim_idx blockDim;
-inline std::barrier<>* shim_barrier;
-inline float* shim_dyn;
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
-inline float __uint_as_float(uint32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
-inline uint32_t __float_as_uint(float f) { uint32_t i; std::memcpy(&i, &f, 4); return i; }
-inline uint32_t __umulhi(uint32_t a, uint32_t b) {
-  return (uint32_t)(((uint64_t)a * b) >> 32);
-}
-inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
-"""
 
 # appended to the rendered kernel in place of its launch functions: runs
 # KNAME<true, COLLECT_ALL> over the chains in the files of argv[1] (the

@@ -12,7 +12,8 @@ merge and counting variants count a cdf entry equal to a position, so on
 an exact tie they depart from the definition (ROADMAP queue 3); the test
 pins that case down. In float32 the cdfs differ: torch accumulates its
 CPU cumsum in float64, XLA in float32. The ``cuda``-marked test holds K4
-to its plain version on the card."""
+to ``torch.searchsorted`` + clamp at N up to 1,048,576 and to its plain
+version up to 131,072 on the card, in every weight case and at every u."""
 
 import pytest
 
@@ -152,7 +153,7 @@ def test_kernel_matches_plain_on_cuda():
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     for dtype in (torch.float32, torch.float64):
-        for n in (1, 1000, 4096, 32768):
+        for n in (1, 2, 33, 1000, 4096, 32768, 131072, 1048576):
             for case in ("random", "zero_runs", "dominant"):
                 lw = torch.tensor(_log_weights(n, case, rng), dtype=dtype,
                                   device=dev)
@@ -162,6 +163,11 @@ def test_kernel_matches_plain_on_cuda():
                     before = P.systematic_resample.launches
                     got = P.resample_cdf(cdf, ut)
                     assert P.systematic_resample.launches == before + 1
-                    torch.testing.assert_close(
-                        got, P.systematic_parents_count(cdf, ut),
-                        rtol=0, atol=0)
+                    lib = torch.searchsorted(
+                        cdf, P.positions(n, ut, dtype, dev),
+                        out_int32=True).clamp_(max=n - 1)
+                    torch.testing.assert_close(got, lib, rtol=0, atol=0)
+                    if n <= 131072:        # the literal count is O(N^2)
+                        torch.testing.assert_close(
+                            got, P.systematic_parents_count(cdf, ut),
+                            rtol=0, atol=0)
