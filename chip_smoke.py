@@ -151,7 +151,35 @@ nonzero and no result line is printed):
        ``"auto"`` (K3); gates 0.05 sd, 6% against
        ``_verify.ar1_quadrature`` (121 points per axis), split-R-hat < 1.01
        from the returned summary.
-9. Numbers (printed after phase 10): per kernel its time, its plain
+11. The rest of SMC, K4's launch count set to 0 before each path that
+    resamples and read after:
+    a. ``smc_sampler`` on tests/test_tempering.py's conjugate model (20
+       observations, prior sd 3, noise sd 1) at 131,072 particles, 20
+       rungs, L=5, eps 0.1, two moves a rung, systematic resampling, three
+       seeds: mean log-ML within 0.1 of the exact evidence, each seed's
+       weighted posterior mean and sd within 0.05; K4 launches > 0.
+    b. ``smc_sampler_adaptive`` on the same model (target ESS 0.6):
+       log-ML within 0.15, posterior within 0.05, 1 <= stages < 64, a
+       ladder rising to 1, K4 launches == stages (one resampling a stage).
+    c. ``ais`` on the same model, three seeds: mean log-ML within 0.1;
+       ``psis`` of the first run's weights on the card against the same
+       weights on the CPU (smoothed weights and k-hat within 1e-5
+       relative), with k-hat and the PSIS ESS printed.
+    d. ``parallel_tempering`` on tests/test_tempering.py's bimodal model
+       (y = 4), six betas 0.02-1.0, 3,000 sweeps, L=8, eps 0.15, the first
+       500 dropped: swap rate > 0.2, 0.2 < share of x > 0 < 0.8, mean |x|
+       within 0.15 of 2.
+    e. ``particle_gibbs`` with ancestor sampling on
+       examples/particle_gibbs.py's kernel (phi 0.8) at 4,096 particles
+       and T = 40 (benchmarks/workloads.py:469's width), 60 sweeps, 10 of
+       burn-in, against ``models.lgssm.kalman_smoother`` with
+       tests/test_csmc.py's gate form; CSMC particle-steps/s.
+    f. A two-branch ``Switch`` mixture (the component index a batched
+       categorical choice) at 131,072 traces: vmapped ``generate``, then
+       an ``update`` that flips every index, on the card and on the CPU
+       under the same keys: weights, scores and choices within 1e-5
+       relative to max(|x|, 1).
+9. Numbers (printed after phase 11): per kernel its time, its plain
    version's time, its bound, the library call's time where there is one
    and launches on the main path, as one JSON line (K1's launches summed
    over its three paths, the headline, ``sample_posterior``'s
@@ -160,7 +188,8 @@ nonzero and no result line is printed):
    and the issue bound at the SM clock read under load; K2c and K2b per
    gradient of the staged-code kernel; K2c at 10^6 also at the ChEES
    warmup's 128 chains; K2b with its registers, spills, tape bytes and
-   executed operations); then the card; then the result line.
+   executed operations; K4's launches summed over phase 6a and phase
+   11's paths); then the card; then the result line.
 
 Each main path is driven with the kernels' launch counts set to 0 just
 before it and read just after. The script imports neither JAX nor gen_tpu.
@@ -1560,12 +1589,14 @@ def phase_smc_gates(torch, tt, dev, tag):
           "importance sampling outside the Kalman gate")
 
 
-def k4_entry(torch, dev, tag, smc_a, k4_err):
+def k4_entry(torch, dev, tag, smc_a, k4_err, tempered):
     """Phase 9 for K4: its device time at 131,072 and 1,048,576 float32
     particles in each weight case of :func:`k4_log_weights` (random, the
     headline; zero-weight runs; one dominant particle), the launch floor,
     the literal count's time, torch.searchsorted + clamp's time, the bound,
-    registers, spills and waves. Returns its JSON entry."""
+    registers, spills and waves. Its launches are summed over its main
+    paths: phase 6a's genealogy filters and phase 11's tempered samplers
+    and Particle Gibbs (``tempered``, by path). Returns its JSON entry."""
     from gen_tpu_torch.ops import resample as rs
     rng = np.random.default_rng(5)
     floor = launch_floor_ms(torch, dev, K4_REPS)
@@ -1604,7 +1635,9 @@ def k4_entry(torch, dev, tag, smc_a, k4_err):
                 source="gen_tpu_torch/ops/csrc/resample.cu",
                 replaces="gen_tpu/ops/resample.py:40",
                 per=f"launch at {SMC_N} float32 particles",
-                launches=smc_a["launches"],
+                launches=smc_a["launches"] + sum(tempered.values()),
+                launches_by_path=dict(smc_genealogy=smc_a["launches"],
+                                      **tempered),
                 launches_per_filter=smc_a["launches"] / smc_a["filters"],
                 max_abs_err=k4_err, ms=k_ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -2934,6 +2967,330 @@ def phase_compare(torch, ctx, dev, paired):
     return max(errs)
 
 
+# -- phase 11: the rest of SMC (tempered samplers on K4, PSIS, Particle
+#    Gibbs, Switch) ------------------------------------------------------
+
+TEMPER_N = 131072                 # particles of parts (a)-(c)
+TEMPER_OBS, TEMPER_SD0, TEMPER_SD = 20, 3.0, 1.0   # tests/test_tempering.py
+TEMPER_RUNGS = 20
+TEMPER_SEEDS = 3
+PT_BETAS = (0.02, 0.06, 0.15, 0.35, 0.65, 1.0)
+PT_SWEEPS, PT_BURN = 3000, 500
+PG_N, PG_T, PG_PHI = 4096, 40, 0.8   # benchmarks/workloads.py:469's width
+PG_SWEEPS, PG_BURN = 60, 10
+PG_Q, PG_R = 0.5, 0.4             # examples/particle_gibbs.py's noise sds
+SWITCH_N = 131072
+SWITCH_RTOL = 1e-5
+
+
+def temper_data():
+    """tests/test_tempering.py's observations, exact log evidence and
+    exact posterior (mean, sd) of the conjugate Gaussian model."""
+    ys = np.random.default_rng(1).normal(2.0, TEMPER_SD, TEMPER_OBS)
+    cov = (TEMPER_SD0 ** 2 * np.ones((TEMPER_OBS, TEMPER_OBS))
+           + TEMPER_SD ** 2 * np.eye(TEMPER_OBS))
+    chol = np.linalg.cholesky(cov)
+    z = np.linalg.solve(chol, ys)
+    lml = float(-0.5 * (z @ z + TEMPER_OBS * np.log(2 * np.pi))
+                - np.sum(np.log(np.diag(chol))))
+    prec = 1 / TEMPER_SD0 ** 2 + TEMPER_OBS / TEMPER_SD ** 2
+    return ys, lml, (np.sum(ys) / TEMPER_SD ** 2) / prec, 1 / np.sqrt(prec)
+
+
+def temper_setup(torch, tt, dev):
+    """The conjugate model's template trace (observations constrained) and
+    the bimodal model's (y = 4), with their latent selections."""
+    from gen_tpu_torch import random
+    ys = temper_data()[0]
+    ones = torch.ones(TEMPER_OBS, device=dev)
+
+    @tt.gen
+    def gauss_model():
+        mu = tt.normal(0.0, TEMPER_SD0) @ "mu"
+        tt.normal(mu * ones, TEMPER_SD) @ "ys"
+
+    @tt.gen
+    def bimodal_model():
+        x = tt.normal(0.0, 3.0) @ "x"
+        tt.normal(x * x, 0.5) @ "y"
+
+    key = random.PRNGKey(0, dev)
+    gauss, _ = gauss_model.generate(key, (), tt.choicemap(
+        ys=torch.tensor(ys, dtype=torch.float32, device=dev)))
+    bimodal, _ = bimodal_model.generate(key, (), tt.choicemap(
+        y=torch.tensor(4.0, device=dev)))
+    return gauss, tt.select("mu"), bimodal, tt.select("x")
+
+
+def posterior_moments(torch, x, log_w=None):
+    """(mean, sd) of particle positions, weighted by ``log_w``."""
+    x = x.double().reshape(-1)
+    w = (torch.softmax(log_w.double(), dim=0) if log_w is not None
+         else torch.full_like(x, 1.0 / x.shape[0]))
+    m = (w * x).sum()
+    return float(m), float(((w * (x - m) ** 2).sum()).sqrt())
+
+
+def phase_tempering(torch, tt, dev, tag):
+    """Phase 11 (a)-(d): smc_sampler, smc_sampler_adaptive and ais on the
+    conjugate model at 131,072 particles against the exact evidence and
+    posterior, PSIS of the AIS weights on the card against the CPU, and
+    parallel_tempering on the bimodal model. K4's launches are set to 0
+    before (a) and (b) and read after. Returns the launches by path."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import (ais, parallel_tempering,
+                                         psis_effective_sample_size,
+                                         smc_sampler, smc_sampler_adaptive)
+    from gen_tpu_torch.inference.psis import psis
+    from gen_tpu_torch.ops import resample as rs
+    _, lml_ex, mean_ex, sd_ex = temper_data()
+    gauss, sel, bimodal, bsel = temper_setup(torch, tt, dev)
+    betas = torch.linspace(0.0, 1.0, TEMPER_RUNGS + 1, device=dev)[1:]
+    launches = {}
+    print(f"phase 11: conjugate model, {TEMPER_OBS} observations: exact "
+          f"log-ML {lml_ex:.4f}, posterior mean {mean_ex:.4f} sd "
+          f"{sd_ex:.4f}")
+
+    # (a) tempered SMC, three seeds
+    rs.systematic_resample.launches = 0
+    runs, secs = timed(torch, lambda: [smc_sampler(
+        random.PRNGKey(3 + s, dev), gauss, sel, betas, TEMPER_N, L=5,
+        eps=0.1, moves_per_rung=2) for s in range(TEMPER_SEEDS)])
+    launches["smc_sampler"] = rs.systematic_resample.launches
+    lmls = [float(r[2]) for r in runs]
+    d_lml = float(np.mean(lmls)) - lml_ex
+    moms = [posterior_moments(torch, r[0], r[1]) for r in runs]
+    d_m = max(abs(m - mean_ex) for m, _ in moms)
+    d_s = max(abs(s - sd_ex) for _, s in moms)
+    print(f"{tag} 11a smc_sampler N={TEMPER_N}, {TEMPER_RUNGS} rungs, L=5, "
+          f"2 moves a rung, systematic, {TEMPER_SEEDS} seeds: {secs:.2f} s; "
+          f"log-ML {', '.join(f'{v:.4f}' for v in lmls)} (mean - exact "
+          f"{d_lml:+.4f}, gate 0.1); weighted posterior mean err {d_m:.4f}, "
+          f"sd err {d_s:.4f} (gate 0.05); K4 launches "
+          f"{launches['smc_sampler']}")
+    check(abs(d_lml) < 0.1 and d_m < 0.05 and d_s < 0.05,
+          "smc_sampler outside the exact-evidence gates")
+    check(launches["smc_sampler"] > 0, "smc_sampler launched no K4")
+    check(all(r[0].shape == (TEMPER_N, 1) and bool(torch.isfinite(
+        r[0]).all()) for r in runs), "smc_sampler: bad particles")
+    del runs
+
+    # (b) the ESS-adaptive ladder: one resampling (one K4 launch) a stage
+    rs.systematic_resample.launches = 0
+    (flats, lml, n_stages, hist), secs = timed(
+        torch, lambda: smc_sampler_adaptive(
+            random.PRNGKey(9, dev), gauss, sel, TEMPER_N, target_ess=0.6,
+            L=5, eps=0.1, moves_per_rung=2))
+    launches["smc_sampler_adaptive"] = rs.systematic_resample.launches
+    m, s = posterior_moments(torch, flats)
+    ladder = hist[:n_stages].tolist()
+    print(f"{tag} 11b smc_sampler_adaptive N={TEMPER_N}, target ESS 0.6: "
+          f"{secs:.2f} s, {n_stages} stages (betas "
+          f"{', '.join(f'{b:.4f}' for b in ladder)}); log-ML "
+          f"{float(lml):.4f} (diff {float(lml) - lml_ex:+.4f}, gate 0.15); "
+          f"posterior mean err {abs(m - mean_ex):.4f}, sd err "
+          f"{abs(s - sd_ex):.4f} (gate 0.05); K4 launches "
+          f"{launches['smc_sampler_adaptive']}")
+    check(abs(float(lml) - lml_ex) < 0.15 and abs(m - mean_ex) < 0.05
+          and abs(s - sd_ex) < 0.05, "smc_sampler_adaptive outside gates")
+    check(1 <= n_stages < 64 and ladder[-1] == 1.0
+          and all(b1 > b0 for b0, b1 in zip(ladder, ladder[1:])),
+          "smc_sampler_adaptive: bad ladder")
+    check(launches["smc_sampler_adaptive"] == n_stages,
+          f"smc_sampler_adaptive: {launches['smc_sampler_adaptive']} K4 "
+          f"launches for {n_stages} stages")
+    del flats
+
+    # (c) AIS, three seeds; PSIS of the first run's weights, card vs CPU
+    runs, secs = timed(torch, lambda: [ais(
+        random.PRNGKey(s, dev), gauss, sel, betas, TEMPER_N, L=5, eps=0.1)
+        for s in range(TEMPER_SEEDS)])
+    lmls = [float(r[2]) for r in runs]
+    d_lml = float(np.mean(lmls)) - lml_ex
+    lw = runs[0][1]
+    (res, psis_s) = timed(torch, lambda: psis(lw))
+    res_cpu = psis(lw.cpu())
+    err_w = float(((res.log_weights.cpu() - res_cpu.log_weights).abs()
+                   / res_cpu.log_weights.abs().clamp_min(1e-30)).max())
+    err_k = abs(float(res.khat) - float(res_cpu.khat)) / max(
+        abs(float(res_cpu.khat)), 1e-30)
+    ess = float(psis_effective_sample_size(res.log_weights))
+    print(f"{tag} 11c ais N={TEMPER_N}, {TEMPER_RUNGS} rungs, L=5, "
+          f"{TEMPER_SEEDS} seeds: {secs:.2f} s; log-ML "
+          f"{', '.join(f'{v:.4f}' for v in lmls)} (mean - exact "
+          f"{d_lml:+.4f}, gate 0.1); psis on the card {psis_s * 1e3:.2f} "
+          f"ms: k-hat {float(res.khat):.4f}, PSIS ESS {ess:.1f} of "
+          f"{TEMPER_N}; card vs CPU: smoothed weights {err_w:.2e}, k-hat "
+          f"{err_k:.2e} relative (gate 1e-5)")
+    check(abs(d_lml) < 0.1, "ais outside the exact-evidence gate")
+    check(err_w < 1e-5 and err_k < 1e-5 and res.tail_len
+          == res_cpu.tail_len, "psis on the card differs from the CPU's")
+    del runs, res
+
+    # (d) parallel tempering on the bimodal model
+    pt_betas = torch.tensor(PT_BETAS, device=dev)
+    (samples, swap_rate), secs = timed(torch, lambda: parallel_tempering(
+        random.PRNGKey(5, dev), bimodal, bsel, pt_betas, n_sweeps=PT_SWEEPS,
+        L=8, eps=0.15))
+    xs = samples[PT_BURN:, 0].double().cpu().numpy()
+    frac_pos = float(np.mean(xs > 0))
+    abs_mean = float(np.mean(np.abs(xs)))
+    print(f"{tag} 11d parallel_tempering, {len(PT_BETAS)} replicas, "
+          f"{PT_SWEEPS} sweeps, L=8: {secs:.2f} s "
+          f"({secs / PT_SWEEPS * 1e3:.2f} ms a sweep); swap rate "
+          f"{float(swap_rate):.4f} (gate > 0.2), share of x > 0 "
+          f"{frac_pos:.4f} (gate 0.2-0.8), mean |x| {abs_mean:.4f} (gate "
+          f"2 +- 0.15)")
+    check(float(swap_rate) > 0.2 and 0.2 < frac_pos < 0.8
+          and abs(abs_mean - 2.0) < 0.15,
+          "parallel_tempering outside the bimodal gates")
+    return launches
+
+
+def pg_setup(torch, tt, dev):
+    """examples/particle_gibbs.py's kernel and data (simulate_data, phi =
+    0.8) at T = 40, and the Kalman smoother of the same LGSSM."""
+    from gen_tpu_torch.combinators import VectorChoiceMap
+    from gen_tpu_torch.models import LGSSMParams, kalman_smoother
+
+    @tt.gen
+    def ssm_kernel(t, prev, phi):
+        x = tt.normal(phi * prev, PG_Q) @ "x"
+        tt.normal(x, PG_R) @ "y"
+        return x
+
+    rng = np.random.default_rng(3)
+    x, ys = 0.0, []
+    for _ in range(PG_T):
+        x = PG_PHI * x + PG_Q * rng.standard_normal()
+        ys.append(x + PG_R * rng.standard_normal())
+    ys = np.asarray(ys)
+    obs = VectorChoiceMap(tt.ChoiceMap().set_value(
+        "y", torch.tensor(ys, dtype=torch.float32, device=dev)), PG_T)
+    f64 = dict(dtype=torch.float64)
+    params = LGSSMParams(
+        A=torch.tensor([[PG_PHI]], **f64), Q=torch.tensor([[PG_Q ** 2]], **f64),
+        C=torch.tensor([[1.0]], **f64), R=torch.tensor([[PG_R ** 2]], **f64),
+        mu0=torch.tensor([0.0], **f64), P0=torch.tensor([[PG_Q ** 2]], **f64))
+    means, covs = kalman_smoother(params, torch.tensor(ys, **f64)[:, None])
+    return ssm_kernel, obs, means[:, 0].numpy(), covs[:, 0, 0].numpy()
+
+
+def phase_particle_gibbs(torch, tt, dev, tag):
+    """Phase 11(e): particle_gibbs with ancestor sampling at 4,096
+    particles and T = 40 against the Kalman smoother (tests/test_csmc.py's
+    gate form). Returns K4's launches (the initial genealogy run)."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import particle_gibbs
+    from gen_tpu_torch.ops import resample as rs
+    kernel, obs, sm_means, sm_vars = pg_setup(torch, tt, dev)
+    rs.systematic_resample.launches = 0
+    (refs, lmls), secs = timed(torch, lambda: particle_gibbs(
+        random.PRNGKey(8, dev), kernel, 0.0, (PG_PHI,), obs,
+        num_particles=PG_N, num_sweeps=PG_SWEEPS, ancestor_sampling=True))
+    launches = rs.systematic_resample.launches
+    xs = refs.inner.get_value("x").double().cpu().numpy()   # (sweeps, T)
+    kept = PG_SWEEPS - PG_BURN
+    post_mean, post_var = xs[PG_BURN:].mean(axis=0), xs[PG_BURN:].var(axis=0)
+    se = float((np.sqrt(sm_vars / kept) * 6 + 0.05).max())
+    d_mean = float(np.abs(post_mean - sm_means).max())
+    var_ok = bool(np.all(np.abs(post_var - sm_vars)
+                         <= 0.05 + 0.45 * np.abs(sm_vars)))
+    d_var = float(np.max(np.abs(post_var - sm_vars)
+                         / (0.05 + 0.45 * np.abs(sm_vars))))
+    rate = PG_SWEEPS * PG_N * PG_T / secs
+    print(f"{tag} 11e particle_gibbs N={PG_N} T={PG_T} phi={PG_PHI}, "
+          f"ancestor sampling, {PG_SWEEPS} sweeps ({PG_BURN} burn-in): "
+          f"{secs:.2f} s, {rate:.4e} CSMC particle-steps/s; smoothed means "
+          f"max |err| {d_mean:.4f} (gate {se:.4f}), variances at "
+          f"{d_var:.3f} of their gate (rtol 0.45, atol 0.05); log-ML "
+          f"estimates {float(lmls[PG_BURN:].mean()):.4f} mean; K4 launches "
+          f"{launches} (the initial genealogy run)")
+    check(d_mean <= se and var_ok and bool(np.isfinite(xs).all()),
+          "particle_gibbs outside the Kalman-smoother gates")
+    return launches
+
+
+def phase_switch(torch, tt, dev, tag):
+    """Phase 11(f): a two-branch Switch mixture at 131,072 traces, vmapped
+    generate (the component index a batched choice) then an update that
+    flips every index, on the card and on the CPU under the same keys:
+    weights, scores, indices and each branch's choices equal within
+    1e-5 relative to max(|x|, 1) (float32: below 1 in magnitude, where a
+    weight's sum of logs nears 0 and the two devices' last-ulp differences
+    in log and exp no longer shrink with it, 1e-5 absolute)."""
+    from gen_tpu_torch import random
+
+    def model_on(d):
+        @tt.gen
+        def b0(mu):
+            return tt.normal(mu, 1.0) @ "x"
+
+        @tt.gen
+        def b1(mu):
+            x = tt.normal(-mu, 2.0) @ "x"
+            z = tt.normal(x, 0.5) @ "z"
+            return x + z
+
+        sw = tt.Switch(b0, b1)
+        probs = torch.tensor([0.4, 0.6], device=d)
+
+        @tt.gen
+        def mixture(mu):
+            k = tt.categorical(probs) @ "k"
+            v = sw(k, mu) @ "comp"
+            tt.normal(v, 0.5) @ "y"
+            return v
+        return mixture
+
+    def run(d):
+        mixture = model_on(d)
+        ys = torch.linspace(-3.0, 3.0, SWITCH_N, device=d)
+
+        def one(k, y):
+            k1, k2 = random.split(k)
+            tr, w = mixture.generate(k1, (0.5,), tt.choicemap(y=y))
+            new, uw, _, _ = tr.update(k2, tt.choicemap(k=1 - tr["k"]))
+            branches = new.get_call(("comp",)).subtrace.branch_traces
+            return (w, tr.get_score(), tr["k"], uw, new.get_score(),
+                    new["k"], new.get_retval()) + tuple(
+                        b.get_choices().to_array() for b in branches)
+
+        keys = random.split(random.PRNGKey(11, d), SWITCH_N)
+        return torch.func.vmap(one)(keys, ys)
+
+    card, secs = timed(torch, lambda: run(dev))
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    names = ("generate weight", "score", "k", "update weight", "new score",
+             "new k", "new return value", "branch 0 choices",
+             "branch 1 choices")
+    worst = {}
+    for name, a, b in zip(names, card, cpu):
+        a, b = a.cpu().double(), b.double()
+        worst[name] = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+    flipped = float((card[5] != card[2]).double().mean())
+    print(f"{tag} 11f Switch mixture, {SWITCH_N} traces: vmapped generate + "
+          f"index-flipping update {secs:.2f} s on the card ({cpu_s:.2f} s on "
+          f"the CPU); card vs CPU max relative error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (gate {SWITCH_RTOL:.0e}); indices flipped {flipped:.3f}")
+    check(all(v < SWITCH_RTOL for v in worst.values()) and flipped == 1.0,
+          "Switch on the card differs from the CPU")
+
+
+def phase_rest_of_smc(torch, tt, dev, tag):
+    """Phase 11: (a)-(d) tempering and PSIS, (e) Particle Gibbs, (f)
+    Switch. Returns K4's launches by path."""
+    t0 = time.perf_counter()
+    launches = phase_tempering(torch, tt, dev, tag)
+    launches["particle_gibbs"] = phase_particle_gibbs(torch, tt, dev, tag)
+    phase_switch(torch, tt, dev, tag)
+    print(f"{tag} phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2995,6 +3352,9 @@ def main():
     stream_res = phase_stream(torch, tt, dev, tag, ctx)
     ar1_res = phase_ar1(torch, tt, dev, tag, ctx)
 
+    # -- phase 11: the rest of SMC -----------------------------------------
+    tempered = phase_rest_of_smc(torch, tt, dev, tag)
+
     # -- phase 9: numbers ---------------------------------------------------
     # K1 runs on three main paths: the headline, sample_posterior's
     # hmc_fused engine and phase 10(c)'s AR(1) model
@@ -3002,7 +3362,7 @@ def main():
         headline=k1_entry["launches"], sample_posterior=sample_launches[
             "hmc_fused"], ar1=ar1_res["hmc_fused"]["k1_launches"])
     k1_entry["launches"] = sum(k1_entry["launches_by_path"].values())
-    k4 = k4_entry(torch, dev, tag, smc_a, k4_err)
+    k4 = k4_entry(torch, dev, tag, smc_a, k4_err, tempered)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)
     print(f"{tag} chip_smoke.py took {time.perf_counter() - t_start:.1f} s "

@@ -10,7 +10,8 @@ runs each kernel's plain PyTorch twin instead.
 from . import combinators, diagnostics, inference, random
 from .address import addr_path
 from .choice_map import ChoiceMap, choicemap
-from .combinators import (Map, Unfold, UnfoldArena, VectorChoiceMap,
+from .combinators import (Map, Switch, SwitchCombinator, Unfold,
+                          UnfoldArena, VectorChoiceMap, call_at, choice_at,
                           smc_run, vector_choicemap)
 from .diff import IntDiff, NoChange, UnknownChange
 from .dists import (bernoulli, beta, binom, broadcasted_normal,
@@ -21,7 +22,8 @@ from .dists import (bernoulli, beta, binom, broadcasted_normal,
                     uniform_discrete)
 from .dynamic import gen, init_param, param, trace_at
 from .gfi import GenerativeFunction, Trace
-from .selection import complement, select
+from .masked import MaskedSelection, MaskedValue, mask, masked_select
+from .selection import complement, select, selectall, selectnone
 
 __all__ = [
     "combinators", "diagnostics", "inference", "random", "addr_path",
@@ -34,5 +36,7 @@ __all__ = [
     "beta", "inv_gamma", "exponential", "cauchy", "laplace", "student_t",
     "gen",
     "init_param", "param", "trace_at",
-    "GenerativeFunction", "Trace", "complement", "select",
+    "GenerativeFunction", "Trace", "complement", "select", "selectall",
+    "selectnone", "Switch", "SwitchCombinator", "choice_at", "call_at",
+    "MaskedValue", "mask", "MaskedSelection", "masked_select",
 ]

@@ -23,6 +23,15 @@ def _as_tensor(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
 
 
+def _allclose(a, b, rtol, atol) -> bool:
+    """``np.allclose`` on two leaves of any dtypes and devices."""
+    a, b = _as_tensor(a), _as_tensor(b)
+    dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                             torch.float64)
+    return bool(torch.allclose(a.to(dt), b.to(device=a.device, dtype=dt),
+                               rtol=rtol, atol=atol))
+
+
 class ChoiceMap:
     """A mutable hierarchical map from addresses to values. Each node has
     *leaves* (values at single keys) and *submaps*; a key holds one or the
@@ -139,8 +148,10 @@ class ChoiceMap:
               ) -> "ChoiceMap":
         """Functional merge. With ``overwrite=False`` duplicate leaf
         addresses raise; with ``overwrite=True`` ``other`` wins."""
-        if self.is_empty():
+        if type(self) is ChoiceMap and self.is_empty():
             return other.copy()
+        if type(other) is not ChoiceMap and hasattr(other, "to_choicemap"):
+            other = other.to_choicemap()
         out = self.copy()
         for k, v in other._leaves.items():
             if k in out._leaves and not overwrite:
@@ -170,6 +181,21 @@ class ChoiceMap:
 
     def __hash__(self):
         raise TypeError("ChoiceMap is unhashable")
+
+    def allclose(self, other: "ChoiceMap", rtol=1e-5, atol=1e-8) -> bool:
+        """Approximate equality on values, exact on structure (Gen's
+        ``isapprox`` on choice maps)."""
+        if sorted_keys(self._leaves) != sorted_keys(other._leaves):
+            return False
+        for k, v in self._leaves.items():
+            if not _allclose(v, other._leaves[k], rtol, atol):
+                return False
+        mine = self.get_submaps_shallow()
+        theirs = other.get_submaps_shallow()
+        if sorted_keys(mine) != sorted_keys(theirs):
+            return False
+        return all(mine[k].allclose(theirs[k], rtol=rtol, atol=atol)
+                   for k in mine)
 
     # -- iteration & flattening -------------------------------------------
 
@@ -214,6 +240,13 @@ class ChoiceMap:
             out.set_value(path, piece.reshape(proto.shape).to(proto.dtype))
             offset += n
         return out
+
+    def as_dict(self) -> Dict:
+        """Nested plain-dict view (Gen's ``nested_view``)."""
+        d: Dict = {k: self._leaves[k] for k in self._leaves}
+        for k, sub in self.get_submaps_shallow().items():
+            d[k] = sub.as_dict()
+        return d
 
     def filter(self, selection) -> "ChoiceMap":
         """Restrict to the addresses in ``selection``."""

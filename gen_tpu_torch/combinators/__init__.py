@@ -1,5 +1,7 @@
 from .arena import ArenaTrace, UnfoldArena, smc_run
+from .at import CallAtCombinator, ChoiceAtCombinator, call_at, choice_at
 from .map_combinator import Map, MapCombinator, MapTrace
+from .switch import Switch, SwitchCombinator, SwitchTrace
 from .unfold import Unfold, UnfoldCombinator, UnfoldTrace
 from .vector import (VectorChoiceMap, tree_index, tree_stack, try_densify,
                      vector_choicemap)
@@ -8,5 +10,6 @@ __all__ = [
     "VectorChoiceMap", "vector_choicemap", "try_densify", "tree_stack",
     "tree_index", "Unfold", "UnfoldCombinator", "UnfoldTrace",
     "UnfoldArena", "ArenaTrace", "smc_run", "Map", "MapCombinator",
-    "MapTrace",
+    "MapTrace", "choice_at", "call_at", "ChoiceAtCombinator",
+    "CallAtCombinator", "Switch", "SwitchCombinator", "SwitchTrace",
 ]

@@ -4,19 +4,13 @@ arguments.
 Counterpart: ``gen_tpu/combinators/map_combinator.py``. Every GFI method is
 one ``torch.func.vmap`` of the kernel's method over the element axis, and
 the trace is one pytree whose leaves carry a leading element axis; element
-i's choices live under integer key i. Ported: the dense paths of
-``simulate``, ``generate``, ``assess``, ``update`` and ``regenerate``
-(ALL, NONE, or a selection that is the same for every element),
-``project`` (a per-element loop where the selections differ), and
-structural ``__eq__``/``__hash__``.
-
-Not ported yet (ROADMAP queue 1 item 5), each raising
-``NotImplementedError`` where gen_tpu would take it: sparse (per-index)
-constraints, which gen_tpu lowers onto one masked dense vmap
-(``densify_masked``), and element-varying selections in ``regenerate``,
-which it batches into a masked selection (``batch_selections``), both
-with ``masked.py``; and ``update`` with a length change, gen_tpu's
-per-element loop.
+i's choices live under integer key i. Dense constraints (a
+:class:`VectorChoiceMap`, or an int-keyed map with one structure at every
+element) take the vmapped path; sparse (per-index) constraints are lowered
+onto one masked dense vmap (``densify_masked``) where they stack, and
+element-varying selections onto a batched masked selection
+(``batch_selections``); what does not lower runs gen_tpu's per-element
+loop, as does ``update`` with a length change.
 """
 
 from __future__ import annotations
@@ -32,24 +26,11 @@ from ..address import addr_path
 from ..choice_map import ChoiceMap
 from ..diff import UnknownChange, all_unknown_change
 from ..gfi import GenerativeFunction, Trace
-from ..selection import (AllSelection, EmptySelection, Selection,
-                         selection_signature)
+from ..selection import Selection
 from ..utils import join_static, split_static
-from .vector import VectorChoiceMap, tree_index, try_densify
+from .vector import (VectorChoiceMap, densify_masked, lane_selections,
+                     sparsify_masked, tree_index, tree_stack, try_densify)
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 5)"
-
-
-def _shared_selection(selection: Selection, length: int):
-    """The one selection every element sees, or None where the elements'
-    selections differ."""
-    if isinstance(selection, (AllSelection, EmptySelection)):
-        return selection
-    sels = [selection.subselection(i) for i in range(length)]
-    sig = selection_signature(sels[0])
-    if all(selection_signature(s) == sig for s in sels[1:]):
-        return sels[0]
-    return None
 
 
 class MapTrace(Trace):
@@ -95,10 +76,13 @@ class MapTrace(Trace):
         return sub[rest if len(rest) > 1 else rest[0]]
 
     def project(self, selection: Selection):
-        shared = _shared_selection(selection, self.length)
-        if shared is not None:
-            return torch.sum(vmap(lambda t: t.project(shared))(
-                self.subtraces))
+        shared, masked = lane_selections(selection, self.length,
+                                          self.score.device)
+        if shared is not None or masked is not None:
+            return torch.sum(vmap(
+                lambda t, s: t.project(s),
+                in_dims=(0, None if masked is None else 0))(
+                self.subtraces, shared if masked is None else masked))
         total = 0.0
         for i in range(self.length):
             total = total + self.get_subtrace(i).project(
@@ -130,13 +114,6 @@ def _length_of(args: Tuple) -> int:
     if not leaves:
         raise ValueError("Map requires at least one vectorized argument")
     return int(leaves[0].shape[0])
-
-
-def _refuse_sparse(kind: str, what: str):
-    if kind == "sparse":
-        raise NotImplementedError(
-            f"Map.{what} with sparse (per-index) constraints, gen_tpu's "
-            f"masked dense pass (masked.py), {_NOT_PORTED}")
 
 
 class MapCombinator(GenerativeFunction):
@@ -175,17 +152,31 @@ class MapCombinator(GenerativeFunction):
     def generate(self, key, args: Tuple, constraints: ChoiceMap = None):
         n = _length_of(args)
         kind, payload = try_densify(constraints, n)
-        _refuse_sparse(kind, "generate")
+        if kind == "sparse":
+            # lower onto ONE masked-dense vmapped generate when stackable
+            dense = densify_masked(payload, n)
+            if dense is not None:
+                kind, payload = "dense", dense
         keys = random.split(key, n)
         if kind == "empty":
             subtraces = vmap(lambda k, a: self.kernel.simulate(k, a))(
                 keys, args)
             return (self._make_trace(args, subtraces, n),
                     torch.zeros((), device=keys.device))
-        subtraces, weights = vmap(
-            lambda k, a, c: self.kernel.generate(k, a, c))(
-                keys, args, payload.inner)
-        return self._make_trace(args, subtraces, n), torch.sum(weights)
+        if kind == "dense":
+            subtraces, weights = vmap(
+                lambda k, a, c: self.kernel.generate(k, a, c))(
+                    keys, args, payload.inner)
+            return self._make_trace(args, subtraces, n), torch.sum(weights)
+        # sparse: per-element loop, stacked
+        subs, weights = [], []
+        for i in range(n):
+            sub, w = self.kernel.generate(
+                keys[i], tree_index(args, i), payload.get(i, ChoiceMap()))
+            subs.append(sub)
+            weights.append(w)
+        return (self._make_trace(args, tree_stack(subs), n),
+                torch.sum(torch.stack(weights)))
 
     def assess(self, args: Tuple, choices: ChoiceMap):
         n = _length_of(args)
@@ -202,28 +193,65 @@ class MapCombinator(GenerativeFunction):
     def update(self, key, trace: MapTrace, args: Tuple, argdiffs: Tuple,
                constraints: ChoiceMap):
         n = _length_of(args)
-        if n != trace.length:
-            raise NotImplementedError(
-                f"Map.update with a length change (gen_tpu's per-element "
-                f"loop) {_NOT_PORTED}")
         keys = random.split(key, n) if key is not None else None
         kind, payload = try_densify(constraints, n)
-        _refuse_sparse(kind, "update")
-        dense = kind == "dense"
+        lowered = False
+        if kind == "sparse" and n == trace.length:
+            dense = densify_masked(payload, n)
+            if dense is not None:
+                kind, payload, lowered = "dense", dense, True
+        if n == trace.length and kind in ("empty", "dense"):
+            dense = kind == "dense"
 
-        def one(k, prev, a, c):
-            new_sub, w, _, d = self.kernel.update(
-                k, prev, a, all_unknown_change(a), c)
-            return new_sub, w, d
+            def one(k, prev, a, c):
+                new_sub, w, _, d = self.kernel.update(
+                    k, prev, a, all_unknown_change(a), c)
+                return new_sub, w, d
 
-        new_subs, weights, discards = vmap(
-            one, in_dims=(None if key is None else 0, 0, 0,
-                          0 if dense else None))(
-            keys, trace.subtraces, args,
-            payload.inner if dense else ChoiceMap())
-        discard = (VectorChoiceMap(discards, n)
-                   if not discards.is_empty() else ChoiceMap())
-        return (self._make_trace(args, new_subs, n), torch.sum(weights),
+            new_subs, weights, discards = vmap(
+                one, in_dims=(None if key is None else 0, 0, 0,
+                              0 if dense else None))(
+                keys, trace.subtraces, args,
+                payload.inner if dense else ChoiceMap())
+            discard = (VectorChoiceMap(discards, n)
+                       if not discards.is_empty() else ChoiceMap())
+            if lowered and not discards.is_empty():
+                # unmask the discard back to sparse plain values (the
+                # reference discard)
+                sparse_d = sparsify_masked(discards, n)
+                if sparse_d is not None:
+                    discard = sparse_d
+            return (self._make_trace(args, new_subs, n), torch.sum(weights),
+                    UnknownChange, discard)
+        # sparse or length-changing path: per-element loop
+        new_subs = []
+        discard = ChoiceMap()
+        weight = torch.zeros((), device=trace.score.device)
+        for i in range(n):
+            a_i = tree_index(args, i)
+            c_i = (payload.get(i, ChoiceMap()) if kind == "sparse"
+                   else (payload.get_submap(i) if kind == "dense"
+                         else ChoiceMap()))
+            k_i = None if keys is None else keys[i]
+            if i < trace.length:
+                sub, w, _, d = self.kernel.update(
+                    k_i, trace.get_subtrace(i), a_i,
+                    all_unknown_change(a_i), c_i)
+                if not d.is_empty():
+                    discard.set_submap(i, d)
+            else:
+                sub, w = self.kernel.generate(k_i, a_i, c_i)
+            new_subs.append(sub)
+            weight = weight + w
+        # deleted elements (n < prev length): subtract scores, discard
+        # choices
+        for i in range(n, trace.length):
+            old = trace.get_subtrace(i)
+            weight = weight - old.get_score()
+            ch = old.get_choices()
+            if not ch.is_empty():
+                discard.set_submap(i, ch)
+        return (self._make_trace(args, tree_stack(new_subs), n), weight,
                 UnknownChange, discard)
 
     def regenerate(self, key, trace: MapTrace, args: Tuple, argdiffs: Tuple,
@@ -232,20 +260,32 @@ class MapCombinator(GenerativeFunction):
         if n != trace.length:
             raise NotImplementedError(
                 "Map.regenerate with length change: use update")
-        shared = _shared_selection(selection, n)
-        if shared is None:
-            raise NotImplementedError(
-                f"Map.regenerate with element-varying selections, gen_tpu's "
-                f"batched masked selection (masked.py), {_NOT_PORTED}")
-
-        def one(k, prev, a):
-            new_sub, w, _ = self.kernel.regenerate(
-                k, prev, a, all_unknown_change(a), shared)
-            return new_sub, w
-
-        new_subs, weights = vmap(one)(random.split(key, n), trace.subtraces,
-                                      args)
-        return (self._make_trace(args, new_subs, n), torch.sum(weights),
+        keys = random.split(key, n)
+        # per-element subselections on one vmappable form: a shared
+        # closed-over subselection when uniform, a batched MaskedSelection
+        # when element-varying
+        shared, masked = lane_selections(selection, n, keys.device)
+        if shared is not None or masked is not None:
+            def one(k, prev, a, s):
+                new_sub, w, _ = self.kernel.regenerate(
+                    k, prev, a, all_unknown_change(a), s)
+                return new_sub, w
+            new_subs, weights = vmap(
+                one, in_dims=(0, 0, 0, None if masked is None else 0))(
+                keys, trace.subtraces, args,
+                shared if masked is None else masked)
+            return (self._make_trace(args, new_subs, n), torch.sum(weights),
+                    UnknownChange)
+        # selections that are not statically enumerable: per element
+        new_subs, weight = [], torch.zeros((), device=keys.device)
+        for i in range(n):
+            a_i = tree_index(args, i)
+            sub, w, _ = self.kernel.regenerate(
+                keys[i], trace.get_subtrace(i), a_i, all_unknown_change(a_i),
+                selection.subselection(i))
+            new_subs.append(sub)
+            weight = weight + w
+        return (self._make_trace(args, tree_stack(new_subs), n), weight,
                 UnknownChange)
 
 

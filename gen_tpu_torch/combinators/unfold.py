@@ -13,15 +13,13 @@ Where PyTorch forces a difference:
 - ``lax.scan`` becomes a Python loop over the steps with gen_tpu's
   per-step keys (``split(key, T)``); the subtraces are stacked time-major
   at the end.
-- gen_tpu lowers sparse per-step constraints onto one masked dense scan
-  (``densify_masked``); the port runs its per-step loop, with the same
-  weights. The keys are the same too, unless a partially constrained
-  address comes before a sampled one in the kernel: the masked scan draws
-  a key at every masked address.
-- Per-step selections that differ are lowered by gen_tpu onto a masked
-  selection; the port raises ``NotImplementedError`` there (``masked.py``,
-  ROADMAP queue 1 item 5). ALL, NONE and selections that are the same at
-  every step run the per-step loop with gen_tpu's keys.
+- Sparse per-step constraints are lowered, as in gen_tpu, onto one dense
+  map of masked values (``densify_masked``), which the per-step loop
+  reads a step at a time, so a masked address draws a key at every step
+  as gen_tpu's masked scan does; per-step selections that differ are
+  lowered onto a batched masked selection (``batch_selections``), indexed
+  a step at a time. What does not lower runs gen_tpu's own per-step
+  fallback.
 - The step index ``t`` and Python numbers in ``init_state`` become tensors
   on the key's device before the first step: torch's pytrees keep Python
   numbers static where JAX traces them, and every step's subtrace must
@@ -40,10 +38,10 @@ from ..address import addr_path
 from ..choice_map import ChoiceMap
 from ..diff import IntDiff, NoChange, UnknownChange
 from ..gfi import GenerativeFunction, Trace
-from ..selection import (AllSelection, EmptySelection, Selection,
-                         selection_signature, static_leaf_paths)
+from ..selection import Selection
 from ..utils import join_static, split_static
-from .vector import VectorChoiceMap, tree_index, tree_stack, try_densify
+from .vector import (VectorChoiceMap, densify_masked, lane_selections,
+                     sparsify_masked, tree_index, tree_stack, try_densify)
 
 
 def step_index(t: int, device) -> torch.Tensor:
@@ -106,9 +104,13 @@ class UnfoldTrace(Trace):
         return sub[rest if len(rest) > 1 else rest[0]]
 
     def project(self, selection: Selection):
-        if isinstance(selection, (EmptySelection, AllSelection)):
+        shared, masked = lane_selections(selection, self.length,
+                                          self.score.device)
+        if shared is not None or masked is not None:
             return torch.sum(torch.func.vmap(
-                lambda tr: tr.project(selection))(self.subtraces))
+                lambda tr, s: tr.project(s),
+                in_dims=(0, None if masked is None else 0))(
+                self.subtraces, shared if masked is None else masked))
         total = 0.0
         for t in range(self.length):
             total = total + self.get_subtrace(t).project(
@@ -132,27 +134,6 @@ def _unfoldtrace_unflatten(children, aux):
 pytree.register_pytree_node(
     UnfoldTrace, _unfoldtrace_flatten, _unfoldtrace_unflatten,
     serialized_type_name="gen_tpu_torch.UnfoldTrace")
-
-
-def _step_selections(selection: Selection, length: int):
-    """Each step's selection; raises where gen_tpu lowers the per-step
-    selections onto a masked selection (they differ between steps and
-    every one is statically enumerable)."""
-    if isinstance(selection, (AllSelection, EmptySelection)):
-        return [selection] * length
-    sels = [selection.subselection(t) for t in range(length)]
-    try:
-        sigs = [selection_signature(s) for s in sels]
-        if all(s == sigs[0] for s in sigs[1:]):
-            return sels
-        for s in sels:
-            static_leaf_paths(s)
-    except NotImplementedError:
-        return sels          # gen_tpu's per-step fallback
-    raise NotImplementedError(
-        "Unfold.regenerate with per-step selections that differ needs a "
-        "masked selection, which comes with masked.py (ROADMAP queue 1 "
-        "item 5)")
 
 
 class UnfoldCombinator(GenerativeFunction):
@@ -211,6 +192,11 @@ class UnfoldCombinator(GenerativeFunction):
     def generate(self, key, args: Tuple, constraints: ChoiceMap = None):
         length, init_state, params = self._split_args(args)
         kind, payload = try_densify(constraints, length)
+        if kind == "sparse":
+            # lower onto ONE masked-dense pass when stackable
+            dense = densify_masked(payload, length)
+            if dense is not None:
+                kind, payload = "dense", dense
         dev = key.device
         if kind == "empty":
             return self.simulate(key, args), _zero(dev)
@@ -263,6 +249,14 @@ class UnfoldCombinator(GenerativeFunction):
             if not any(t < prev_length for t in touched_old):
                 return self._extend(keys, trace, args, payload, kind)
 
+        # sparse same-length constraints lower onto one masked-dense pass
+        # (after the extension check: densifying first would hide the O(1)
+        # extension pattern)
+        lowered = False
+        if kind == "sparse" and length == prev_length:
+            dense = densify_masked(payload, length)
+            if dense is not None:
+                kind, payload, lowered = "dense", dense, True
         sub_argdiffs = (NoChange, UnknownChange) + tuple(
             UnknownChange for _ in params)
         if kind in ("empty", "dense") and length == prev_length:
@@ -279,6 +273,10 @@ class UnfoldCombinator(GenerativeFunction):
                 state = sub.get_retval()
             discard = (ChoiceMap() if all(d.is_empty() for d in discards)
                        else VectorChoiceMap(tree_stack(discards), length))
+            if lowered and not discard.is_empty():
+                sparse_d = sparsify_masked(discard.inner, length)
+                if sparse_d is not None:
+                    discard = sparse_d
             return (self._make_trace(args, tree_stack(subs), length),
                     torch.sum(torch.stack(weights)), UnknownChange, discard)
 
@@ -335,8 +333,14 @@ class UnfoldCombinator(GenerativeFunction):
         if length != trace.length:
             raise NotImplementedError(
                 "Unfold.regenerate with length change: use update")
-        sels = _step_selections(selection, length)
         dev = key.device
+        shared, masked = lane_selections(selection, length, dev)
+        if shared is not None:
+            sels = [shared] * length
+        elif masked is not None:
+            sels = [tree_index(masked, t) for t in range(length)]
+        else:
+            sels = [selection.subselection(t) for t in range(length)]
         keys = random.split(key, length)
         sub_argdiffs = (NoChange, UnknownChange) + tuple(
             UnknownChange for _ in params)

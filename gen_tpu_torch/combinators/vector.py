@@ -3,10 +3,10 @@ tensors.
 
 Counterpart: ``gen_tpu/combinators/vector.py``. A :class:`VectorChoiceMap`
 holds ONE inner choice map whose leaves carry a leading length-N axis, the
-form a vmapped or time-stacked trace produces. ``densify_masked`` and
-``sparsify_masked`` wait for ``masked.py`` (ROADMAP queue 1 item 5): the
-port's combinators run sparse per-index constraints as a per-step loop,
-which eager PyTorch runs as fast as a masked dense pass.
+form a vmapped or time-stacked trace produces. ``densify_masked`` lowers
+sparse per-index constraints onto one dense map of
+:class:`~gen_tpu_torch.masked.MaskedValue` stacks, and ``sparsify_masked``
+turns such a discard back into plain values at the flagged indices.
 """
 
 from __future__ import annotations
@@ -149,6 +149,86 @@ def try_densify(constraints: ChoiceMap, length: int):
             return ("dense", VectorChoiceMap(
                 tree_stack([subs[i] for i in range(length)]), length))
     return ("sparse", dict(subs))
+
+
+def densify_masked(subs: dict, length: int):
+    """Lower sparse per-index constraints ``{index: ChoiceMap}`` onto ONE
+    dense VectorChoiceMap whose leaves are :class:`gen_tpu_torch.masked
+    .MaskedValue` stacks over the union of constrained paths: presence
+    becomes a per-lane flag vector, so a vector combinator runs one
+    vmapped (or per-step) generate/update over every index. Returns None
+    when the per-index maps are not stackable (heterogeneous shapes or
+    dtypes, nested submaps, or already-masked values); callers fall back
+    to their loop."""
+    from ..masked import MaskedValue
+    maps = [subs.get(i, ChoiceMap()) for i in range(length)]
+    paths, seen = [], set()
+    try:
+        for m in maps:
+            for p, v in m.leaf_items():
+                if isinstance(v, MaskedValue):
+                    return None
+                if p not in seen:
+                    seen.add(p)
+                    paths.append(p)
+        if not paths:
+            return None
+        inner = ChoiceMap()
+        for p in paths:
+            donors = [i for i in range(length) if maps[i].has_value(p)]
+            proto = torch.as_tensor(maps[donors[0]].get_value(p))
+            vals = torch.stack([
+                torch.as_tensor(maps[i].get_value(p)) if maps[i].has_value(p)
+                else torch.zeros_like(proto) for i in range(length)])
+            flags = torch.tensor([maps[i].has_value(p)
+                                  for i in range(length)],
+                                 device=proto.device)
+            inner.set_value(p, MaskedValue(vals, flags))
+    except (ValueError, TypeError, RuntimeError):
+        return None
+    return VectorChoiceMap(inner, length)
+
+
+def sparsify_masked(inner: ChoiceMap, length: int):
+    """Inverse of :func:`densify_masked`: a stacked discard map whose
+    leaves are MaskedValue((N,)+shape, (N,) flags) (or plain stacked
+    values) becomes an int-keyed ChoiceMap holding plain values at exactly
+    the flagged indices, the reference discard. Needs flags it can read
+    on the host: returns None where a flag is batched by a ``torch.func``
+    transform (the caller keeps the masked form), as gen_tpu does under
+    tracing."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+    from ..masked import MaskedValue
+    out = ChoiceMap()
+    for p, v in inner.leaf_items():
+        if isinstance(v, MaskedValue):
+            if is_functorch_wrapped_tensor(torch.as_tensor(v.flag)):
+                return None
+            flags = torch.as_tensor(v.flag).tolist()
+            vals = v.value
+        else:
+            flags = [True] * length
+            vals = v
+        for i in range(length):
+            if flags[i]:
+                out.set_value((i,) + p, vals[i])
+    return out
+
+
+def lane_selections(selection, length: int, device):
+    """gen_tpu's lowering of a vector combinator's per-element (per-step)
+    subselections: ``(shared, None)`` when every element sees one
+    selection, ``(None, masked)`` (a MaskedSelection of ``(length,)``
+    flags) when they differ but enumerate statically, and ``(None, None)``
+    for the per-element fallback."""
+    from ..selection import AllSelection, EmptySelection, batch_selections
+    if isinstance(selection, (AllSelection, EmptySelection)):
+        return selection, None
+    try:
+        return batch_selections(
+            [selection.subselection(i) for i in range(length)], device)
+    except NotImplementedError:
+        return None, None
 
 
 def tree_stack(items):

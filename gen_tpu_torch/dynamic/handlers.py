@@ -5,10 +5,12 @@ and torch code; every ``dist(args) @ "addr"`` dispatches to the innermost
 active handler, which threads an explicit key (split once per traced call,
 in execution order, exactly as gen_tpu does, so both packages draw the same
 bits). Ported: ``Simulate``, ``Generate``, ``Assess``, ``Update`` and
-``Regenerate``, and the distribution-call recorder
-(:class:`record_dist_calls`) that ``inference/mixed.py`` discovers discrete
-supports with. Masked constraint values and masked selections (gen_tpu's
-``masked.py``, ROADMAP queue 1 item 5) raise ``NotImplementedError``.
+``Regenerate`` with their masked branches (a
+:class:`~gen_tpu_torch.masked.MaskedValue` constraint, a
+:class:`~gen_tpu_torch.masked.MaskedSelection`), and the distribution-call
+recorder (:class:`record_dist_calls`) that ``inference/mixed.py``
+discovers discrete supports with. The masked branches select with
+``torch.where``, so that one vmapped pass serves lanes with any flags.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..address import Address, addr_path
 from ..choice_map import ChoiceMap
 from ..diff import all_unknown_change
 from ..dists.distribution import Distribution
+from ..masked import MaskedSelection, MaskedValue, flag_on
 from ..selection import NONE, Selection
 from .trace import CallRecord, ChoiceRecord
 
@@ -136,15 +139,6 @@ def _sel_at_path(sel: Selection, path: Tuple) -> Selection:
     for k in path:
         sel = sel.subselection(k)
     return sel
-
-
-def refuse_masked(x, what: str):
-    """gen_tpu's masked constraint values and selections carry per-lane
-    flags (``flag``, ``flag_at``); their branchless paths come with
-    ``masked.py``."""
-    if hasattr(x, "flag") or hasattr(x, "flag_at"):
-        raise NotImplementedError(
-            f"masked {what} come with masked.py (ROADMAP queue 1 item 5)")
 
 
 def _zero():
@@ -267,7 +261,17 @@ class GenerateHandler(Handler):
                 f"constraints hold a submap at choice address {path!r}")
         if constrained:
             v = self.constraints.get_value(path)
-            refuse_masked(v, "constraint values")
+            if isinstance(v, MaskedValue):
+                # dynamically present constraint: sample where absent,
+                # weight only where present
+                sampled = dist.sample(self._next_key(), *args)
+                flag = flag_on(v.flag, sampled)
+                v = torch.where(flag, torch.as_tensor(v.value), sampled)
+                s = dist.logpdf(v, *args)
+                self.records[path] = ChoiceRecord(v, s)
+                self.score = self.score + s
+                self.weight = self.weight + torch.where(flag, s, 0.0)
+                return v
         else:
             v = dist.sample(self._next_key(), *args)
         s = dist.logpdf(v, *args)
@@ -337,9 +341,28 @@ class UpdateHandler(Handler):
                 f"constraints hold a submap at choice address {path!r}")
         if has_prev:
             prev_rec = self.prev.get_choice(path)
+        cons_v = self.constraints.get_value(path) if constrained else None
+        if isinstance(cons_v, MaskedValue):
+            if has_prev:
+                flag = flag_on(cons_v.flag, prev_rec.value)
+                v = torch.where(flag, torch.as_tensor(cons_v.value),
+                                prev_rec.value)
+                self.discard.set_value(path, MaskedValue(prev_rec.value,
+                                                         flag))
+                s = dist.logpdf(v, *args)
+                self.weight = self.weight + s - prev_rec.score
+            else:
+                sampled = dist.sample(self._next_key(), *args)
+                flag = flag_on(cons_v.flag, sampled)
+                v = torch.where(flag, torch.as_tensor(cons_v.value),
+                                sampled)
+                s = dist.logpdf(v, *args)
+                self.weight = self.weight + torch.where(flag, s, 0.0)
+            self.records[path] = ChoiceRecord(v, s)
+            self.score = self.score + s
+            return v
         if constrained:
-            v = self.constraints.get_value(path)
-            refuse_masked(v, "constraint values")
+            v = cons_v
             if has_prev:
                 self.discard.set_value(path, prev_rec.value)
         elif has_prev:
@@ -383,7 +406,6 @@ class RegenerateHandler(Handler):
 
     def __init__(self, key, prev_trace, selection: Selection, params):
         super().__init__(key, params)
-        refuse_masked(selection, "selections")
         self.prev = prev_trace
         self.selection = selection
         self.records: Dict[Tuple, Any] = {}
@@ -392,6 +414,8 @@ class RegenerateHandler(Handler):
         self.weight = _zero()
 
     def handle_dist(self, path, dist, args):
+        if isinstance(self.selection, MaskedSelection):
+            return self._handle_masked(path, dist, args)
         keep = self.prev.has_choice(path) and path not in self.selection
         if keep:
             prev_rec = self.prev.get_choice(path)
@@ -401,6 +425,24 @@ class RegenerateHandler(Handler):
         s = dist.logpdf(v, *args)
         if keep:
             self.weight = self.weight + s - prev_rec.score
+        self.records[path] = ChoiceRecord(v, s)
+        self.score = self.score + s
+        return v
+
+    def _handle_masked(self, path, dist, args):
+        """Membership by a per-lane flag: resample where it is set, keep
+        and re-score elsewhere, in one branchless pass."""
+        if self.prev.has_choice(path):
+            prev_rec = self.prev.get_choice(path)
+            sampled = dist.sample(self._next_key(), *args)
+            flag = flag_on(self.selection.flag_at(path), sampled)
+            v = torch.where(flag, sampled, prev_rec.value)
+            s = dist.logpdf(v, *args)
+            self.weight = self.weight + torch.where(
+                flag, 0.0, s - prev_rec.score)
+        else:
+            v = dist.sample(self._next_key(), *args)
+            s = dist.logpdf(v, *args)
         self.records[path] = ChoiceRecord(v, s)
         self.score = self.score + s
         return v

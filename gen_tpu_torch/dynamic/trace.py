@@ -6,8 +6,9 @@ and whether each is a choice or a call), the generative function and the
 non-tensor arguments and return values (e.g. a model body that returns
 nothing) are the spec; values, scores and subtraces are the leaves. ``torch.func.vmap`` over ``generate`` therefore returns one trace
 whose leaves carry the batch dimension, and ``update`` vmapped over traces
-reads each particle's records. The masked-selection branch of ``project``
-waits for ``masked.py``.
+reads each particle's records. ``project`` under a
+:class:`~gen_tpu_torch.masked.MaskedSelection` sums the scores weighted by
+their per-lane flags.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.utils._pytree as pytree
 from ..address import Address, addr_path, key_sort_key
 from ..choice_map import ChoiceMap
 from ..gfi import Trace
+from ..masked import MaskedSelection, flag_on
 from ..selection import NONE, Selection
 from ..utils import join_static, split_static
 
@@ -145,10 +147,17 @@ class DynamicTrace(Trace):
         ``project(trace, EmptySelection()) == noise``."""
         if selection is NONE or selection.is_empty_set():
             return self.noise
+        masked = isinstance(selection, MaskedSelection)
         total = torch.zeros_like(torch.as_tensor(self.score))
         for path, rec in self.records.items():
             if isinstance(rec, ChoiceRecord):
-                if path in selection:
+                if masked:
+                    # membership by a per-lane flag: the flag-weighted
+                    # score
+                    total = total + torch.where(
+                        flag_on(selection.flag_at(path), rec.score),
+                        rec.score, 0.0)
+                elif path in selection:
                     total = total + rec.score
             else:
                 subsel = selection

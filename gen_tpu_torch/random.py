@@ -86,8 +86,15 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """New key from ``key`` and a 32-bit integer."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """New key from ``key`` and a 32-bit integer. ``data`` may be a 1-D
+    integer tensor: then one key per element, shape ``(n, 2)``, as
+    ``jax.vmap(jax.random.fold_in, in_axes=(None, 0))`` gives them."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & _M32
+        y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2],
+                              torch.zeros_like(d), d)
+        return torch.stack([y0, y1], dim=-1)
     d = torch.tensor([int(data) & _M32], dtype=torch.int64,
                      device=key.device)
     y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2],

@@ -2,15 +2,16 @@
 
 Counterpart: ``gen_tpu/selection.py``. Selections are static metadata and
 hold no tensors, so the classes carry over unchanged.
-``selection_signature`` and ``static_leaf_paths`` tell Unfold's
-``regenerate`` when gen_tpu would lower per-step selections onto a masked
-selection; ``batch_selections`` itself waits for ``masked.py`` (ROADMAP
-queue 1 item 5).
+``batch_selections`` lowers per-lane selections onto one vmappable form
+(a shared selection, or a :class:`~gen_tpu_torch.masked.MaskedSelection`
+of per-lane flags), as Map and Unfold need it.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from .address import Address, Key, addr_head_rest
 
@@ -140,8 +141,19 @@ def select(*addrs: Address) -> Selection:
     return out
 
 
+def selectall() -> Selection:
+    return ALL
+
+
+def selectnone() -> Selection:
+    return NONE
+
+
 def complement(sel: Selection) -> Selection:
     return sel.complement()
+
+
+# -- lowering per-lane static selections onto one vmappable form -----------
 
 
 def selection_signature(sel):
@@ -172,7 +184,9 @@ def static_leaf_paths(sel, prefix=()):
     if isinstance(sel, AllSelection):
         if not prefix:
             raise NotImplementedError(
-                "a bare AllSelection cannot be expanded into addresses")
+                "a bare AllSelection cannot be lowered onto a masked "
+                "selection (the address universe is unknown); select "
+                "explicit choice addresses")
         return [prefix]
     if isinstance(sel, HierarchicalSelection):
         out = []
@@ -181,3 +195,22 @@ def static_leaf_paths(sel, prefix=()):
         return out
     raise NotImplementedError(
         f"{type(sel).__name__} selections are not statically enumerable")
+
+
+def batch_selections(sels, device=None):
+    """Lower a list of per-lane static selections onto one vmappable form:
+    ``(shared, None)`` when every lane is selected identically (close over
+    ``shared`` in the vmapped function), else ``(None, masked)``: a
+    MaskedSelection whose flag leaves are ``(len(sels),)`` boolean tensors
+    on ``device``, to be passed as a vmapped (in_dims=0) argument. Raises
+    NotImplementedError when a lane's selection is not statically
+    enumerable; callers fall back to their per-lane path."""
+    from .masked import MaskedSelection
+    sigs = [selection_signature(s) for s in sels]
+    if all(sig == sigs[0] for sig in sigs[1:]):
+        return sels[0], None
+    per = [set(static_leaf_paths(s)) for s in sels]
+    union = sorted(set().union(*per), key=repr)
+    flags = {p: torch.tensor([p in lane for lane in per], device=device)
+             for p in union}
+    return None, MaskedSelection(flags)

@@ -158,14 +158,30 @@ def test_not_visited_errors():
 
 
 def test_masked_constraints_raise():
-    class Masked:
-        flag = torch.tensor(True)
-        value = torch.tensor(0.0)
-
-    _, ttr = _dynamic_traces()
+    """A masked constraint updates as gen_tpu's does (kept where its flag
+    is off, constrained where on, the discard masked); what still raises
+    is what gen_tpu refuses: a masked value at a call address, and a
+    MaskedSelection's complement and membership test."""
+    jtr, ttr = _dynamic_traces()
+    for flag in (True, False):
+        jn, jw, _, jd = jtr.update(None, gt.ChoiceMap().set_value(
+            "a", gt.mask(0.25, flag)))
+        with float64_default():
+            tn, tw, _, td = ttr.update(None, tt.ChoiceMap().set_value(
+                "a", tt.mask(torch.tensor(0.25), flag)))
+        assert_traces_equal(tn, jn)
+        assert_close(tw, jw)
+        assert_close(td["a"].value, jd["a"].value)
+        assert bool(td["a"].flag) == bool(jd["a"].flag) == flag
     with float64_default():
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ttr.update(tkey(0), tt.choicemap(a=Masked()))
+        with pytest.raises(ValueError, match="call address"):
+            ttr.update(tkey(0), tt.ChoiceMap().set_value(
+                "sub", tt.mask(torch.tensor(0.0), True)))
+    sel = tt.masked_select(a=torch.tensor(True))
+    with pytest.raises(NotImplementedError, match="complement"):
+        sel.complement()
+    with pytest.raises(TypeError, match="regenerate"):
+        ("a",) in sel
 
 
 def test_propose():
@@ -216,7 +232,7 @@ def test_unfold_generate_simulate_assess():
     assert isinstance(ttr.get_choices(), VectorChoiceMap)
     assert_close(ttr[(2, "x")], jtr[(2, "x")])
     assert_close(ttr[2], jtr[2])
-    # sparse constraints (gen_tpu's masked dense scan, the port's loop)
+    # sparse constraints (lowered onto one masked dense pass)
     jt2, jw2 = J_UNFOLD.generate(jkey(3), (5, 0.0), _sparse(gt, (1, 3)))
     js = J_UNFOLD.simulate(jkey(3), (5, 0.0))
     jwa, jra = J_UNFOLD.assess((4, 0.0), jtr.get_choices())
@@ -300,11 +316,21 @@ def test_unfold_regenerate(sel):
 
 
 def test_unfold_regenerate_per_step_selection_raises():
-    _, ttr = _unfold_traces(T=4)
+    """Per-step selections that differ lower onto a batched masked
+    selection, as in gen_tpu (same weights and trace); what still raises
+    is gen_tpu's refusal of a length change."""
+    jtr, ttr = _unfold_traces(T=4)
+    jn, jw, _ = J_UNFOLD.regenerate(jkey(6), jtr, (4, 0.0),
+                                    (gt.NoChange,) * 2, gt.select((1, "x")))
     with float64_default():
-        with pytest.raises(NotImplementedError, match="item 5"):
-            T_UNFOLD.regenerate(tkey(6), ttr, (4, 0.0), (tt.NoChange,) * 2,
+        tn, tw, _ = T_UNFOLD.regenerate(tkey(6), ttr, (4, 0.0),
+                                        (tt.NoChange,) * 2,
+                                        tt.select((1, "x")))
+        with pytest.raises(NotImplementedError, match="length change"):
+            T_UNFOLD.regenerate(tkey(6), ttr, (5, 0.0), (tt.NoChange,) * 2,
                                 tt.select((1, "x")))
+    assert_traces_equal(tn, jn)
+    assert_close(tw, jw)
 
 
 def test_unfold_structural_equality_and_errors():
