@@ -53,13 +53,14 @@ nonzero and no result line is printed):
      count ``systematic_parents_count``, and against torch.searchsorted +
      clamp: integer equality at N 1, 1,000 (ragged), 4,096, 32,768,
      131,072 and 1,048,576, u 0, 0.5 and 1 - 2^-24, float32 and float64,
-     random weights, zero-weight runs and one dominant particle.
+     random weights, zero-weight runs and one dominant particle (at
+     1,048,576 the literal count for one u a weight case).
 3. The headline path (``bench.py::main``): the regression model at 524,288
    chains, ``hmc_chains`` warmup, then the fused HMC kernel; gates of
    ``benchmarks/bench_verify.py`` (quadrature moments, split-R-hat).
 4. The general-model paths (``bench.py`` metrics 2 and 3): eight_schools at
    131,072 chains (d=10) and the 100-school model at 32,768 chains (d=102),
-   vmapped ``generate`` and 400 iterations of ChEES warmup once, then for
+   vmapped ``generate`` and 200 iterations of ChEES warmup once, then for
    each of K3 (``paired=True``) and K6 (``paired=False``) from that warmed
    state: ``nuts_chains_fused_chunked`` with one decorrelation call and
    three timed calls of 2,000 leapfrog slots. Gates of
@@ -87,14 +88,14 @@ nonzero and no result line is printed):
       gather); then one filter at 1,048,576 particles. Particle-steps/s;
       K4's launches must equal the resampling steps.
    b. The linear-Gaussian model of ``tests/test_arena.py`` at T=32 and
-      131,072 particles against the exact Kalman filter, twenty seeds per
+      131,072 particles against the exact Kalman filter, ten seeds per
       path (each path's mean log-ML offset and its standard error):
       ``smc_genealogy``, ``smc_run`` on ``UnfoldArena`` and the
       particle-filter API on ``Unfold`` (``initialize_particle_filter``,
       ``maybe_resample``, ``particle_filter_step`` with ``(IntDiff(1),
       NoChange)``). Gates: mean log-ML within 0.05, weighted filtered mean
       of x_T-1 within 0.02 sd and its variance within 3%. Multinomial and
-      residual resampling on the particle-filter path (twenty seeds each,
+      residual resampling on the particle-filter path (ten seeds each,
       the log-ML gate, no K4 launch); 1,000 reconstructed trajectories
       re-assessed against their stored scores (relative 1e-5);
       ``importance_sampling`` at T=2 within 0.05 of the exact log-ML.
@@ -105,9 +106,9 @@ nonzero and no result line is printed):
 8. The mixed discrete + continuous slice, K5's and K3's launch counts set
    to 0 before each path and read after:
    a. The cipher-decode example (``gen_tpu_torch.examples.decode``) at its
-      own size: 292 characters, K=27, 16 restarts under vmap, 600 sweeps;
-      gate: the best restart decodes > 90% of characters; K5 launches 3
-      per sweep (1,800).
+      size: 292 characters, K=27, 16 restarts under vmap, 300 sweeps
+      (its own 600 halved for the time limit); gate: the best restart
+      decodes > 90% of characters; K5 launches 3 per sweep (900).
    b. ``sample_posterior(engine="auto")`` on tests/test_mixed.py's GMM
       (N=6, 16,384 chains) and examples/regression.py's flagship (n=50,
       256 chains), both ``gibbs_nuts_fused`` (K3 launches > 0), and on the
@@ -166,8 +167,8 @@ nonzero and no result line is printed):
        weights on the CPU (smoothed weights and k-hat within 1e-5
        relative), with k-hat and the PSIS ESS printed.
     d. ``parallel_tempering`` on tests/test_tempering.py's bimodal model
-       (y = 4), six betas 0.02-1.0, 3,000 sweeps, L=8, eps 0.15, the first
-       500 dropped: swap rate > 0.2, 0.2 < share of x > 0 < 0.8, mean |x|
+       (y = 4), six betas 0.02-1.0, 1,000 sweeps, L=8, eps 0.15, the first
+       250 dropped: swap rate > 0.2, 0.2 < share of x > 0 < 0.8, mean |x|
        within 0.15 of 2.
     e. ``particle_gibbs`` with ancestor sampling on
        examples/particle_gibbs.py's kernel (phi 0.8) at 4,096 particles
@@ -179,7 +180,40 @@ nonzero and no result line is printed):
        an ``update`` that flips every index, on the card and on the CPU
        under the same keys: weights, scores and choices within 1e-5
        relative to max(|x|, 1).
-9. Numbers (printed after phase 11): per kernel its time, its plain
+12. Gradients and the local moves (no kernel: the slice runs torch ops
+    under ``torch.func``), on tests/test_tempering.py's conjugate model
+    (phase 11's) unless named:
+    a. ``mh_selection`` (200 steps), ``hmc`` (L=5, eps 0.05; 100),
+       ``mala`` (tau 0.005; 150) and ``elliptical_slice`` (the prior
+       N(0, 9); 20) on "mu", each vmapped over 131,072 chains from prior
+       draws: the pooled final states within 0.05 sd (mean) and 6% (sd)
+       of the exact posterior; seconds a step and accept rates printed.
+    b. ``map_optimize`` (30 moves, vmapped over 131,072 float64 chains
+       from prior draws): every chain's mode within 1e-4 sd of the exact
+       posterior mean; ``laplace_approx`` (float64): mean within 1e-4 sd,
+       sd within 1e-6 relative, log-ML within 1e-4 of the exact evidence
+       (the posterior is Gaussian, so Laplace is exact).
+    c. ``gibbs``, two blocked moves over (z1, z2) of tests/test_gibbs.py's
+       two-site model at 131,072 chains: total variation to the card's
+       ``enumerate_posterior`` below 0.01; that posterior equals the
+       CPU's within 1e-5 relative.
+    d. ``choice_gradients`` (with a return-value gradient) and
+       ``param_gradients`` (a copy of the model with trainable prior
+       means, scale factor 2) on 131,072 traces of the headline regression
+       model, vmapped, on the card, and the first 8,192 of them on the CPU
+       under the same keys: equal within 1e-5 (float32) relative to each
+       trace's largest entry of the output (``row_rel_err``). Both are
+       recomputed in float64 on the CPU at the same choices: each float32
+       side within 5e-4 of it elementwise (relative to max(|x|, 1); the
+       Gram form's cancellation leaves the CPU's float32 ~1e-4 from it),
+       the card's error at most 4x the CPU's or 1e-6.
+    e. 10^6 draws of each new distribution (``beta_uniform``,
+       ``dirichlet``, ``piecewise_uniform``, ``piecewise_poisson_process``
+       with 48 slots, both mixtures, ``exp_of(normal)``, ``normal * 2 +
+       3``, a relabeled categorical) against the exact law (KS, marginal
+       KS, chi-square, or the Poisson count and the intensity's cdf),
+       their logpdfs on the card against the CPU within 1e-5.
+9. Numbers (printed after phase 12): per kernel its time, its plain
    version's time, its bound, the library call's time where there is one
    and launches on the main path, as one JSON line (K1's launches summed
    over its three paths, the headline, ``sample_posterior``'s
@@ -215,7 +249,7 @@ L, EPS = 10, 0.035
 TOL = 2e-4          # tests/test_hmc_fused.py's kernel-vs-reference tolerance
 NUTS_TOL = 1e-5     # tests/test_nuts_fused.py's kernel-vs-twin tolerance
 NUTS_TICKS = 2000
-NUTS_WARMUP = 400
+NUTS_WARMUP = 200   # ChEES iterations (400 before the script's time limit)
 GATE_DRAWS = 1536   # completed draws per chain for the gates
 PLAIN_PAIRS = 10    # the NUTS plain versions are timed over 20 slots
 GAUSS_SDS = [1.0, 3.0, 0.5, 2.0]
@@ -226,11 +260,17 @@ SCHOOL_ADDRS = ("mu", "log_tau", "theta_std")
 SMC_N = 131072         # benchmarks/workloads.py::bench_smc_genealogy
 SMC_N_BIG = 1048576    # benchmarks/RESULTS.md's second SMC row
 SMC_T = 32
-SMC_SEEDS = 20         # seeds per path for the Kalman gates
-OTHER_SEEDS = 20       # seeds for multinomial and residual resampling
+# seeds per path for the Kalman gates, and for multinomial and residual
+# resampling (20 each before the script's time limit; the gates are kept)
+SMC_SEEDS = 10
+OTHER_SEEDS = 10
 K4_NS = (1, 2, 33, 1000, 4096, 32768, SMC_N, SMC_N_BIG)
 K4_US = (0.0, 0.5, 1.0 - 2.0 ** -24)
 K4_REPS = 100
+# the literal count is O(N^2), ~6.7 s a count at 1,048,576 on an H100:
+# above this N it runs for one u a weight case (each u once over the three
+# cases, both dtypes); searchsorted + clamp checks every configuration
+K4_FULL_COUNT_MAX = 131072
 LML_TOL, MEAN_TOL, VAR_TOL = 0.05, 0.02, 0.03
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores and HBM3 bandwidth
@@ -1073,22 +1113,26 @@ def gate_moments(torch, rhat, draws, paths, offsets, exact, rhat_chains,
 # split-R-hat < 1.01 from the returned summary). The torch-op engines run
 # at 4,096 chains on small budgets, so their gate is looser: 0.15 sd, 15%
 # and split-R-hat < 1.1. Their warmups are short, and they return few
-# draws per chain (``nuts`` 30; ``nuts_fsm`` the slowest chain's count,
+# draws per chain (``nuts`` 20; ``nuts_fsm`` the slowest chain's count,
 # ~16 in 1,024 ticks): split-R-hat on half-chains of 8-15 autocorrelated
 # draws is biased upward by about (tau - 1) / n, which a converged run of
-# this length already puts near 1.07.
+# this length already puts near 1.07. For the script's time limit the
+# runs take about half their earlier depth, gates kept: 200 warmup
+# iterations of 400 (``nuts_fsm`` of its default 500), the dense run 250
+# draws of 500, ``chees`` 150 + 100 of 300 + 200, ``nuts`` 20 + 20 of
+# 40 + 30.
 STRICT, LOOSE = (0.05, 0.06, 1.01), (0.15, 0.15, 1.1)
 SAMPLE_RUNS = [
-    ("auto", 131072, dict(num_warmup=400, num_samples=500), STRICT,
+    ("auto", 131072, dict(num_warmup=200, num_samples=500), STRICT,
      "nuts_pair"),
-    ("hmc_fused", 131072, dict(num_warmup=400, num_samples=500), STRICT,
+    ("hmc_fused", 131072, dict(num_warmup=200, num_samples=500), STRICT,
      "hmc_fused"),
-    ("nuts_fused", 32768, dict(num_warmup=400, num_samples=500,
+    ("nuts_fused", 32768, dict(num_warmup=200, num_samples=250,
                                mass="dense"), STRICT, "nuts_pair"),
-    ("nuts_fsm", 4096, dict(num_samples=64, num_ticks=1024, max_depth=6),
-     LOOSE, None),
-    ("chees", 4096, dict(num_warmup=300, num_samples=200), LOOSE, None),
-    ("nuts", 4096, dict(num_warmup=40, num_samples=30, max_depth=6), LOOSE,
+    ("nuts_fsm", 4096, dict(num_warmup=200, num_samples=64, num_ticks=1024,
+                            max_depth=6), LOOSE, None),
+    ("chees", 4096, dict(num_warmup=150, num_samples=100), LOOSE, None),
+    ("nuts", 4096, dict(num_warmup=20, num_samples=20, max_depth=6), LOOSE,
      None),
 ]
 # the same entry point at d=102 (the 100-school model of metric 3), where K3
@@ -1100,7 +1144,7 @@ SAMPLE_RUNS = [
 # the short torch-op runs (1.054 on an H100, moments within 0.0012 sd), so
 # it takes their 1.1. Phase 4 holds the d=102 kernels to split-R-hat < 1.01
 # on 1,536 draws per chain.
-WIDE_RUN = ("nuts_fused", 32768, dict(num_warmup=400, num_samples=200),
+WIDE_RUN = ("nuts_fused", 32768, dict(num_warmup=200, num_samples=200),
             (0.05, 0.06, 1.1), "nuts_pair")
 
 
@@ -1314,31 +1358,35 @@ def phase_compare_k4(torch, dev):
     """Phase 2 for K4: the kernel against its plain version (the literal
     count) and against torch.searchsorted + clamp, integer equality, at
     every N of ``K4_NS`` and u of ``K4_US``, float32 and float64, with
-    random weights, zero-weight runs and one dominant particle (the
-    literal count is O(N^2): ~1 s a count at 1,048,576). Returns the
-    largest difference (0 when all agree)."""
+    random weights, zero-weight runs and one dominant particle; above
+    ``K4_FULL_COUNT_MAX`` the literal count (O(N^2)) for one u a case.
+    Returns the largest difference (0 when all agree)."""
     from gen_tpu_torch.ops import resample as rs
     rng = np.random.default_rng(4)
-    runs = dips = 0
+    runs = dips = counted = 0
     worst = 0
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.float64):
         for n in K4_NS:
-            for case in ("random", "zero_runs", "dominant"):
+            for ci, case in enumerate(("random", "zero_runs", "dominant")):
                 lw = torch.tensor(k4_log_weights(n, case, rng), dtype=dtype,
                                   device=dev)
                 cdf = rs.normalized_cdf(lw)
                 raw = torch.cumsum(torch.exp(lw - lw.max()), dim=0)
                 dips += int((raw[1:] < raw[:-1]).sum())
-                for u in K4_US:
+                for ui, u in enumerate(K4_US):
                     ut = torch.tensor(u, dtype=dtype, device=dev)
                     # on the same cdf: the card's cumsum is not run-to-run
                     # reproducible in the last ulp above ~32k elements
                     got = rs.resample_cdf(cdf, ut)
-                    count = rs.systematic_parents_count(cdf, ut)
                     lib = torch.searchsorted(
                         cdf, rs.positions(n, ut, dtype, dev),
                         out_int32=True).clamp_(max=n - 1)
+                    if n <= K4_FULL_COUNT_MAX or ui == ci:
+                        count = rs.systematic_parents_count(cdf, ut)
+                        counted += 1
+                    else:
+                        count = lib
                     worst = max(worst, int((got - count).abs().max()),
                                 int((got - lib).abs().max()))
                     runs += 1
@@ -1347,9 +1395,10 @@ def phase_compare_k4(torch, dev):
                           f"{int((got != count).sum())} parents differ from "
                           f"the count, {int((got != lib).sum())} from "
                           "searchsorted")
-    print(f"K4: kernel == literal count == searchsorted+clamp on all {runs} "
-          f"configurations (float32 and float64; N {list(K4_NS)}; u 0, 0.5, "
-          f"1-2^-24; random, zero-weight runs, one dominant particle); "
+    print(f"K4: kernel == searchsorted+clamp on all {runs} configurations "
+          f"and == the literal count on {counted} (float32 and float64; N "
+          f"{list(K4_NS)}; u 0, 0.5, 1-2^-24; random, zero-weight runs, one "
+          f"dominant particle; above N={K4_FULL_COUNT_MAX} one u a case); "
           f"{dips} decreasing steps in the raw cumsums (removed by the "
           f"running max); "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1658,21 +1707,26 @@ K5_TIMED_ONLY = (4096, 256)
 K5_MAIN_SHAPE = (16 * 292, 27)      # decode's plaintext blocks
 K5_CHI_PROBS = (0.05, 0.1, 0.2, 0.02, 0.33, 0.25, 0.05)
 K5_CHI_ROWS = 65536
-DECODE_SWEEPS, DECODE_RESTARTS = 600, 16
+DECODE_SWEEPS, DECODE_RESTARTS = 300, 16   # 600 sweeps before the time limit
 GMM_YS = (-2.3, -1.8, -0.4, 0.6, 2.2, 1.9)
 GMM_SIGMA, GMM_TAU, GMM_LOCS = 1.0, 1.5, (-2.0, 2.0)
 SCALAR_LOCS, SCALAR_PRIOR, SCALAR_Y = (-3.0, 0.0, 3.0), (0.5, 0.3, 0.2), 2.4
 # (model, chains, sample_posterior keywords, the engine that must run:
 # gen_tpu's pick under "auto"); the last run is the GMM on the
-# alternating driver at the same chains, to compare the two drivers
+# alternating driver at the same chains, to compare the two drivers. The
+# last three run at a quarter to a half of their earlier depth (regression
+# 120 + 120, scalar 60 + 120, GMM alternating 40 + 40) for the script's
+# time limit, with the gates kept: the alternating GMM keeps its 40 warmup
+# iterations (at 20 + 20 its pooled variance was 38% off, against 11% at
+# 40 + 40 and at the fused run's 150 + 120)
 MIXED_RUNS = (
     ("gmm", 16384, dict(engine="auto", num_warmup=150, num_samples=120),
      "gibbs_nuts_fused"),
-    ("regression", 256, dict(engine="auto", num_warmup=120,
-                             num_samples=120), "gibbs_nuts_fused"),
-    ("scalar", 1024, dict(engine="auto", num_warmup=60, num_samples=120,
+    ("regression", 256, dict(engine="auto", num_warmup=30,
+                             num_samples=30), "gibbs_nuts_fused"),
+    ("scalar", 1024, dict(engine="auto", num_warmup=30, num_samples=25,
                           max_depth=6), "gibbs_nuts"),
-    ("gmm", 16384, dict(engine="nuts", num_warmup=40, num_samples=40,
+    ("gmm", 16384, dict(engine="nuts", num_warmup=40, num_samples=10,
                         max_depth=6), "gibbs_nuts"),
 )
 
@@ -1895,8 +1949,8 @@ def mixed_gate(torch, name, out):
 
 
 def phase_decode(torch, dev, tag):
-    """Phase 8a: the cipher-decode example at its own size (292
-    characters, K=27, 16 restarts, 600 sweeps), with its gate (best
+    """Phase 8a: the cipher-decode example at its own width (292
+    characters, K=27, 16 restarts; 300 sweeps of its 600), with its gate (best
     restart > 90% of characters, asserted by ``main``); K5's launches must
     be 3 per sweep. Returns its numbers."""
     from gen_tpu_torch.examples import decode
@@ -2975,7 +3029,7 @@ TEMPER_OBS, TEMPER_SD0, TEMPER_SD = 20, 3.0, 1.0   # tests/test_tempering.py
 TEMPER_RUNGS = 20
 TEMPER_SEEDS = 3
 PT_BETAS = (0.02, 0.06, 0.15, 0.35, 0.65, 1.0)
-PT_SWEEPS, PT_BURN = 3000, 500
+PT_SWEEPS, PT_BURN = 1000, 250   # 3,000 and 500 before: the time limit
 PG_N, PG_T, PG_PHI = 4096, 40, 0.8   # benchmarks/workloads.py:469's width
 PG_SWEEPS, PG_BURN = 60, 10
 PG_Q, PG_R = 0.5, 0.4             # examples/particle_gibbs.py's noise sds
@@ -3291,6 +3345,388 @@ def phase_rest_of_smc(torch, tt, dev, tag):
     return launches
 
 
+# -- phase 12: gradients and the local moves ---------------------------------
+
+LOCAL_N = TEMPER_N                 # chains of parts (a)-(d)
+LOCAL_STEPS = (("mh_selection", 200), ("hmc", 100), ("mala", 150),
+               ("elliptical_slice", 20))
+GRAD_CPU_N = 8192                  # 12(d)'s traces recomputed on the CPU
+MAP_MOVES = 30
+DRAWS_N = 10 ** 6
+DEVICE_RTOL = 1e-5                 # card against the CPU, float32
+GRAD_F64_RTOL = 5e-4               # 12(d): float32 against float64
+GRAD_F64_RATIO = 4.0               # 12(d): card's error over the CPU's
+
+
+def conj_model(torch, tt, dev, dtype):
+    """temper_setup's conjugate Gaussian model in ``dtype``, its
+    observations as a choice map."""
+    ys = temper_data()[0]
+    ones = torch.ones(TEMPER_OBS, dtype=dtype, device=dev)
+    sd0 = torch.tensor(TEMPER_SD0, dtype=dtype, device=dev)
+    sd = torch.tensor(TEMPER_SD, dtype=dtype, device=dev)
+
+    @tt.gen
+    def gauss_model():
+        mu = tt.normal(0.0 * sd0, sd0) @ "mu"
+        tt.normal(mu * ones, sd) @ "ys"
+
+    return gauss_model, tt.choicemap(ys=torch.tensor(ys, dtype=dtype,
+                                                     device=dev))
+
+
+def prior_chains(torch, tt, model, obs, dev, n, seed):
+    """``n`` traces of ``model``, the latents drawn from the prior and the
+    observations constrained."""
+    from gen_tpu_torch import random
+    keys = random.split(random.PRNGKey(seed, dev), n)
+    return torch.func.vmap(lambda k: model.generate(k, (), obs)[0])(keys)
+
+
+def rel_err(torch, a, b):
+    """Largest |a - b| / max(|b|, 1) of two tensors (``b`` on the CPU)."""
+    a, b = a.detach().cpu().double(), b.detach().double()
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def row_rel_err(torch, a, b):
+    """Largest over traces (rows) of max |a - b| / max(max |b|, 1) within
+    the row: each trace's gradient against its own scale. Elementwise, a
+    float32 gradient of normal_linear's Gram form is not comparable
+    between devices: a residual (X beta)_i - y_i that cancels to ~1e-3
+    keeps the absolute rounding error of its ~6-sized terms, ~1e-4
+    relative to itself."""
+    a = a.detach().cpu().double().reshape(a.shape[0], -1)
+    b = b.detach().double().reshape(b.shape[0], -1)
+    scale = b.abs().max(dim=1).values.clamp_min(1.0)
+    return float(((a - b).abs().max(dim=1).values / scale).max())
+
+
+def phase_local_moves(torch, tt, dev, tag):
+    """Phase 12(a)-(b): mh_selection, hmc, mala and elliptical_slice on
+    "mu" of the conjugate model, vmapped over LOCAL_N chains from prior
+    draws; map_optimize to the mode in float64 and laplace_approx."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import (elliptical_slice, hmc,
+                                         laplace_approx, mala, map_optimize,
+                                         mh_selection)
+    _, lml_ex, mean_ex, sd_ex = temper_data()
+    model, obs = conj_model(torch, tt, dev, torch.float32)
+    sel = tt.select("mu")
+    prior_mu = torch.zeros(1, device=dev)
+    prior_cov = torch.full((1, 1), TEMPER_SD0 ** 2, device=dev)
+    moves = {
+        "mh_selection": lambda k, tr: mh_selection(k, tr, sel),
+        "hmc": lambda k, tr: hmc(k, tr, sel, L=5, eps=0.05),
+        "mala": lambda k, tr: mala(k, tr, sel, 0.005),
+        "elliptical_slice": lambda k, tr: (elliptical_slice(
+            k, tr, "mu", prior_mu, prior_cov), torch.ones((), dtype=bool,
+                                                          device=dev)),
+    }
+    print(f"phase 12: conjugate model, {TEMPER_OBS} observations: exact "
+          f"posterior mean {mean_ex:.4f} sd {sd_ex:.4f}, log-ML "
+          f"{lml_ex:.4f}; {LOCAL_N} chains from prior draws")
+    for name, steps in LOCAL_STEPS:
+        traces = prior_chains(torch, tt, model, obs, dev, LOCAL_N, 12)
+        step = torch.func.vmap(moves[name])
+
+        def run(traces=traces, step=step):
+            acc = torch.zeros(LOCAL_N, device=dev)
+            for s in range(steps):
+                keys = random.split(random.fold_in(
+                    random.PRNGKey(21, dev), s), LOCAL_N)
+                traces, a = step(keys, traces)
+                acc = acc + a.float()
+            return traces, acc / steps
+
+        (traces, acc), secs = timed(torch, run)
+        mu = traces["mu"].double().reshape(LOCAL_N, -1)[:, 0]
+        m, s = float(mu.mean()), float(mu.std())
+        dm, ds = abs(m - mean_ex) / sd_ex, abs(s / sd_ex - 1)
+        rate = float(acc.mean())
+        print(f"{tag} 12a {name}: {steps} steps of {LOCAL_N} chains in "
+              f"{secs:.2f} s ({1e3 * secs / steps:.2f} ms a step); pooled "
+              f"final mean {m:.4f} ({dm:.4f} sd off, gate 0.05), sd "
+              f"{s:.4f} ({100 * ds:.2f}% off, gate 6%); accept rate "
+              f"{rate:.4f}")
+        check(dm < 0.05 and ds < 0.06 and 0.0 < rate <= 1.0,
+              f"{name} misses the conjugate posterior")
+
+    # (b) map_optimize and laplace_approx, float64: in float32 the score
+    # is flat to its last bit ~2e-3 sd around the mode
+    model64, obs64 = conj_model(torch, tt, dev, torch.float64)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        traces = prior_chains(torch, tt, model64, obs64, dev, LOCAL_N, 13)
+        move = torch.func.vmap(lambda tr: map_optimize(tr, sel))
+
+        def run_map(traces=traces):
+            for _ in range(MAP_MOVES):
+                traces = move(traces)
+            return traces
+
+        modes, secs = timed(torch, run_map)
+        err = float((modes["mu"] - mean_ex).abs().max()) / sd_ex
+        lap, lap_s = timed(torch, lambda: laplace_approx(
+            model64.generate(random.PRNGKey(0, dev), (), obs64)[0], sel))
+    finally:
+        torch.set_default_dtype(prev)
+    lap_mean_err = abs(float(lap.mean[0]) - mean_ex) / sd_ex
+    lap_sd_err = abs(math.sqrt(float(lap.cov[0, 0])) / sd_ex - 1)
+    lml_err = abs(float(lap.log_ml) - lml_ex)
+    print(f"{tag} 12b map_optimize: {MAP_MOVES} moves of {LOCAL_N} float64 "
+          f"chains in {secs:.2f} s; worst chain's mode {err:.2e} sd from "
+          f"the exact mean (gate 1e-4)")
+    print(f"{tag} 12b laplace_approx (200 moves, Hessian) {lap_s:.2f} s: "
+          f"mean {lap_mean_err:.2e} sd off, sd {lap_sd_err:.2e} off, log-ML "
+          f"{float(lap.log_ml):.6f} against {lml_ex:.6f} ({lml_err:.2e}, "
+          "gate 1e-4)")
+    check(err < 1e-4 and lap_mean_err < 1e-4 and lap_sd_err < 1e-6
+          and lml_err < 1e-4, "map_optimize or laplace_approx misses")
+
+
+def two_site_model(torch, tt, d):
+    """tests/test_gibbs.py's two-site model on device ``d``."""
+    probs = torch.tensor([0.2, 0.5, 0.3], device=d)
+    means = torch.tensor([-2.0, 0.0, 2.0], device=d)
+
+    @tt.gen
+    def two_site():
+        z1 = tt.categorical(probs) @ "z1"
+        z2 = tt.bernoulli(0.4) @ "z2"
+        mean = means[z1.reshape(1)][0] + torch.where(z2, 1.0, 0.0)
+        tt.normal(mean, 0.7) @ "x"
+        return z1
+
+    supports = {"z1": torch.arange(3, device=d),
+                "z2": torch.tensor([False, True], device=d)}
+    return two_site, tt.choicemap(x=torch.tensor(0.4, device=d)), supports
+
+
+def phase_gibbs(torch, tt, dev, tag):
+    """Phase 12(c): two blocked gibbs moves over (z1, z2) at LOCAL_N chains
+    against the card's enumerate_posterior; that posterior against the
+    CPU's."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import enumerate_posterior, gibbs
+    model, obs, supports = two_site_model(torch, tt, dev)
+    (grid, _, lml, lpost), e_s = timed(torch, lambda: enumerate_posterior(
+        model, (), obs, supports))
+    cmodel, cobs, csupports = two_site_model(torch, tt, "cpu")
+    _, _, lml_c, lpost_c = enumerate_posterior(cmodel, (), cobs, csupports)
+    e_err = max(rel_err(torch, lpost, lpost_c), rel_err(torch, lml, lml_c))
+    traces = torch.func.vmap(lambda k: model.generate(k, (), obs)[0])(
+        random.split(random.PRNGKey(14, dev), LOCAL_N))
+    move = torch.func.vmap(lambda k, tr: gibbs(k, tr, supports))
+
+    def run(traces=traces):
+        for s in range(2):
+            traces = move(random.split(random.fold_in(
+                random.PRNGKey(22, dev), s), LOCAL_N), traces)
+        return traces
+
+    traces, secs = timed(torch, run)
+    cell = traces["z1"].long() * 2 + traces["z2"].long()
+    freq = torch.bincount(cell, minlength=6).double() / LOCAL_N
+    tv = 0.5 * float((freq - torch.exp(lpost.double())).abs().sum())
+    print(f"{tag} 12c enumerate_posterior (6 cells) {1e3 * e_s:.2f} ms, "
+          f"card vs CPU {e_err:.2e} (gate {DEVICE_RTOL:.0e}); gibbs, two "
+          f"blocked moves of {LOCAL_N} chains in {secs:.2f} s; total "
+          f"variation to the enumerated posterior {tv:.4f} (gate 0.01)")
+    check(e_err < DEVICE_RTOL and tv < 0.01, "gibbs or enumerate_posterior")
+
+
+def phase_gradients(torch, tt, dev, tag):
+    """Phase 12(d): choice_gradients and param_gradients on LOCAL_N traces
+    of the headline regression model (a copy with trainable prior means
+    for the parameters), on the card and on the CPU, and in float64 on the
+    CPU at the float32 traces' choices, the witness of which side rounds."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.dynamic import init_param, param
+
+    addrs = ("slope", "intercept", "log_noise")
+
+    def run(d, n, at=None):
+        """Float32 traces from keys, or (``at``: the float32 run's choices
+        of both models) the same traces in float64."""
+        model, X, obs, sel, _, _ = regression_setup(torch, tt, d)
+        keyed = at is None
+        dt = torch.float32 if keyed else torch.float64
+        X, ys = X.to(dt), obs["ys"].to(dt)
+
+        @tt.gen
+        def pmodel(X):
+            w = param("w_mu")
+            slope = tt.normal(w[0], 2.0) @ "slope"
+            intercept = tt.normal(w[1], 2.0) @ "intercept"
+            log_noise = tt.normal(param("log_noise_mu"), 1.0) @ "log_noise"
+            tt.normal_linear(X, torch.stack([slope, intercept]),
+                             torch.exp(log_noise)) @ "ys"
+            return slope
+
+        init_param(pmodel, "w_mu", torch.tensor([0.1, -0.2], dtype=dt,
+                                                device=d))
+        init_param(pmodel, "log_noise_mu", torch.tensor(0.3, dtype=dt,
+                                                        device=d))
+        keys = random.split(random.PRNGKey(15, d), LOCAL_N)[:n]
+
+        def one(k, mv, pv):
+            if keyed:
+                tr = model.generate(k, (X,), tt.choicemap(ys=ys))[0]
+                ptr = pmodel.generate(k, (X,), tt.choicemap(ys=ys))[0]
+            else:
+                tr = model.generate(k, (X,), tt.choicemap(
+                    ys=ys, **dict(zip(addrs, mv))))[0]
+                ptr = pmodel.generate(k, (X,), tt.choicemap(
+                    ys=ys, **dict(zip(addrs, pv))))[0]
+            ag, vals, cg = model.choice_gradients(tr, sel, retgrad=1.5)
+            pag, pg = pmodel.param_gradients(ptr, scale_factor=2.0)
+            return ((ag[0], cg.to_array(), vals.to_array(), pag[0],
+                     pg[pmodel]["w_mu"], pg[pmodel]["log_noise_mu"]),
+                    torch.stack([tr[a] for a in addrs]),
+                    torch.stack([ptr[a] for a in addrs]))
+
+        if keyed:
+            at = (torch.zeros(n, 3, device=d),) * 2
+        return torch.func.vmap(one)(keys, *at)
+
+    (card, _, _), secs = timed(torch, lambda: run(dev, LOCAL_N))
+    card = [c[:GRAD_CPU_N] for c in card]
+    cpu, mvals, pvals = run("cpu", GRAD_CPU_N)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ref = run("cpu", GRAD_CPU_N, (mvals.double(), pvals.double()))[0]
+    finally:
+        torch.set_default_dtype(default)
+    names = ("d/dX", "choice grads", "choice values", "param model d/dX",
+             "d/dw_mu", "d/dlog_noise_mu")
+    errs = {n: row_rel_err(torch, a, b) for n, a, b in zip(names, card,
+                                                            cpu)}
+    card64 = {n: rel_err(torch, a, b) for n, a, b in zip(names, card, ref)}
+    cpu64 = {n: rel_err(torch, a, b) for n, a, b in zip(names, cpu, ref)}
+    print(f"{tag} 12d choice_gradients + param_gradients of {LOCAL_N} "
+          f"regression traces {secs:.2f} s on the card; on the first "
+          f"{GRAD_CPU_N}, card vs CPU, each trace against its largest entry "
+          f"(gate {DEVICE_RTOL:.0e}), and [card, CPU] elementwise against "
+          f"float64 (gate {GRAD_F64_RTOL:.0e}, the card within "
+          f"{GRAD_F64_RATIO:g}x the CPU's error or 1e-6): "
+          + ", ".join(f"{k} {v:.2e} [{card64[k]:.2e}, {cpu64[k]:.2e}]"
+                      for k, v in errs.items()))
+    check(all(v < DEVICE_RTOL for v in errs.values()),
+          "gradients on the card differ from the CPU")
+    check(all(card64[k] < GRAD_F64_RTOL and cpu64[k] < GRAD_F64_RTOL
+              and card64[k] <= GRAD_F64_RATIO * max(cpu64[k], 1e-6)
+              for k in names),
+          "float32 gradients differ from float64 beyond rounding")
+
+
+def phase_draws(torch, tt, dev, tag):
+    """Phase 12(e): DRAWS_N draws of each new distribution on the card
+    against its exact law (Kolmogorov-Smirnov, chi-square or moments), and
+    their logpdfs on the card against the CPU."""
+    from scipy import stats
+    from gen_tpu_torch import random
+    from gen_tpu_torch.dists import dist_dsl
+
+    def t(x, d):
+        return torch.tensor(x, dtype=torch.float32, device=d)
+
+    def cases(d):
+        bounds, rates = t([0.0, 2.0, 5.0, 10.0], d), t([0.5, 2.0, 1.0], d)
+        return {
+            "beta_uniform": (tt.beta_uniform, (t(0.4, d), t(2.0, d),
+                                               t(3.0, d))),
+            "dirichlet": (tt.dirichlet, (t([2.0, 3.0, 1.5], d),)),
+            "piecewise_uniform": (tt.piecewise_uniform,
+                                  (t([0.0, 1.0, 3.0], d), t([0.6, 0.4], d))),
+            "piecewise_poisson_process": (
+                tt.PiecewisePoissonProcess(max_events=48), (bounds, rates)),
+            "HomogeneousMixture": (
+                tt.HomogeneousMixture(tt.normal, [0, 0]),
+                (t([0.4, 0.6], d), t([-1.0, 2.0], d), t([0.5, 1.0], d))),
+            "HeterogeneousMixture": (
+                tt.HeterogeneousMixture([tt.normal, tt.uniform]),
+                (t([0.3, 0.7], d), t(0.0, d), t(1.0, d), t(0.0, d),
+                 t(2.0, d))),
+            "exp_of(normal)": (dist_dsl.exp_of(tt.normal),
+                               (t(0.5, d), t(0.4, d))),
+            "normal * 2 + 3": (tt.normal * 2.0 + 3.0, (t(0.0, d), t(1.0, d))),
+            "enum_dist": (tt.RelabeledDistribution(
+                torch.tensor([10, 20, 10], device=d), tt.categorical),
+                (t([0.2, 0.3, 0.5], d),)),
+        }
+
+    def mix_cdf(w, cdfs):
+        return lambda x: sum(wi * c(x) for wi, c in zip(w, cdfs))
+
+    laws = {
+        "beta_uniform": ("ks", mix_cdf((0.4, 0.6), (stats.beta(2, 3).cdf,
+                                                    stats.uniform.cdf))),
+        "piecewise_uniform": ("ks", lambda x: np.where(
+            x < 1.0, 0.6 * x, 0.6 + 0.2 * (x - 1.0))),
+        "HomogeneousMixture": ("ks", mix_cdf((0.4, 0.6), (
+            stats.norm(-1, 0.5).cdf, stats.norm(2, 1).cdf))),
+        "HeterogeneousMixture": ("ks", mix_cdf((0.3, 0.7), (
+            stats.norm.cdf, stats.uniform(0, 2).cdf))),
+        "exp_of(normal)": ("ks", stats.lognorm(0.4, scale=np.exp(0.5)).cdf),
+        "normal * 2 + 3": ("ks", stats.norm(3, 2).cdf),
+    }
+    card_cases, cpu_cases = cases(dev), cases("cpu")
+    keys = random.split(random.PRNGKey(16, dev), DRAWS_N)
+    for name, (dist, args) in card_cases.items():
+        draws, secs = timed(torch, lambda: torch.func.vmap(
+            lambda k: dist.sample(k, *args))(keys))
+        lp = torch.func.vmap(lambda v: dist.logpdf(v, *args))(draws)
+        cdist, cargs = cpu_cases[name]
+        lp_cpu = torch.func.vmap(lambda v: cdist.logpdf(v, *cargs))(
+            draws.cpu())
+        lp_err = rel_err(torch, lp, lp_cpu)
+        x = draws.detach().cpu().double().numpy()
+        if name in laws:
+            p = stats.kstest(x, laws[name][1]).pvalue
+            law = f"KS p {p:.3g}"
+            ok = p > 1e-4
+        elif name == "dirichlet":
+            alpha = np.array([2.0, 3.0, 1.5])
+            ps = [stats.kstest(x[:, i], stats.beta(
+                a, alpha.sum() - a).cdf).pvalue for i, a in enumerate(alpha)]
+            law = "marginal KS p " + ", ".join(f"{p:.3g}" for p in ps)
+            ok = min(ps) > 1e-4 and np.abs(x.sum(1) - 1).max() < 1e-5
+        elif name == "enum_dist":
+            obs = np.array([(x == 10).sum(), (x == 20).sum()])
+            p = stats.chisquare(obs, DRAWS_N * np.array([0.7, 0.3])).pvalue
+            law = f"chi-square p {p:.3g}"
+            ok = p > 1e-4 and obs.sum() == DRAWS_N
+        else:   # the process: counts Poisson(12), positions by intensity
+            finite = np.isfinite(x)
+            counts = finite.sum(1)
+            pos = x[finite]
+            cum = lambda v: np.interp(v, [0, 2, 5, 10], [0, 1, 7, 12]) / 12
+            p_n = stats.kstest(pos, cum).pvalue
+            z = (counts.mean() - 12.0) / math.sqrt(12.0 / DRAWS_N)
+            law = (f"count mean {counts.mean():.4f} (z {z:.2f}), var "
+                   f"{counts.var():.3f}; positions KS p {p_n:.3g}")
+            ok = abs(z) < 5 and abs(counts.var() / 12 - 1) < 0.02 \
+                and p_n > 1e-4 and counts.max() < 48
+        print(f"{tag} 12e {name}: {DRAWS_N} draws {secs:.2f} s; {law}; "
+              f"logpdf card vs CPU {lp_err:.2e} (gate {DEVICE_RTOL:.0e})")
+        check(ok and lp_err < DEVICE_RTOL and bool(torch.isfinite(lp).all()),
+              f"{name} draws or logpdf")
+
+
+def phase_local(torch, tt, dev, tag):
+    """Phase 12: (a)-(b) the local moves, map_optimize and laplace, (c)
+    gibbs against enumeration, (d) gradients, (e) the new distributions."""
+    t0 = time.perf_counter()
+    phase_local_moves(torch, tt, dev, tag)
+    phase_gibbs(torch, tt, dev, tag)
+    phase_gradients(torch, tt, dev, tag)
+    phase_draws(torch, tt, dev, tag)
+    print(f"{tag} phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3306,20 +3742,34 @@ def main():
     # -- phase 1: environment, staging and build --------------------------
     card = phase_env(torch)
     tag = f"[{card}]"
+    lap = [t_start]
+
+    def stamp(label):
+        """Print the wall time since the previous stamp: where the
+        script's 1,200 s go, phase by phase."""
+        now = time.perf_counter()
+        print(f"{tag} time: {label} {now - lap[0]:.1f} s")
+        lap[0] = now
+
     ctx = phase_build(torch, tt, dev, tag)
     phase_division(torch, ctx, dev)
+    stamp("phase 1 (staging, build, division sweep)")
 
     # -- phase 2: K3, K6 and K4 against their plain versions ---------------
     k3_err = phase_compare(torch, ctx, dev, paired=True)
+    stamp("phase 2 (K3 against its plain version)")
     k6_err = phase_compare(torch, ctx, dev, paired=False)
+    stamp("phase 2 (K6 against its plain version)")
     k4_err = phase_compare_k4(torch, dev)
     k5_err = phase_compare_k5(torch, dev)
+    stamp("phase 2 (K4, K5 against their plain versions)")
 
     # -- phases 3-5: the main paths, each with its gates --------------------
     rng = np.random.default_rng(123)
     k1_d10_err = compare_k1_schools(torch, ctx, dev, rng)
     k1_entry = phase_headline(torch, tt, dev, ctx["k1"], tag, rng)
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], k1_d10_err)
+    stamp("phase 3 (headline)")
     errs = {True: k3_err, False: k6_err}
     k3_10, k6_10 = phase_nuts_path(torch, tt, dev, "eight_schools d=10",
                                    ctx["s8"], 131072, tag, errs, ctx["st_10"])
@@ -3331,29 +3781,41 @@ def main():
     k3_102, k6_102 = phase_nuts_path(torch, tt, dev, "schools d=102",
                                      ctx["s100"], 32768, tag, errs,
                                      ctx["st_102"])
+    stamp("phase 4 (metrics 2 and 3)")
     sample_launches = phase_sample(torch, tt, dev, tag, ctx["s8"],
                                    ctx["s100"])
     print(f"{tag} sample_posterior launches over all engines: "
           f"{sample_launches}")
     print(f"{tag} staging {ctx['stage_s']:.3f} s, nvcc build "
           f"{ctx['build_s']:.2f} s")
+    stamp("phase 5 (sample_posterior, seven runs)")
 
     # -- phase 6: the SMC slice ------------------------------------------------
     smc_a = phase_smc_throughput(torch, tt, dev, tag)
+    stamp("phase 6a (SMC throughput)")
     phase_smc_gates(torch, tt, dev, tag)
+    stamp("phase 6b (SMC gates)")
 
     # -- phases 7 and 8: K5's own draws, the mixed/decode slice ------------
     phase_k5_draws(torch, dev)
     decode_run = phase_decode(torch, dev, tag)
+    stamp("phases 7 and 8a (K5 draws, decode)")
     phase_mixed(torch, tt, dev, tag, ctx["mixed"])
+    stamp("phase 8b (mixed models)")
 
     # -- phase 10: the streamed likelihood and the Kalman body ------------
     k2_err = phase_compare_k2(torch, ctx, dev, rng)
     stream_res = phase_stream(torch, tt, dev, tag, ctx)
     ar1_res = phase_ar1(torch, tt, dev, tag, ctx)
+    stamp("phase 10 (stream and Kalman body)")
 
     # -- phase 11: the rest of SMC -----------------------------------------
     tempered = phase_rest_of_smc(torch, tt, dev, tag)
+    stamp("phase 11 (rest of SMC)")
+
+    # -- phase 12: gradients and the local moves ---------------------------
+    phase_local(torch, tt, dev, tag)
+    stamp("phase 12 (gradients, local moves)")
 
     # -- phase 9: numbers ---------------------------------------------------
     # K1 runs on three main paths: the headline, sample_posterior's
@@ -3365,6 +3827,7 @@ def main():
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err, tempered)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)
+    stamp("phase 9 (kernel timings)")
     print(f"{tag} chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           "in all")
     print(json.dumps({"kernels": [

@@ -14,29 +14,24 @@ from .combinators import (Map, Switch, SwitchCombinator, Unfold,
                           UnfoldArena, VectorChoiceMap, call_at, choice_at,
                           smc_run, vector_choicemap)
 from .diff import IntDiff, NoChange, UnknownChange
-from .dists import (bernoulli, beta, binom, broadcasted_normal,
-                    categorical, cauchy, dirac, exponential, gamma,
-                    geometric, inv_gamma, labeled_categorical, laplace,
-                    multinomial, mvnormal, neg_binom, normal, normal_linear,
-                    poisson, student_t, uniform, uniform_continuous,
-                    uniform_discrete)
-from .dynamic import gen, init_param, param, trace_at
+from .dists import *  # noqa: F401,F403
+from .dists import __all__ as _dists_all
+from .dynamic import (DynamicTrace, GenFn, gen, get_param, get_param_grad,
+                      init_param, param, set_param, set_param_grad, trace_at,
+                      zero_param_grad)
 from .gfi import GenerativeFunction, Trace
 from .masked import MaskedSelection, MaskedValue, mask, masked_select
 from .selection import complement, select, selectall, selectnone
+from .utils import logsumexp
 
 __all__ = [
     "combinators", "diagnostics", "inference", "random", "addr_path",
     "ChoiceMap", "choicemap", "Map", "Unfold", "UnfoldArena",
     "VectorChoiceMap", "smc_run", "vector_choicemap", "IntDiff", "NoChange",
-    "UnknownChange", "normal", "normal_linear", "gamma", "bernoulli",
-    "categorical", "labeled_categorical", "uniform_discrete", "poisson",
-    "binom", "geometric", "neg_binom", "dirac", "multinomial",
-    "broadcasted_normal", "mvnormal", "uniform", "uniform_continuous",
-    "beta", "inv_gamma", "exponential", "cauchy", "laplace", "student_t",
-    "gen",
-    "init_param", "param", "trace_at",
+    "UnknownChange", "GenFn", "gen", "init_param", "param", "trace_at",
+    "get_param", "set_param", "get_param_grad", "zero_param_grad",
+    "set_param_grad", "DynamicTrace", "logsumexp",
     "GenerativeFunction", "Trace", "complement", "select", "selectall",
     "selectnone", "Switch", "SwitchCombinator", "choice_at", "call_at",
     "MaskedValue", "mask", "MaskedSelection", "masked_select",
-]
+] + _dists_all

@@ -183,9 +183,18 @@ class MapCombinator(GenerativeFunction):
         kind, payload = try_densify(choices, n)
         if kind != "dense":
             raise ValueError("Map.assess requires choices for every element")
-        weights, retvals = vmap(lambda a, c: self.kernel.assess(a, c))(
-            args, payload.inner)
-        return torch.sum(weights), retvals
+        aux = []
+
+        def one(a, c):
+            # a kernel's return value may hold non-tensor leaves (None),
+            # which vmap cannot return: they ride beside it
+            w, r = self.kernel.assess(a, c)
+            r_dyn, r_aux = split_static(r)
+            aux.append(r_aux)
+            return w, r_dyn
+
+        weights, r_dyn = vmap(one)(args, payload.inner)
+        return torch.sum(weights), join_static(r_dyn, aux[0])
 
     def project(self, trace: MapTrace, selection: Selection):
         return trace.project(selection)

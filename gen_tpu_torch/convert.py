@@ -15,7 +15,7 @@ import torch
 
 from .choice_map import ChoiceMap
 from .combinators.vector import VectorChoiceMap
-from .dynamic.fn import init_param
+from .dynamic.fn import init_param, set_param_grad
 from .masked import MaskedSelection, MaskedValue
 from .utils import default_device
 
@@ -66,10 +66,16 @@ def vector_choicemap_from_numpy(leaf_items: Iterable[Tuple[tuple, object]],
     return VectorChoiceMap(choicemap_from_numpy(leaf_items, device), length)
 
 
-def params_from_numpy(gen_fn, params: Dict[str, np.ndarray], device=None):
-    """``init_param`` each ``{name: ndarray}`` on ``gen_fn``."""
+def params_from_numpy(gen_fn, params: Dict[str, np.ndarray], device=None,
+                      grads: Dict[str, np.ndarray] = None):
+    """``init_param`` each ``{name: ndarray}`` on ``gen_fn``, and set the
+    gradient accumulators given in ``grads`` (gen_tpu's
+    ``np.asarray(get_param_grad(fn, name))``; a name left out starts at
+    none, as after ``init_param``)."""
     for name, value in params.items():
         init_param(gen_fn, name, _tensor(value, device))
+    for name, grad in (grads or {}).items():
+        set_param_grad(gen_fn, name, _tensor(grad, device))
 
 
 def flat_values_from_numpy(values: np.ndarray, device=None,

@@ -35,6 +35,26 @@ def _median(x):
     return 0.5 * (srt[(s - 1) // 2] + srt[s // 2])
 
 
+def _tie_bounds(flat):
+    """For each element, the first and one-past-last positions of its value
+    in the sorted pool: what gen_tpu's two ``searchsorted``s (left, right)
+    of the pool into itself give, from one sort and the runs of equal
+    values (``unique_consecutive``'s counts and inverse; linear after the
+    sort). Two binary searches of every element took ~20x the sort on one
+    CPU thread at 12M draws. NaNs sort last, and JAX's searches place each
+    one at ``[number of non-NaN values, size)``."""
+    srt, order = torch.sort(flat)
+    _, run, counts = torch.unique_consecutive(srt, return_inverse=True,
+                                              return_counts=True)
+    ends = torch.cumsum(counts, 0)
+    lo = torch.empty_like(order).scatter_(0, order, (ends - counts)[run])
+    hi = torch.empty_like(order).scatter_(0, order, ends[run])
+    nan = torch.isnan(flat)
+    lo = torch.where(nan, flat.shape[0] - nan.sum(), lo)
+    hi = torch.where(nan, flat.shape[0], hi)
+    return lo, hi
+
+
 def _rank_normalize(x):
     """Pooled average-rank normal scores (Blom), shape-preserving; ties get
     average ranks. The upper half uses the symmetric form with an exact
@@ -42,9 +62,7 @@ def _rank_normalize(x):
     shape = x.shape
     flat = x.reshape(-1).contiguous()
     s = flat.shape[0]
-    srt = torch.sort(flat).values
-    lo = torch.searchsorted(srt, flat, right=False)
-    hi = torch.searchsorted(srt, flat, right=True)
+    lo, hi = _tie_bounds(flat)
     m2 = lo + hi + 1                     # 2 * rank (exact int)
     num_lo = m2.to(torch.float32) / 2.0 - 0.375
     num_hi = (2 * s - m2).to(torch.float32) / 2.0 + 0.625

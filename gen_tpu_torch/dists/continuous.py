@@ -1,12 +1,12 @@
 """Continuous distributions.
 
-Counterpart: ``gen_tpu/dists/continuous.py``. Ported: ``normal``,
+Counterpart: ``gen_tpu/dists/continuous.py``, all of it: ``normal``,
 ``broadcasted_normal``, ``normal_linear``, ``mvnormal``, ``uniform``
-(``uniform_continuous``), ``beta``, ``gamma``, ``inv_gamma``,
-``exponential``, ``cauchy``, ``laplace`` and ``student_t``; ``dirichlet``,
-``beta_uniform``, ``piecewise_uniform`` and ``piecewise_poisson_process``
-wait for a later slice. The logpdfs are the same expressions in the same
-order.
+(``uniform_continuous``), ``beta``, ``beta_uniform``, ``gamma``,
+``inv_gamma``, ``exponential``, ``cauchy``, ``laplace``,
+``piecewise_uniform``, ``student_t``, ``dirichlet`` and
+``piecewise_poisson_process``. The logpdfs are the same expressions in the
+same order.
 
 Samplers: ``normal``, ``uniform``, ``exponential``, ``cauchy`` and
 ``laplace`` are ``jax.random``'s constructions on
@@ -15,10 +15,15 @@ Samplers: ``normal``, ``uniform``, ``exponential``, ``cauchy`` and
 ``student_t``), which ``torch.func.vmap`` cannot run, the port draws the
 gamma variates by inverting their cdf (``torch.special.gammainc``) in
 float64: exact in distribution, not equal to gen_tpu's draws. ``beta`` is
-``G1 / (G1 + G2)`` and ``student_t`` is ``Z / sqrt(2 G / nu)`` with
-``G ~ gamma(nu / 2)``. ``mvnormal`` draws ``jax.random.
-multivariate_normal``'s ``svd`` construction, ``mu + (U sqrt(s)) z``,
-whose factor's signs may differ from XLA's SVD.
+``G1 / (G1 + G2)``, ``student_t`` is ``Z / sqrt(2 G / nu)`` with
+``G ~ gamma(nu / 2)`` and ``dirichlet`` normalizes one gamma a component
+(gen_tpu normalizes log-gammas by a softmax). ``beta_uniform`` takes
+gen_tpu's three keys: its coin and its uniform are gen_tpu's draws, its
+beta the port's. ``piecewise_uniform`` draws what gen_tpu draws;
+``piecewise_poisson_process`` places its events where gen_tpu does, but
+counts them by the port's Poisson (cdf inversion). ``mvnormal`` draws
+:func:`gen_tpu_torch.random.multivariate_normal`'s ``svd`` construction,
+``mu + (U sqrt(s)) z``, whose factor's signs may differ from XLA's SVD.
 
 ``normal_linear`` keeps the Gram-matrix form: ``G = [X|v]^T [X|v]``
 depends only on the data, which is what lets the staging pass hoist it
@@ -32,7 +37,7 @@ import math
 import torch
 
 from .. import random
-from .distribution import Distribution, _f
+from .distribution import Distribution, _f, logsumexp2
 
 _HALF_LOG_2PI = 0.9189385332046727  # 0.5*log(2*pi)
 
@@ -64,11 +69,7 @@ class MvNormal(Distribution):
     arg_grads = (True, True)
 
     def sample(self, key, mu, cov):
-        mu, cov = _f(mu), _f(cov)
-        u, s, _ = torch.linalg.svd(cov)
-        factor = u * torch.sqrt(s)[..., None, :]
-        z = random.normal(key, mu.shape, mu.dtype)
-        return mu + torch.einsum("...ij,...j->...i", factor, z)
+        return random.multivariate_normal(key, _f(mu), _f(cov))
 
     def logpdf(self, v, mu, cov):
         v, mu, cov = _f(v), _f(mu), _f(cov)
@@ -133,6 +134,29 @@ class Beta(Distribution):
         lp = ((alpha - 1) * torch.log(v_safe)
               + (beta - 1) * torch.log1p(-v_safe) - _betaln(alpha, beta))
         return torch.sum(torch.where(inside, lp, -math.inf))
+
+
+class BetaUniformMixture(Distribution):
+    """beta_uniform(theta, alpha, beta): with probability theta a Beta(alpha,
+    beta) draw, else a Uniform(0, 1) one."""
+
+    arg_grads = (True, True, True)
+
+    def sample(self, key, theta, alpha, beta):
+        kb, kc, ku = random.split(key, 3)
+        theta = _f(theta)
+        use_beta = random.bernoulli(kc, theta, (), theta.dtype)
+        b = Beta().sample(kb, alpha, beta)
+        u = random.uniform(ku, tuple(b.shape), torch.get_default_dtype())
+        return torch.where(use_beta, b, u)
+
+    def logpdf(self, v, theta, alpha, beta):
+        v, theta = _f(v), _f(theta)
+        lbeta = torch.log(theta) + Beta().logpdf(v, alpha, beta)
+        inside = (v >= 0) & (v <= 1)
+        lunif = torch.where(torch.all(inside), torch.log1p(-theta),
+                            -math.inf)
+        return logsumexp2(lbeta, lunif)
 
 
 def _betaln(a, b):
@@ -286,6 +310,121 @@ class Gamma(Distribution):
         return torch.sum(torch.where(inside, lp, -math.inf))
 
 
+class Dirichlet(Distribution):
+    """dirichlet(alpha) -> a simplex vector; one gamma a component,
+    normalized."""
+
+    arg_grads = (True,)
+
+    def sample(self, key, alpha):
+        alpha = _f(alpha)
+        g = _std_gamma(key, alpha, tuple(alpha.shape), torch.float64)
+        return (g / torch.sum(g, dim=-1, keepdim=True)).to(alpha.dtype)
+
+    def logpdf(self, v, alpha):
+        v, alpha = _f(v), _f(alpha)
+        lp = (torch.sum((alpha - 1.0) * torch.log(v), dim=-1)
+              + torch.lgamma(torch.sum(alpha, dim=-1))
+              - torch.sum(torch.lgamma(alpha), dim=-1))
+        return torch.sum(lp)
+
+
+def _take(x, idx):
+    """``x[idx]`` for 1-D ``x`` with the index flattened to 1-D (a 0-dim
+    index tensor takes torch's integer-index path, which a batched tensor
+    cannot)."""
+    return x[idx.reshape(-1)].reshape(idx.shape)
+
+
+class PiecewiseUniform(Distribution):
+    """piecewise_uniform(bounds, probs): ``bounds`` holds the n + 1 sorted
+    cell edges, ``probs`` the n cell probabilities."""
+
+    arg_grads = (True, True)
+
+    def sample(self, key, bounds, probs):
+        bounds, probs = _f(bounds), _f(probs)
+        kc, ku = random.split(key)
+        idx = random.categorical(kc, torch.log(probs))
+        lo = _take(bounds, idx)
+        hi = _take(bounds, idx + 1)
+        return lo + random.uniform(ku, (), torch.get_default_dtype()) * (
+            hi - lo)
+
+    def logpdf(self, v, bounds, probs):
+        v, bounds, probs = _f(v), _f(bounds), _f(probs)
+        idx = torch.clamp(torch.searchsorted(bounds, v.to(bounds.dtype),
+                                             right=True) - 1,
+                          0, probs.shape[0] - 1)
+        width = _take(bounds, idx + 1) - _take(bounds, idx)
+        inside = (v >= bounds[0]) & (v <= bounds[-1])
+        lp = torch.log(_take(probs, idx)) - torch.log(width)
+        return torch.sum(torch.where(inside, lp, -math.inf))
+
+
+class PiecewisePoissonProcess(Distribution):
+    """piecewise_poisson_process(bounds, rates): a piecewise-homogeneous
+    Poisson process observed as a vector of event times. ``bounds`` holds
+    the n + 1 ascending segment edges, ``rates`` the n intensities::
+
+        logpdf(x) = sum_i log(rates[segment(x_i)]) - sum_j rates_j * len_j
+
+    (-inf if the bounds are not ascending or an event falls outside
+    [bounds[0], bounds[-1]]; non-finite entries are padding and ignored).
+
+    ``sample`` needs an instance built with ``max_events``: it returns a
+    vector of that length whose unused tail is +inf, and it TRUNCATES the
+    event count at ``max_events`` (choose ``max_events >= total + 6 *
+    sqrt(total)``); a truncated draw has no +inf entry."""
+
+    arg_grads = (False, True)
+
+    def __init__(self, max_events=None):
+        self.max_events = max_events
+
+    def sample(self, key, bounds, rates):
+        if self.max_events is None:
+            raise NotImplementedError(
+                "piecewise_poisson_process is observation-oriented under "
+                "static shapes; construct "
+                "PiecewisePoissonProcess(max_events=N) for padded "
+                "simulation")
+        from .discrete import _poisson_icdf
+        bounds, rates = _f(bounds), _f(rates)
+        m = self.max_events
+        lens = torch.diff(bounds)
+        cell = rates * lens
+        total = torch.sum(cell)
+        kn, ku = random.split(key)
+        n = torch.clamp(_poisson_icdf(total, random.uniform(
+            kn, (), torch.float64)), max=m)
+        cum = torch.cat([torch.zeros(1, dtype=bounds.dtype,
+                                     device=bounds.device),
+                         torch.cumsum(cell, 0)])
+        u = random.uniform(ku, (m,), torch.get_default_dtype()) * total
+        seg = torch.clamp(torch.searchsorted(cum, u, right=True) - 1,
+                          0, rates.shape[0] - 1)
+        pos = bounds[seg] + (u - cum[seg]) / torch.clamp(rates[seg],
+                                                         min=1e-30)
+        slots = torch.arange(m, device=u.device)
+        return torch.where(slots < n, pos, math.inf)
+
+    def logpdf(self, x, bounds, rates):
+        x, bounds, rates = _f(x), _f(bounds), _f(rates)
+        lens = torch.diff(bounds)
+        ascending = torch.all(lens >= 0)
+        total = torch.sum(rates * lens)
+        finite = torch.isfinite(x)
+        xs = torch.where(finite, x, bounds[0])
+        # the segment of x_i counts the interior bounds strictly below it
+        # (half-open (b_j, b_j+1] segments)
+        seg = torch.sum(xs[..., None] > bounds[None, 1:-1], dim=-1)
+        lp_pts = torch.sum(torch.where(finite, torch.log(rates[seg]), 0.0))
+        inside = torch.all(torch.where(
+            finite, (xs >= bounds[0]) & (xs <= bounds[-1]), True))
+        return torch.where(ascending & inside, lp_pts - total, -math.inf)
+
+
 normal = Normal()
 broadcasted_normal = BroadcastedNormal()
 normal_linear = NormalLinear()
@@ -293,9 +432,13 @@ mvnormal = MvNormal()
 uniform = UniformContinuous()
 uniform_continuous = uniform
 beta = Beta()
+beta_uniform = BetaUniformMixture()
 gamma = Gamma()
 inv_gamma = InverseGamma()
 exponential = Exponential()
 cauchy = Cauchy()
 laplace = Laplace()
+piecewise_uniform = PiecewiseUniform()
+piecewise_poisson_process = PiecewisePoissonProcess()
 student_t = StudentT()
+dirichlet = Dirichlet()

@@ -5,8 +5,8 @@ code, traced by ``torch.func`` transforms and by the staging pass in
 :mod:`gen_tpu_torch.ops.scalarize`. The gradient metadata
 (``is_discrete``, ``has_output_grad``, ``arg_grads``) and
 ``enumerate_support`` are gen_tpu's, and so are ``logpdf_grad`` (here
-``torch.func.grad`` of the summed logpdf) and ``get_return_type``. Left out
-until a slice needs it: ``logsumexp2``.
+``torch.func.grad`` of the summed logpdf), ``get_return_type`` and
+``logsumexp2``.
 
 Where PyTorch forced a difference: gen_tpu's supports refuse JAX tracers.
 Here a support bound must be a concrete value: a Python number or a plain
@@ -100,3 +100,14 @@ def concrete_int(x, what: str) -> int:
                 "enumerated statically; pass explicit discrete_supports= "
                 "covering the widest possible range")
     return int(x)
+
+
+def logsumexp2(a, b):
+    """Pairwise logsumexp, ``-inf`` (or ``+inf``) where the larger of the
+    two is not finite."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    m = torch.maximum(a, b)
+    finite = torch.isfinite(m)
+    m_safe = torch.where(finite, m, 0.0)
+    out = m_safe + torch.log(torch.exp(a - m_safe) + torch.exp(b - m_safe))
+    return torch.where(finite, out, m)

@@ -5,8 +5,11 @@ handler; ``torch.func.vmap`` batches it over keys and ``torch.func.grad``
 differentiates ``assess``, where gen_tpu relies on ``jax.vmap``/``jax.grad``.
 Ported: ``simulate``, ``generate``, ``assess``, ``project``, ``update``
 (with the deletion pass, the discard and the not-visited check),
-``regenerate``, ``propose`` (the default, through ``simulate``) and the
-parameter store.
+``regenerate``, ``propose`` (the default, through ``simulate``), the
+gradient metadata (``get_params``, ``accepts_output_grad``,
+``has_argument_grads``) and the parameter store with its gradient
+accumulators (``init_param``, ``get_param``, ``set_param``,
+``get_param_grad``, ``zero_param_grad``, ``set_param_grad``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import inspect
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..choice_map import ChoiceMap
 from ..diff import UnknownChange
@@ -42,6 +46,7 @@ class GenFn(GenerativeFunction):
         self.fn = fn
         self.name = name or getattr(fn, "__name__", "gen_fn")
         self.params: Dict[str, Any] = {}
+        self.params_grad: Dict[str, Any] = {}
         # trailing default arguments are filled in, so the trace stores
         # canonical full args
         try:
@@ -72,6 +77,16 @@ class GenFn(GenerativeFunction):
     def run_body(self, args):
         return self.fn(*args)
 
+    def get_params(self):
+        return tuple(self.params.keys())
+
+    def accepts_output_grad(self) -> bool:
+        return True
+
+    def has_argument_grads(self):
+        # arguments of inexact dtype are differentiable
+        return None
+
     def __repr__(self):
         return f"@gen {self.name}"
 
@@ -89,9 +104,10 @@ class GenFn(GenerativeFunction):
             retval = self.run_body(args)
         return _trace(self, args, retval, h), h.weight
 
-    def assess(self, args: Tuple, choices: ChoiceMap):
+    def assess(self, args: Tuple, choices: ChoiceMap, params=None):
         args = self.fill_args(args)
-        with AssessHandler(choices, current_params(self)) as h:
+        with AssessHandler(choices, current_params(self) if params is None
+                           else params) as h:
             retval = self.run_body(args)
             unconsumed = [a for a in choices.addresses()
                           if not h.visitor.covers(a)]
@@ -162,8 +178,35 @@ def param(name: str):
     return active_handler().get_param(name)
 
 
+# -- the parameter store ------------------------------------------------
+
 def init_param(fn: GenFn, name: str, value):
     fn.params[name] = (value if isinstance(value, torch.Tensor)
                        else torch.as_tensor(value,
                                             dtype=torch.get_default_dtype()))
+    fn.params_grad[name] = None
+
+
+def get_param(fn: GenFn, name: str):
+    return fn.params[name]
+
+
+def set_param(fn: GenFn, name: str, value):
+    fn.params[name] = value
+
+
+def get_param_grad(fn: GenFn, name: str):
+    """The accumulated gradient of a parameter (zeros if none)."""
+    g = fn.params_grad.get(name)
+    if g is None:
+        return pytree.tree_map(torch.zeros_like, fn.params[name])
+    return g
+
+
+def zero_param_grad(fn: GenFn, name: str):
+    fn.params_grad[name] = None
+
+
+def set_param_grad(fn: GenFn, name: str, grad):
+    fn.params_grad[name] = grad
 

@@ -1,16 +1,23 @@
 from . import mass
 from ..combinators.arena import smc_run
 from .chees import chees_hmc_warmup_and_sample, chees_warmup_flat
-from .common import mh_accept, select_trace
+from .common import flat_selected, mh_accept, select_trace
 from .csmc import (check_state_is_choice_determined, csmc_genealogy,
                    particle_gibbs, particle_gibbs_step)
-from .hmc import hmc_chains
+from .elliptical_slice import elliptical_slice
+from .enumerate import enumerate_marginals, enumerate_posterior
+from .gibbs import gibbs, gibbs_conditional
+from .hmc import hmc, hmc_chain, hmc_chains
 from .importance import importance_resampling, importance_sampling
+from .laplace import LaplaceResult, laplace_approx, laplace_sample
+from .mala import mala
+from .map_optimize import map_optimize
 from .mass import (dense_mass_chol, lowrank_mass_factors, unwhiten, whiten,
                    whiten_logp)
+from .mh import metropolis_hastings, mh, mh_proposal, mh_selection
 from .mixed import (DiscreteSite, discover_discrete_sites, gibbs_sweep,
                     mixed_warmup_and_sample)
-from .nuts import (da_init, da_update, find_reasonable_step_size, nuts,
+from .nuts import (NUTSStats, da_init, da_update, find_reasonable_step_size, nuts,
                    nuts_flat, nuts_warmup_and_sample)
 from .nuts_fsm import (FSMResult, nuts_fsm, nuts_fsm_paired,
                        nuts_fsm_warmup_and_sample)
@@ -25,8 +32,14 @@ from .target import FlatTarget
 from .tempering import (TemperedTarget, ais, parallel_tempering,
                         smc_sampler, smc_sampler_adaptive)
 
-__all__ = ["FlatTarget", "hmc_chains", "nuts", "nuts_flat",
-           "nuts_warmup_and_sample", "da_init", "da_update",
+__all__ = ["FlatTarget", "hmc", "hmc_chain", "hmc_chains",
+           "mh", "metropolis_hastings", "mh_selection", "mh_proposal",
+           "mala", "map_optimize", "elliptical_slice",
+           "enumerate_posterior", "enumerate_marginals",
+           "gibbs", "gibbs_conditional",
+           "LaplaceResult", "laplace_approx", "laplace_sample",
+           "flat_selected", "nuts", "nuts_flat",
+           "nuts_warmup_and_sample", "NUTSStats", "da_init", "da_update",
            "find_reasonable_step_size", "chees_hmc_warmup_and_sample",
            "chees_warmup_flat", "FSMResult", "nuts_fsm", "nuts_fsm_paired",
            "nuts_fsm_warmup_and_sample", "mass", "dense_mass_chol",

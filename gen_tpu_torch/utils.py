@@ -4,8 +4,9 @@ Counterpart: ``gen_tpu/utils.py``. Pytrees go through
 ``torch.utils._pytree``; ``sqrt_mass_safe`` keeps gen_tpu's frozen-coordinate
 convention; the bf16 helpers use gen_tpu's integer bit arithmetic, so the
 fused NUTS kernel (``ops/csrc/nuts_pair.cu``) and its twin round alike.
-Left out until a slice needs them: ``partition_inexact``/``combine``/
-``tree_vdot`` (gradient methods).
+``partition_inexact``/``combine``/``tree_vdot`` serve the gradient
+methods; ``None`` is a leaf of torch's pytrees (an empty node of JAX's),
+so :func:`combine` maps the two halves leaf by leaf.
 
 Not in gen_tpu: :func:`default_device`. The port's entry points put new
 tensors on the card unless the caller names another device. And
@@ -37,6 +38,38 @@ def default_int() -> torch.dtype:
     it, as ``jax.random``'s do."""
     return (torch.int64 if torch.get_default_dtype() == torch.float64
             else torch.int32)
+
+
+def is_inexact(x) -> bool:
+    """True for floating or complex tensors and Python floats/complexes."""
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point() or x.is_complex()
+    return isinstance(x, (float, complex))
+
+
+def partition_inexact(tree):
+    """Split a pytree into (differentiable, static) halves: inexact leaves
+    go to the first, everything else (ints, bools, non-tensors) to the
+    second; ``None`` fills the holes."""
+    dyn = pytree.tree_map(lambda x: x if is_inexact(x) else None, tree)
+    static = pytree.tree_map(lambda x: None if is_inexact(x) else x, tree)
+    return dyn, static
+
+
+def combine(dyn, static):
+    """Inverse of :func:`partition_inexact`."""
+    return pytree.tree_map(lambda a, b: b if a is None else a, dyn, static)
+
+
+def tree_vdot(a, b):
+    """Sum of elementwise products over matching leaves; ``a`` may be None
+    (-> 0). The <retgrad, retval> term of the gradient methods."""
+    if a is None:
+        return torch.tensor(0.0)
+    total = torch.tensor(0.0)
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+        total = total + torch.sum(torch.as_tensor(x) * torch.as_tensor(y))
+    return total
 
 
 def is_static_scalar(x) -> bool:

@@ -3,8 +3,8 @@ under the same keys, in float64, on tests/test_csmc.py's linear-Gaussian
 kernel and on examples/particle_gibbs.py's ``ssm_kernel``.
 
 Ancestry and parents are equal; log weights and log-ML estimates agree
-within 1e-12, and so do the sampled states (float64 normals differ from
-XLA's by ~1e-14 relative: torch's erfinv). gen_tpu's systematic
+within 1e-12, and so do the sampled states (float64 normals follow XLA's
+erf_inv within 3 ulp). gen_tpu's systematic
 resampling (the initial SMC run of ``particle_gibbs``) runs its plain
 paths on the CPU, as in tests/torch_smc_cases.py. The statistical gate of
 tests/test_csmc.py (400 sweeps against the Kalman smoother) runs on the

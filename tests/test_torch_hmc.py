@@ -112,7 +112,7 @@ def _ar1_draws(seed, n=400, m=16, rho=0.6):
 def test_diagnostics_match_on_shared_draws(seed):
     x = _ar1_draws(seed)
     with jax.enable_x64(False):
-        ref = {name: float(f(jnp.asarray(x))) for name, f in [
+        ref = {name: float(jax.jit(f)(jnp.asarray(x))) for name, f in [
             ("rhat", j_rhat), ("ess_bulk", j_ess_bulk),
             ("ess_tail", j_ess_tail), ("mcse_mean", j_mcse)]}
     xt = torch.from_numpy(x)
@@ -125,6 +125,25 @@ def test_diagnostics_match_on_shared_draws(seed):
     np.testing.assert_allclose(float(summ["a"]["rhat"]), ref["rhat"],
                                rtol=1e-4)
     assert summ["b"]["ess_bulk"].shape == (2,)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_rank_normalize_ties_and_nan_match_gen_tpu(nan):
+    """Average ranks of tied values, infinities and NaNs: the tie bounds
+    from runs of equal values give gen_tpu's normal scores (its two
+    searches), NaN lanes included."""
+    from gen_tpu.diagnostics import _rank_normalize as j_rank
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 7, size=(40, 4)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.inf
+    x[rng.random(x.shape) < 0.1] = -np.inf
+    if nan:
+        x[rng.random(x.shape) < 0.15] = np.nan
+    with jax.enable_x64(False):
+        ref = np.asarray(jax.jit(j_rank)(jnp.asarray(x)))
+    got = tdiag._rank_normalize(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_rhat_large_pooled_size_no_overflow():

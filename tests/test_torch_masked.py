@@ -7,8 +7,8 @@ and the masked lowering of Map and Unfold (sparse constraints, discards,
 element-varying selections, Map's length-changing update).
 
 Deterministic outputs (weights, discards, scores, the maps) agree within
-1e-12; sampled values agree within 1e-12 too (float64 normals differ from
-XLA's by ~1e-14 relative: torch's erfinv), and flags are equal.
+1e-12; sampled values agree within 1e-12 too (float64 normals follow
+XLA's erf_inv within 3 ulp), and flags are equal.
 """
 
 import pytest

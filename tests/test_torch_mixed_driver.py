@@ -3,9 +3,9 @@ against gen_tpu's (``gen_tpu/inference/mixed.py``), under the same keys in
 float64: ``gibbs_sweep`` on a model with a scalar categorical site and a
 vector bernoulli site (two chains under vmap), and
 ``mixed_warmup_and_sample`` on tests/test_mixed.py's GMM at 2 chains and
-4 + 4 iterations. Continuous draws agree within 1e-8 relative (float64
-normals differ from XLA's by ~1e-14: torch's erfinv); discrete draws and
-leapfrog counts exactly."""
+4 + 4 iterations. Continuous draws agree within 1e-12 relative (float64
+normals follow XLA's erf_inv within 3 ulp); discrete draws and leapfrog
+counts exactly."""
 
 import pytest
 
@@ -24,7 +24,7 @@ from torch_port_models import float64_default, gmm_obs  # noqa: E402
 from torch_port_models import mixed_problems as _problems  # noqa: E402
 from torch_port_models import same_choices as _same_choices  # noqa: E402
 
-RTOL = 1e-8
+RTOL = 1e-12
 
 
 @gt.gen

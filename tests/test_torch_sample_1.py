@@ -5,7 +5,5 @@ check. A part file holds at most 11 cases.
 
 from torch_sample_cases import (  # noqa: F401
     test_layout_helpers_match_gen_tpu,
-    test_auto_engine_matches_gen_tpu,
     test_output_layout_matches_gen_tpu,
-    test_auto_fallback_warns_and_records_reason,
 )

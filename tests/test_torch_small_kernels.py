@@ -24,7 +24,6 @@ CUDA thread, the warp intrinsics through a per-warp exchange buffer and a
 
 import hashlib
 import re
-import subprocess
 
 import pytest
 
@@ -138,8 +137,8 @@ int main(int argc, char** argv) {
 
 
 def _run(exe, tmp, *args):
-    res = subprocess.run([str(exe), str(tmp), *map(str, args)], check=True,
-                         timeout=120, capture_output=True, text=True)
+    res = S.run([str(exe), str(tmp), *map(str, args)], check=True,
+                timeout=120, capture_output=True, text=True)
     return [int(x) for x in res.stdout.split()]
 
 

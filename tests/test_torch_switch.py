@@ -8,7 +8,7 @@ index under vmap (gen_tpu's traced index: every branch runs and the index
 selects; generate, an index-changing update with its masked discard, the
 key-free update, regenerate, and a mixture model whose component index is
 itself a choice). Weights, scores, discards and values agree within 1e-12
-(float64 normals differ from XLA's by ~1e-14 relative: torch's erfinv),
+(float64 normals follow XLA's erf_inv within 3 ulp),
 flags are equal. Also the combinators' structural ``__eq__``/``__hash__``.
 """
 

@@ -42,7 +42,7 @@ from gen_tpu_torch.inference.nuts_fsm import summary_stats  # noqa: E402
 from gen_tpu_torch.ops import nuts_fused  # noqa: E402
 from gen_tpu_torch.ops.scalarize import stage_scalarized  # noqa: E402
 from gen_tpu_torch.utils import sqrt_mass_safe  # noqa: E402
-from torch_cuda_shim import SHIM  # noqa: E402
+from torch_cuda_shim import SHIM, run as shim_run  # noqa: E402
 from torch_port_models import (SCHOOL_ADDRS, SIGMAS_8, YS_8,  # noqa: E402
                                torch_eight_schools)
 
@@ -251,9 +251,9 @@ def test_shimmed_kernel_matches_plain_version(paired, schools10, tmp_path):
     for k, v in files.items():
         np.ascontiguousarray(v, np.float32).tofile(tmp_path / k)
     for cidx in (3, None):
-        subprocess.run([str(tmp_path / "k"), str(tmp_path), str(n),
-                        str(steps), repr(eps), repr(thr),
-                        str(-1 if cidx is None else cidx)], check=True)
+        shim_run([str(tmp_path / "k"), str(tmp_path), str(n), str(steps),
+                  repr(eps), repr(thr), str(-1 if cidx is None else cidx)],
+                 check=True)
 
         def out(k, dt=np.float32):
             return np.fromfile(tmp_path / k, dt)

@@ -24,9 +24,14 @@ runs as one ``std::thread``:
   own, as they do on the card between block-wide barriers).
 
 A kernel source is compiled by cutting off its launch functions (they use
-``<<<...>>>``) and appending a driver: :func:`build`.
+``<<<...>>>``) and appending a driver: :func:`build`. Run the program
+through :func:`run`, which holds it to one CPU core: every warp exchange
+waits for all 32 of its threads, and threads spread over cores that other
+processes keep busy wait on each other's time slices, where on one core
+they simply take turns.
 """
 
+import os
 import shutil
 import subprocess
 
@@ -167,6 +172,22 @@ template <class F> inline void shim_run(unsigned grid, unsigned block, F fn) {
 
 def have_gxx() -> bool:
     return shutil.which("g++") is not None
+
+
+def run(args, **kwargs):
+    """``subprocess.run(args, **kwargs)`` of a shimmed program, its threads
+    held to one of this process's cores (chosen by process id, so that
+    parallel test workers spread over the cores). The calling thread takes
+    that core while it starts and waits for the program, which inherits
+    it: no code runs in the child before ``exec``, where a multithreaded
+    parent's locks could hang it."""
+    old = os.sched_getaffinity(0)
+    cores = sorted(old)
+    os.sched_setaffinity(0, {cores[os.getpid() % len(cores)]})
+    try:
+        return subprocess.run(args, **kwargs)
+    finally:
+        os.sched_setaffinity(0, old)
 
 
 def build(tmp_path, source: str, cut: str, driver: str, name: str = "k"):

@@ -13,6 +13,15 @@ import torch
 import gen_tpu as gt
 import gen_tpu_torch as tt
 
+# One intra-op thread per test process. The suite runs as six pytest-xdist
+# workers on the CPU, and each worker's torch would start one OpenMP thread
+# per core: the port's tests are thousands of small ops, and the threads'
+# spinning between them oversubscribed the cores (the port's files summed
+# 2,031 s of junit time with the default threads and 1,095 s with one).
+# xdist imports every test module in every worker, and most port test
+# files import this module, so the setting holds in every worker.
+torch.set_num_threads(1)
+
 N_POINTS = 50
 XS = np.linspace(-3.0, 3.0, N_POINTS).astype(np.float32)
 YS = (np.float32(0.7) * XS - np.float32(0.4) + np.float32(0.5)

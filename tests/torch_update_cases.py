@@ -2,7 +2,7 @@
 against gen_tpu's, under the same keys, in float64.
 
 Weights, scores, discards and return values agree within 1e-12 relative
-(float64 normals differ from XLA's by ~1e-14 relative: torch's erfinv), on
+(float64 normals follow XLA's erf_inv within 3 ulp), on
 a dynamic model whose structure changes with a static argument (added,
 removed and constrained choices, a nested call) and on an Unfold
 state-space model: generate (dense and sparse constraints), update on the
