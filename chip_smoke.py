@@ -213,11 +213,50 @@ nonzero and no result line is printed):
        3``, a relabeled categorical) against the exact law (KS, marginal
        KS, chi-square, or the Poisson count and the intensity's cdf),
        their logpdfs on the card against the CPU within 1e-5.
-9. Numbers (printed after phase 12): per kernel its time, its plain
+13. The translators, the kernel DSL, predictive, SBC, SGMCMC,
+    resumable runs and profiling, then Recurse and the static IR; every
+    time from ``profiling.time_fn`` with the card beside it:
+    a. ``resumable_run`` over four segments of ten fused HMC steps (K1)
+       on the headline regression at 524,288 chains (``bench.py``'s
+       width), uninterrupted in one workdir; in a second workdir a run
+       killed after two segments, then a fresh call with new objects and
+       the same key and state0: state and draws equal bit for bit, K1's
+       launches equal to the segments run; a segment whose state turns
+       NaN rolls back onto the retry key and heals.
+    b. ``posterior_predictive`` from the draws of phase 5's
+       ``sample_posterior(engine="auto")`` run (K3) on eight_schools,
+       131,072 draws of the 524,288 kept: the predictive mean of each
+       y_j within 0.05 sd and its variance within 6% of the quadrature's
+       E[theta_j] and Var[theta_j] + sigma_j^2.
+    c. Involutive MH vmapped over 131,072 chains for 100 steps: x -> 1/x
+       on Gamma(2, 1) (tests/test_translators_nuts.py:136) in ``seq(
+       mixture([0.5, 0.5], [mh_selection, involution]), involution)``:
+       mean within 0.03 of 2 and variance within 0.1 of 2; the bimodal
+       flip (:101) in a mixture with ``mh_selection`` on x: the share of
+       z within 0.01 of one half, the mean of x given z within 0.02 of +-2.
+    d. SGLD: tests/test_sgmcmc.py's unbiasedness identity in float64 on
+       the card (rtol 1e-9); ``sgld_chain`` vmapped over 4,096 chains (eps
+       2e-4, 50 passes of 8 batches) against the exact posterior: the
+       mean over chains and the second half of the steps within 0.1
+       posterior sd, the sd across chains within 25%.
+    e. ``sbc_ranks`` of tests/test_sbc.py:57's HMC pipeline at 400
+       trials (L = 8, eps 0.25, 16 + 64 steps thinned by 4) in float64,
+       as that test runs: ``sbc_uniformity`` p-value above 0.01.
+    f. ``Recurse``, ``RecurseLeveled`` and a ``StaticGenFn`` vmapped over
+       4,096 traces in float64: the per-node arena's simulate and a
+       structure-changing update, both trees' fully constrained
+       ``generate`` and the static model's ``generate`` within 1e-12
+       (relative to max(|w|, 1)) of the same calls on the CPU; the
+       leveled weights equal the per-node ones within 1e-12.
+    g. One ``profile_trace`` of a K1 launch: the Chrome trace names
+       ``hmc_fused_kernel``.
+9. Numbers (printed after phase 13): per kernel its time, its plain
    version's time, its bound, the library call's time where there is one
    and launches on the main path, as one JSON line (K1's launches summed
-   over its three paths, the headline, ``sample_posterior``'s
-   ``hmc_fused`` engine and phase 10(c), with its SASS census: hot
+   over its four paths, the headline, ``sample_posterior``'s
+   ``hmc_fused`` engine, phase 10(c) and phase 13(a)'s resumable runs; K3's
+   at d=10 over phase 4 and phase 5's ``auto`` run, whose draws phase
+   13(b) reads; K1's entry with its SASS census: hot
    instructions a chain-step, MUFU a leapfrog, registers, spills, waves
    and the issue bound at the SM clock read under load; K2c and K2b per
    gradient of the staged-code kernel; K2c at 10^6 also at the ChEES
@@ -1184,12 +1223,14 @@ class PhaseClock:
         return False
 
 
-def phase_sample(torch, tt, dev, tag, s8, s100):
+def phase_sample(torch, tt, dev, tag, s8, s100, keep=None):
     """The one-call sampler on eight_schools through every engine, then
     (``WIDE_RUN``) ``nuts_fused`` on the 100-school model, where K3 runs
     one warp per chain; each call with the kernels' launch counts set to 0
     just before it and read just after; gates on the returned samples and
-    summary. Returns the launches per kernel over all calls."""
+    summary. Returns the launches per kernel over all calls. ``keep``
+    receives the ``auto`` run's last ``PRED_KEEP`` draws of every chain
+    (phase 13(b)'s posterior) and its launches."""
     from gen_tpu_torch import random
     from gen_tpu_torch._verify import schools_exact
     from gen_tpu_torch.inference import sample_posterior
@@ -1278,6 +1319,10 @@ def phase_sample(torch, tt, dev, tag, s8, s100):
               f"{worst[1]:.4f} split-R-hat={worst[2]:.4f} "
               f"{'OK' if ok else 'FAIL'}")
         check(ok, f"sample_posterior(engine={engine!r}) outside its gate")
+        if keep is not None and engine == "auto":
+            keep["samples"] = {k_: v_[-PRED_KEEP:].clone()
+                               for k_, v_ in out.samples.items()}
+            keep["launches"] = launches
         del out
     return totals
 
@@ -3727,6 +3772,474 @@ def phase_local(torch, tt, dev, tag):
     print(f"{tag} phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 13: translators, kernel DSL, predictive, SBC, SGMCMC, resumable
+#    runs, profiling, Recurse and the static IR --------------------------
+
+RES_SEGMENTS, RES_STEPS = 4, 10    # 13(a): K1 steps a segment
+PRED_KEEP = 4                      # phase 5's auto draws kept per chain
+PRED_DRAWS = 131072                # 13(b)
+# 13(c): 100 steps (200 took 27.6 s of phase 13's 45: the gamma
+# sampler's 72 bisection steps and both mixture components a step)
+INV_N, INV_STEPS = 131072, 100
+SGLD_N, SGLD_M, SGLD_CHAINS = 256, 32, 4096
+SGLD_EPS, SGLD_PASSES = 2e-4, 50   # 13(d)
+SBC_TRIALS = 400                   # 13(e)
+TREE_N = 4096                      # 13(f)
+
+
+def p13_time(fn):
+    """One call of ``fn`` timed by ``profiling.time_fn`` (no warm-up: each
+    part runs once). Returns (seconds, output)."""
+    from gen_tpu_torch.profiling import time_fn
+    return time_fn(fn, warmup=0, iters=1)
+
+
+def phase_resumable(torch, tt, dev, tag, k1, root):
+    """13(a) and (g): resumable K1 runs and a profiled K1 launch. Returns
+    K1's launches over the three runs."""
+    import os
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference.resumable import resumable_run
+    from gen_tpu_torch.ops.hmc_fused import hmc_chains_fused
+    from gen_tpu_torch.profiling import profile_trace
+    model, X, obs, sel, _, _, target, _, _ = k1
+    paths = flat_layout(tt, model.generate(random.PRNGKey(1, dev), (X,),
+                                           obs)[0], sel)[0]
+    slope_idx = paths.index(("slope",))
+    state0 = init_values(torch, model, (X,), obs, sel, random.split(
+        random.PRNGKey(31, dev), N_CHAINS))
+
+    def make_segment():
+        def segment(k, values):
+            v, slopes, _ = hmc_chains_fused(k, target.logp, values,
+                                            RES_STEPS, L=L, eps=EPS,
+                                            collect_idx=slope_idx)
+            return v, slopes
+        return segment
+
+    hmc_chains_fused.launches = 0
+    secs_a, (sa, da, ia) = p13_time(lambda: resumable_run(
+        os.path.join(root, "a"), random.PRNGKey(32, dev), make_segment(),
+        state0, RES_SEGMENTS))
+    launches = [hmc_chains_fused.launches]
+    check(not ia["resumed"] and launches[0] == RES_SEGMENTS,
+          f"13(a): {launches[0]} K1 launches for {RES_SEGMENTS} segments")
+    seg, calls = make_segment(), [0]
+
+    def dying(k, values):
+        if calls[0] == 2:
+            raise KeyboardInterrupt("simulated preemption")
+        calls[0] += 1
+        return seg(k, values)
+
+    hmc_chains_fused.launches = 0
+    try:
+        resumable_run(os.path.join(root, "b"), random.PRNGKey(32, dev),
+                      dying, state0, RES_SEGMENTS)
+        check(False, "13(a): the dying run did not die")
+    except KeyboardInterrupt:
+        pass
+    secs_b, (sb, db, ib) = p13_time(lambda: resumable_run(
+        os.path.join(root, "b"), random.PRNGKey(32, dev), make_segment(),
+        state0.clone(), RES_SEGMENTS))
+    launches.append(hmc_chains_fused.launches)
+    check(ib["resumed"] and ib["start_segment"] == 2,
+          f"13(a): resumed at {ib['start_segment']}")
+    check(torch.equal(sa, sb) and torch.equal(da, db),
+          "13(a): the resumed run differs from the uninterrupted one")
+    check(launches[1] == RES_SEGMENTS,
+          f"13(a): {launches[1]} K1 launches over the killed and resumed "
+          f"runs for {RES_SEGMENTS} segments")
+    check(tuple(da.shape) == (RES_SEGMENTS * RES_STEPS, N_CHAINS)
+          and bool(torch.isfinite(da).all()), "13(a): bad draws")
+    armed = [True]
+
+    def flaky(k, values):
+        v, slopes = seg(k, values)
+        if armed[0]:
+            armed[0] = False
+            v = v.clone()
+            v[0, 0] = float("nan")
+        return v, slopes
+
+    hmc_chains_fused.launches = 0
+    secs_c, (sc, dc, ic) = p13_time(lambda: resumable_run(
+        os.path.join(root, "c"), random.PRNGKey(33, dev), flaky, state0, 2))
+    launches.append(hmc_chains_fused.launches)
+    check(ic["retries"] == [(0, 0)] and bool(torch.isfinite(sc).all())
+          and launches[2] == 3,
+          f"13(a): NaN segment: retries {ic['retries']}, {launches[2]} "
+          "launches")
+    print(f"{tag} 13(a) resumable K1, {RES_SEGMENTS} x {RES_STEPS} steps "
+          f"at {N_CHAINS} chains: uninterrupted {secs_a:.3f} s, resumed "
+          f"after a kill at segment 2 {secs_b:.3f} s (equal bit for bit), "
+          f"NaN segment healed in {secs_c:.3f} s; K1 launches {launches}")
+
+    # 13(g): one profiled K1 launch (not a launch of the path)
+    saved = hmc_chains_fused.launches
+    prof_dir = os.path.join(root, "profile")
+    with profile_trace(prof_dir):
+        hmc_chains_fused(random.PRNGKey(34, dev), target.logp, sa, RES_STEPS,
+                         L=L, eps=EPS, collect_idx=slope_idx)
+    hmc_chains_fused.launches = saved
+    names = set()
+    for f in os.listdir(prof_dir):
+        with open(os.path.join(prof_dir, f)) as fh:
+            names |= {e.get("name", "") for e in json.load(fh)
+                      .get("traceEvents", [])}
+    k1_names = sorted(n for n in names if "hmc_fused_kernel" in n)
+    print(f"{tag} 13(g) profile_trace of one K1 launch: {len(names)} event "
+          f"names, K1's: {k1_names[:1]}")
+    check(k1_names, "13(g): the profile trace does not name the K1 kernel")
+    return sum(launches)
+
+
+def theta_exact(ys, sigmas):
+    """E[theta_j] and Var[theta_j] of eight_schools' school effects
+    theta_j = mu + exp(log_tau) theta_std_j, by the quadrature of
+    ``_verify.schools_exact`` over (mu, log_tau) with theta_j's
+    conditional Gaussian."""
+    from gen_tpu_torch._verify import LTAU_SD, MU_SD
+    ys = np.asarray(ys, np.float64)
+    sig = np.asarray(sigmas, np.float64)
+    MU, LT = np.meshgrid(np.linspace(-25.0, 35.0, 601),
+                         np.linspace(-7.0, 5.0, 601), indexing="ij")
+    tau2 = np.exp(2.0 * LT)
+    logw = -0.5 * (MU / MU_SD) ** 2 - 0.5 * (LT / LTAU_SD) ** 2
+    for y_i, s_i in zip(ys, sig):
+        v = s_i ** 2 + tau2
+        logw = logw - 0.5 * np.log(v) - 0.5 * (y_i - MU) ** 2 / v
+    w = np.exp(logw - logw.max())
+    w /= w.sum()
+    mean, var = np.empty(len(ys)), np.empty(len(ys))
+    for j, (y_j, s_j) in enumerate(zip(ys, sig)):
+        prec = 1.0 / tau2 + 1.0 / s_j ** 2
+        cm = (MU / tau2 + y_j / s_j ** 2) / prec
+        mean[j] = (w * cm).sum()
+        var[j] = (w * (1.0 / prec + cm ** 2)).sum() - mean[j] ** 2
+    return mean, var
+
+
+def phase_predictive(torch, tt, dev, tag, s8, kept):
+    """13(b): the posterior predictive of eight_schools from phase 5's
+    auto draws."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import posterior_predictive
+    (model, args, _, _), ys, sigmas = s8
+    secs, pred = p13_time(lambda: posterior_predictive(
+        random.PRNGKey(41, dev), model, args, kept["samples"],
+        num_draws=PRED_DRAWS))
+    y = pred.get_value("ys").double()
+    check(tuple(y.shape) == (PRED_DRAWS, len(ys))
+          and bool(torch.isfinite(y).all()), "13(b): bad predictive draws")
+    m_ex, v_ex = theta_exact(ys, sigmas)
+    pv = v_ex + np.asarray(sigmas) ** 2
+    m = y.mean(0).cpu().numpy()
+    v = y.var(0, correction=0).cpu().numpy()
+    dm = float(np.max(np.abs(m - m_ex) / np.sqrt(pv)))
+    dv = float(np.max(np.abs(v / pv - 1.0)))
+    print(f"{tag} 13(b) posterior_predictive: {PRED_DRAWS} draws of "
+          f"{kept['samples']['mu'].numel()} kept from the auto run (K3 launches there {kept['launches']}) "
+          f"in {secs:.3f} s; worst |dmean|/sd {dm:.4f} (gate 0.05), "
+          f"|dvar|/var {dv:.4f} (gate 0.06)")
+    check(dm < 0.05 and dv < 0.06, "13(b): predictive outside its gate")
+
+
+def phase_involutive(torch, tt, dev, tag):
+    """13(c): involutive MH and the kernel DSL, vmapped over chains."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import (mh_involutive, mh_selection,
+                                         mixture, seq, transform)
+    vmap = torch.func.vmap
+
+    @tt.gen
+    def null_proposal(tr):
+        tt.bernoulli(0.5) @ "dummy"
+
+    @tt.gen
+    def gmodel():
+        tt.gamma(2.0, 1.0) @ "x"
+
+    @transform
+    def recip(ctx):
+        ctx.model_out["x"] = 1.0 / ctx.model_in["x"]
+        ctx.copy("aux_in", "dummy", "aux_out", "dummy")
+
+    @tt.gen
+    def bimodal():
+        z = tt.bernoulli(0.5) @ "z"
+        tt.normal(torch.where(z, 2.0, -2.0), 0.5) @ "x"
+
+    @transform
+    def flip(ctx):
+        ctx.model_out.discrete["z"] = torch.logical_not(
+            ctx.model_in.discrete["z"])
+        ctx.model_out["x"] = -ctx.model_in["x"]
+        ctx.copy("aux_in", "dummy", "aux_out", "dummy")
+
+    def sel_x(k, t):
+        return mh_selection(k, t, tt.select("x"))
+
+    def inv(k, t):
+        return mh_involutive(k, t, null_proposal, (), recip)
+
+    def flip_k(k, t):
+        return mh_involutive(k, t, null_proposal, (), flip)
+
+    x0 = torch.tensor(2.0, device=dev)
+    cases = (
+        ("x -> 1/x on Gamma(2, 1)", gmodel, tt.choicemap(x=x0),
+         seq(mixture([0.5, 0.5], [sel_x, inv]), inv)),
+        ("bimodal flip", bimodal, tt.choicemap(
+            z=torch.tensor(True, device=dev), x=x0),
+         mixture([0.5, 0.5], [flip_k, sel_x])))
+    for i, (name, model, start, kernel) in enumerate(cases):
+        traces = vmap(lambda k: model.generate(k, (), start)[0])(
+            random.split(random.PRNGKey(50 + i, dev), INV_N))
+        step = vmap(kernel)
+
+        def run(traces=traces, step=step, i=i):
+            for s in range(INV_STEPS):
+                traces, _ = step(random.split(random.fold_in(
+                    random.PRNGKey(60 + i, dev), s), INV_N), traces)
+            return traces
+
+        secs, traces = p13_time(run)
+        x = traces["x"].double()
+        if i == 0:
+            m, v = float(x.mean()), float(x.var(correction=0))
+            ok = abs(m - 2.0) < 0.03 and abs(v - 2.0) < 0.1
+            print(f"{tag} 13(c) {name}: {INV_N} chains x {INV_STEPS} steps "
+                  f"in {secs:.2f} s ({secs / INV_STEPS * 1e3:.1f} ms a "
+                  f"step); mean {m:.4f} var {v:.4f} (exact 2, 2; gates "
+                  f"0.03, 0.1) {'OK' if ok else 'FAIL'}")
+        else:
+            z = traces["z"]
+            share = float(z.double().mean())
+            m1, m0 = float(x[z].mean()), float(x[~z].mean())
+            ok = (abs(share - 0.5) < 0.01 and abs(m1 - 2.0) < 0.02
+                  and abs(m0 + 2.0) < 0.02)
+            print(f"{tag} 13(c) {name}: {INV_N} chains x {INV_STEPS} steps "
+                  f"in {secs:.2f} s; share of z {share:.4f} (gate 0.01 of "
+                  f"one half), mean x given z {m1:+.4f}, given not z "
+                  f"{m0:+.4f} (gates 0.02 of +-2) {'OK' if ok else 'FAIL'}")
+        check(ok, f"13(c): {name} outside its gate")
+
+
+def phase_sgld(torch, tt, dev, tag):
+    """13(d): the minibatch gradient's unbiasedness in float64 and an SGLD
+    chain against the exact posterior."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import (FlatTarget, MinibatchTarget,
+                                         sgld_chain)
+    rng = np.random.default_rng(2)
+    xs = rng.uniform(-1, 1, SGLD_N)
+    ys = 0.8 * xs + 0.5 * rng.standard_normal(SGLD_N)
+    s = SGLD_N // SGLD_M
+
+    @tt.gen
+    def reg_model(xs):
+        w = tt.normal(0.0, 1.0) @ "w"
+        tt.normal(w * xs, 0.5) @ "ys"
+
+    sel = tt.select("w")
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        X = torch.tensor(xs, device=dev)
+        Y = torch.tensor(ys, device=dev)
+        tr, _ = reg_model.generate(random.PRNGKey(0, dev), (X[:SGLD_M],),
+                                   tt.choicemap(ys=Y[:SGLD_M]))
+        target = MinibatchTarget(tr, sel, n_total=SGLD_N,
+                                 batch_size=SGLD_M)
+        flat = torch.tensor([0.3], device=dev)
+        grads = torch.stack([target.grad_estimate(
+            flat, (X[i * SGLD_M:(i + 1) * SGLD_M],),
+            tt.choicemap(ys=Y[i * SGLD_M:(i + 1) * SGLD_M]))
+            for i in range(s)])
+        full_tr, _ = reg_model.generate(random.PRNGKey(0, dev), (X,),
+                                        tt.choicemap(ys=Y))
+        _, g_full = FlatTarget(full_tr, sel).value_and_grad(flat)
+        rel = float((grads.mean(0) - g_full).abs().max()
+                    / g_full.abs().max())
+    finally:
+        torch.set_default_dtype(prev)
+    print(f"{tag} 13(d) minibatch gradient, float64 on the card: mean over "
+          f"the partition vs full data, relative error {rel:.2e} "
+          "(gate 1e-9)")
+    check(rel < 1e-9, "13(d): the minibatch gradient is biased")
+
+    X = torch.tensor(xs, dtype=torch.float32, device=dev)
+    Y = torch.tensor(ys, dtype=torch.float32, device=dev)
+    tr, _ = reg_model.generate(random.PRNGKey(0, dev), (X[:SGLD_M],),
+                               tt.choicemap(ys=Y[:SGLD_M]))
+    target = MinibatchTarget(tr, sel, n_total=SGLD_N, batch_size=SGLD_M)
+    bargs = (X.reshape(s, SGLD_M),)
+    bobs = tt.choicemap(ys=Y.reshape(s, SGLD_M))
+    secs, hist = p13_time(lambda: torch.func.vmap(lambda k: sgld_chain(
+        k, target, bargs, bobs, step_size=SGLD_EPS,
+        n_passes=SGLD_PASSES))(random.split(random.PRNGKey(70, dev),
+                                            SGLD_CHAINS)))
+    prec = 1.0 + np.sum(xs ** 2) / 0.25
+    m_ex, sd_ex = (np.sum(xs * ys) / 0.25) / prec, 1.0 / np.sqrt(prec)
+    half = hist[:, hist.shape[1] // 2:, 0].double()
+    m = float(half.mean())
+    sd = float(half.std(0, correction=0).mean())
+    ok = abs(m - m_ex) < 0.1 * sd_ex and abs(sd / sd_ex - 1.0) < 0.25
+    print(f"{tag} 13(d) sgld_chain: {SGLD_CHAINS} chains x "
+          f"{hist.shape[1]} steps (eps {SGLD_EPS}) in {secs:.2f} s; mean "
+          f"{m:.5f} (exact {m_ex:.5f}), sd {sd:.5f} (exact {sd_ex:.5f}); "
+          f"gates 0.1 sd, 25% {'OK' if ok else 'FAIL'}")
+    check(ok, "13(d): SGLD outside its gate")
+
+
+def phase_sbc(torch, tt, dev, tag):
+    """13(e): SBC of tests/test_sbc.py:57's HMC pipeline, in float64 as
+    that test runs (x64). Its trajectory (L eps = 2) is close to a full
+    period of the posterior's oscillation (sd 0.35), so its thinned draws
+    stay correlated and the rank test's verdict turns on the key: in
+    float32, whose draws differ, this key gives p = 9.4e-6 in gen_tpu and
+    in the port alike (a CPU run)."""
+    from gen_tpu_torch import random
+    from gen_tpu_torch.inference import hmc, sbc_ranks, sbc_uniformity
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ones = torch.ones(8, device=dev)
+
+        @tt.gen
+        def model():
+            mu = tt.normal(0.0, 2.0) @ "mu"
+            tt.normal(mu * ones, 1.0) @ "ys"
+
+        def run(key, obs):
+            k0, k1 = random.split(key)
+            tr, _ = model.generate(k0, (), obs)
+            mus = []
+            for k in random.split(k1, 64 + 16):
+                tr, _ = hmc(k, tr, tt.select("mu"), L=8, eps=0.25)
+                mus.append(tr["mu"])
+            return torch.stack(mus)[16:][:, None]
+
+        secs, (ranks, n_l) = p13_time(lambda: sbc_ranks(
+            random.PRNGKey(3, dev), model, (), tt.select("ys"), run,
+            num_trials=SBC_TRIALS, thin=4))
+    finally:
+        torch.set_default_dtype(prev)
+    _, _, pval = sbc_uniformity(ranks, n_l, num_bins=8)
+    print(f"{tag} 13(e) sbc_ranks (float64): {SBC_TRIALS} trials of 80 HMC "
+          f"steps (L = {n_l} draws after thinning) in {secs:.2f} s; "
+          f"uniformity p-value {float(pval[0]):.4f} (gate > 0.01)")
+    check(n_l == 16 and float(pval[0]) > 0.01, "13(e): SBC fails")
+
+
+def phase_trees(torch, tt, dev, tag):
+    """13(f): Recurse, RecurseLeveled and a StaticGenFn vmapped over
+    float64 traces, on the card and on the CPU under the same keys."""
+    from gen_tpu_torch import random, static_ir
+    vmap = torch.func.vmap
+    B_, D_ = 2, 3
+    n_nodes = 2 ** D_ - 1
+    rng = np.random.default_rng(80)
+    vs = rng.normal(0.0, 1.0, (TREE_N, n_nodes))
+    brs = rng.uniform(size=(TREE_N, n_nodes)) < 0.4
+    slopes = rng.normal(0.0, 2.0, TREE_N)
+
+    def kernels():
+        @tt.gen
+        def production(u):
+            v = tt.normal(u, 1.0) @ "v"
+            branch = tt.bernoulli(0.4) @ "branch"
+            return (v, torch.where(branch, 2, 0),
+                    torch.stack([v * 0.5, v * -0.5]))
+
+        @tt.gen
+        def aggregation(v, child_ws, nchild):
+            mask = torch.arange(B_, device=child_ws.device) < nchild
+            return v + torch.sum(torch.where(mask, child_ws, 0.0))
+        return production, aggregation
+
+    def run(device):
+        prod, agg = kernels()
+        w0 = torch.tensor(0.0, dtype=torch.float64, device=device)
+        node = tt.Recurse(prod, agg, B_, D_, w_example=w0)
+        lvl = tt.RecurseLeveled(prod, agg, B_, D_, w_example=w0)
+        b = static_ir.StaticIRBuilder("static_reg")
+        xs = b.argument("xs")
+        slope = b.choice(tt.normal, [b.julia(lambda: 0.0, []),
+                                     b.julia(lambda: 2.0, [])], addr="slope")
+        mu = b.julia(lambda s_, x_: s_ * x_, [slope, xs], name="mu")
+        b.choice(tt.normal, [mu, b.julia(lambda: 0.5, [])], addr="ys")
+        sgf = static_ir.StaticGenFn(b.build())
+        keys = random.split(random.PRNGKey(81, device), TREE_N)
+        V = torch.tensor(vs, device=device)
+        BR = torch.tensor(brs, device=device)
+        flip = tt.ChoiceMap().set_value((0, "production", "branch"),
+                                        torch.tensor(True, device=device))
+        trs = vmap(lambda k: node.simulate(k, (0.0,)))(keys)
+        w_up = vmap(lambda k, t: node.update(
+            k, t, (0.0,), (tt.UnknownChange,), flip)[1])(keys, trs)
+
+        def full(v, br):
+            c = tt.ChoiceMap()
+            for i in range(n_nodes):
+                c.set_value((i, "production", "v"), v[i])
+                c.set_value((i, "production", "branch"), br[i])
+            return c
+
+        w_node = vmap(lambda k, v, br: node.generate(
+            k, (0.0,), full(v, br))[1])(keys, V, BR)
+        w_lvl = vmap(lambda k, v, br: lvl.generate(
+            k, (0.0,), full(v, br))[1])(keys, V, BR)
+        xs_t = torch.tensor([1.0, 2.0, -0.5], device=device)
+        w_sgf = vmap(lambda k, s_: sgf.generate(
+            k, (xs_t,), tt.choicemap(slope=s_))[1])(
+                keys, torch.tensor(slopes, device=device))
+        return dict(score=trs.get_score(), noise=trs.noise,
+                    retval=trs.get_retval(), update=w_up, node=w_node,
+                    level=w_lvl, static=w_sgf)
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        secs, card = p13_time(lambda: run(dev))
+        cpu = run(torch.device("cpu"))
+    finally:
+        torch.set_default_dtype(prev)
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+    errs = {k: rel(card[k], cpu[k]) for k in card}
+    lvl_err = rel(card["level"], card["node"])
+    print(f"{tag} 13(f) Recurse / RecurseLeveled / StaticGenFn over "
+          f"{TREE_N} float64 traces on the card in {secs:.2f} s; card vs "
+          f"CPU: {', '.join(f'{k} {v:.1e}' for k, v in errs.items())}; "
+          f"leveled vs per-node {lvl_err:.1e} (gates 1e-12)")
+    check(max(errs.values()) < 1e-12 and lvl_err < 1e-12,
+          "13(f): the card differs from the CPU, or leveled from per-node")
+
+
+def phase_slice13(torch, tt, dev, tag, ctx, kept):
+    """Phase 13. Returns K1's launches on 13(a)'s path."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_13_")
+    try:
+        k1_launches = phase_resumable(torch, tt, dev, tag, ctx["k1"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_predictive(torch, tt, dev, tag, ctx["s8"], kept)
+    phase_involutive(torch, tt, dev, tag)
+    phase_sgld(torch, tt, dev, tag)
+    phase_sbc(torch, tt, dev, tag)
+    phase_trees(torch, tt, dev, tag)
+    print(f"{tag} phase 13 took {time.perf_counter() - t0:.1f} s")
+    return k1_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3782,8 +4295,9 @@ def main():
                                      ctx["s100"], 32768, tag, errs,
                                      ctx["st_102"])
     stamp("phase 4 (metrics 2 and 3)")
+    kept = {}
     sample_launches = phase_sample(torch, tt, dev, tag, ctx["s8"],
-                                   ctx["s100"])
+                                   ctx["s100"], kept)
     print(f"{tag} sample_posterior launches over all engines: "
           f"{sample_launches}")
     print(f"{tag} staging {ctx['stage_s']:.3f} s, nvcc build "
@@ -3817,13 +4331,28 @@ def main():
     phase_local(torch, tt, dev, tag)
     stamp("phase 12 (gradients, local moves)")
 
+    # -- phase 13: translators, DSL, predictive, SBC, SGMCMC, resumable
+    #    runs, profiling, Recurse and the static IR -----------------------
+    res_launches = phase_slice13(torch, tt, dev, tag, ctx, kept)
+    auto_k3_launches = kept["launches"]["nuts_pair"]
+    del kept
+    stamp("phase 13 (resumable K1, predictive, translators, SGLD, SBC, "
+          "Recurse, static IR)")
+
     # -- phase 9: numbers ---------------------------------------------------
-    # K1 runs on three main paths: the headline, sample_posterior's
-    # hmc_fused engine and phase 10(c)'s AR(1) model
+    # K1 runs on four main paths: the headline, sample_posterior's
+    # hmc_fused engine, phase 10(c)'s AR(1) model and phase 13(a)'s
+    # resumable runs; K3 at d=10 on phase 4's path and in phase 5's auto
+    # run, whose draws phase 13(b) reads
     k1_entry["launches_by_path"] = dict(
         headline=k1_entry["launches"], sample_posterior=sample_launches[
-            "hmc_fused"], ar1=ar1_res["hmc_fused"]["k1_launches"])
+            "hmc_fused"], ar1=ar1_res["hmc_fused"]["k1_launches"],
+        resumable=res_launches)
     k1_entry["launches"] = sum(k1_entry["launches_by_path"].values())
+    k3_10["launches_by_path"] = dict(
+        metric_2=k3_10["launches"],
+        sample_posterior_auto=auto_k3_launches)
+    k3_10["launches"] = sum(k3_10["launches_by_path"].values())
     k4 = k4_entry(torch, dev, tag, smc_a, k4_err, tempered)
     k5 = k5_entry(torch, dev, tag, decode_run, k5_err)
     k2 = k2_entries(torch, dev, ctx, k2_err, stream_res, ar1_res)

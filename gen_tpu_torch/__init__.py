@@ -7,12 +7,14 @@ built on first use from the sources under ``ops/csrc``; a tensor on the CPU
 runs each kernel's plain PyTorch twin instead.
 """
 
-from . import combinators, diagnostics, inference, random
+from . import combinators, diagnostics, inference, random, static_ir
 from .address import addr_path
 from .choice_map import ChoiceMap, choicemap
-from .combinators import (Map, Switch, SwitchCombinator, Unfold,
-                          UnfoldArena, VectorChoiceMap, call_at, choice_at,
-                          smc_run, vector_choicemap)
+from .combinators import (CustomDetermGF, CustomGradientGF, CustomUpdateGF,
+                          Map, Recurse, RecurseLeveled, Switch,
+                          SwitchCombinator, Unfold, UnfoldArena,
+                          VectorChoiceMap, call_at, choice_at, smc_run,
+                          vector_choicemap)
 from .diff import IntDiff, NoChange, UnknownChange
 from .dists import *  # noqa: F401,F403
 from .dists import __all__ as _dists_all
@@ -34,4 +36,6 @@ __all__ = [
     "GenerativeFunction", "Trace", "complement", "select", "selectall",
     "selectnone", "Switch", "SwitchCombinator", "choice_at", "call_at",
     "MaskedValue", "mask", "MaskedSelection", "masked_select",
+    "Recurse", "RecurseLeveled", "CustomDetermGF", "CustomUpdateGF",
+    "CustomGradientGF", "static_ir",
 ] + _dists_all

@@ -52,8 +52,10 @@ def _u64(key, shape):
 def gamma_icdf(alpha: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The standard gamma quantile at ``u`` (float64): bisection of
     ``torch.special.gammainc`` on log g over [-800, log(alpha + 50
-    sqrt(alpha) + 50)], 72 halvings (past float64 resolution)."""
-    alpha = alpha.to(torch.float64)
+    sqrt(alpha) + 50)], 72 halvings (past float64 resolution). ``alpha``
+    goes to ``u``'s device: a Python-float shape is a CPU tensor, and
+    ``gammainc`` takes no CPU scalar beside a CUDA tensor."""
+    alpha = alpha.to(device=u.device, dtype=torch.float64)
     lo = torch.full_like(alpha * u, -800.0)
     hi = torch.log(alpha + 50.0 * torch.sqrt(alpha) + 50.0) + 0.0 * lo
     for _ in range(72):
@@ -66,8 +68,9 @@ def gamma_icdf(alpha: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def _poisson_icdf(lam: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The smallest k with P(X <= k) = gammaincc(k + 1, lam) >= u, by
-    bisection over [-1, lam + 50 sqrt(lam) + 50] (float64)."""
-    lam = lam.to(torch.float64)
+    bisection over [-1, lam + 50 sqrt(lam) + 50] (float64), on ``u``'s
+    device as :func:`gamma_icdf`."""
+    lam = lam.to(device=u.device, dtype=torch.float64)
     hi = torch.floor(lam + 50.0 * torch.sqrt(lam) + 50.0) + 0.0 * u
     lo = torch.full_like(hi, -1.0)
     for _ in range(_BISECT):

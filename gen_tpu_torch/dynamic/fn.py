@@ -31,12 +31,21 @@ from .trace import ChoiceRecord, DynamicTrace
 
 
 def _trace(gen_fn, args, retval, h) -> DynamicTrace:
-    """The trace a handler recorded. The noise accumulator is still the
-    CPU scalar it started as when the body traced no call; it moves to the
-    score's device, so that one index tensor can gather every leaf of a
-    batch of traces (resampling does)."""
-    return DynamicTrace(gen_fn, args, retval, h.score,
-                        h.noise.to(h.score.device), h.records)
+    """The trace a handler recorded. The score and noise accumulators are
+    still the CPU scalars they started as when the body traced nothing;
+    they move to the device of the body's arguments or return
+    value, and the noise to the score's, so that a batch of such traces
+    lives on one device: one index tensor gathers every leaf (resampling
+    does), and a mask on the card selects between two of them (Recurse's
+    aggregation traces, which hold no choice)."""
+    score = h.score
+    if not h.records:
+        for x in pytree.tree_leaves((args, retval)):
+            if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+                score = score.to(x.device)
+                break
+    return DynamicTrace(gen_fn, args, retval, score,
+                        h.noise.to(score.device), h.records)
 
 
 class GenFn(GenerativeFunction):

@@ -113,7 +113,9 @@ def hmc_chains(key, target, values0, n_steps: int, L: int = 10,
             m = m + (eps_m / 2) * g
         alpha = lp - logp - kin(m) + kin(momenta0)
         alpha = torch.where(torch.isnan(alpha), -math.inf, alpha)
-        acc = torch.log(random.uniform(k_acc, (n,))) < alpha
+        # the accept uniform in JAX's default float (float64 under x64)
+        acc = torch.log(random.uniform(k_acc, (n,),
+                                       torch.get_default_dtype())) < alpha
         values = torch.where(acc[:, None], v, values)
         logp = torch.where(acc, lp, logp)
         grad = torch.where(acc[:, None], g, grad)
